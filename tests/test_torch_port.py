@@ -1,0 +1,106 @@
+"""Structure of the PyTorch port: it never imports JAX or the reference
+package, it never falls back to the CPU unasked, its CLI runs and replays
+plans, and the TPU-only / pending knobs raise.
+"""
+
+import ast
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.fl.engine import (ExecutionConfig, LocalEngine,
+                                   resolve_backend, resolve_device)
+from repro_torch.launch import train
+
+SRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_module_imports_jax_or_the_reference():
+    files = sorted(SRC.rglob("*.py"))
+    assert len(files) > 20
+    bad = [(str(f.relative_to(SRC)), name) for f in files
+           for name in _imports(f) if name.split(".")[0] in FORBIDDEN]
+    assert bad == []
+    root = SRC.parents[1] / "chip_smoke.py"
+    assert [n for n in _imports(root) if n.split(".")[0] in FORBIDDEN] == []
+
+
+def test_entry_points_raise_without_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LocalEngine(lambda p, b: 0.0, ExecutionConfig())
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        train.main(["--rounds", "1"])
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("device,fp32", [("cuda", True), ("cpu", False)])
+def test_cuda_engine_sets_the_fp32_policy(monkeypatch, device, fp32):
+    # building a CUDA engine touches no card, only the process-wide flags
+    flags = [(torch.backends.cuda.matmul, "allow_tf32", True),
+             (torch.backends.cudnn, "allow_tf32", True),
+             (torch.backends.cudnn, "deterministic", False),
+             (torch.backends.cudnn, "benchmark", True)]
+    for mod, name, loose in flags:
+        monkeypatch.setattr(mod, name, loose)
+    LocalEngine(lambda p, b: 0.0, ExecutionConfig(), device=device)
+    for mod, name, loose in flags:
+        assert getattr(mod, name) == (not loose if fp32 else loose), name
+
+
+@pytest.mark.parametrize("cfg,exc", [
+    (ExecutionConfig(backend="sparse"), NotImplementedError),
+    (ExecutionConfig(quant="int8"), NotImplementedError),
+    (ExecutionConfig(mesh=object()), NotImplementedError),
+    (ExecutionConfig(stream=object()), NotImplementedError),
+    (ExecutionConfig(backend="aggregate", record_mixed=True), ValueError),
+    (ExecutionConfig(backend="nope"), ValueError)])
+def test_pending_and_invalid_configs_raise(cfg, exc):
+    with pytest.raises(exc):
+        resolve_backend(cfg)
+
+
+@pytest.mark.parametrize("cfg,effective", [
+    (ExecutionConfig(backend="fused"), "aggregate"),
+    (ExecutionConfig(backend="pallas"), "aggregate"),
+    (ExecutionConfig(backend="fused", record_mixed=True), "fused"),
+    (ExecutionConfig(backend="pallas", record_mixed=True), "pallas"),
+    (ExecutionConfig(backend="einsum", record_mixed=True), "einsum")])
+def test_record_mixed_upgrade_matrix(cfg, effective):
+    assert resolve_backend(cfg) == effective
+
+
+def test_train_cli_runs_and_replays_its_plan(tmp_path, capsys):
+    args = ["--device", "cpu", "--model", "logreg", "--rounds", "2",
+            "--n", "10", "--clusters", "2", "--k-min", "2", "--k-max", "3",
+            "--samples", "200", "--T", "2", "--batch", "4", "--quiet"]
+    plan = tmp_path / "plan.json"
+    out1, out2 = tmp_path / "a.json", tmp_path / "b.json"
+    assert train.main(args + ["--backend", "fused", "--record-mixed",
+                              "--dropout", "0.2", "--plan-out", str(plan),
+                              "--out", str(out1)]) == 0
+    assert "fused backend" in capsys.readouterr().out
+    assert train.main(args + ["--backend", "einsum", "--scan",
+                              "--plan", str(plan), "--out", str(out2)]) == 0
+    a, b = json.loads(out1.read_text()), json.loads(out2.read_text())
+    assert a["total_cost"] == b["total_cost"]
+    assert [r["d2s"] for r in a["rounds"]] == [r["d2s"] for r in b["rounds"]]
+    np.testing.assert_allclose([r["test_loss"] for r in a["rounds"]],
+                               [r["test_loss"] for r in b["rounds"]],
+                               rtol=1e-5)
