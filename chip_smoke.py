@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """On-chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py            # one CUDA card; ~2-3 minutes
+    python3 chip_smoke.py            # one CUDA card; ~4-5 minutes
 
 Phases (each raises on failure; nothing is caught):
 
 1. build   -- compile every ``src/repro_torch/kernels/csrc/*.cu`` with
               ``nvcc`` (one process per source, in parallel) and print
               each kernel's register / shared-memory use from ptxas.
-2. kernels -- hold each hand-written kernel (aggregate, mix_aggregate,
-              mix) against its plain PyTorch version on the card: at the
+2. kernels -- hold each dense hand-written kernel (aggregate,
+              mix_aggregate, mix) against its plain PyTorch version on the
+              card: at the
               main path's shapes (70 clients x 1,663,488 packed fp32
               columns for aggregate and mix_aggregate; 70 x each CNN
               leaf's size for mix, which the 'pallas' path launches once
@@ -19,22 +20,40 @@ Phases (each raises on failure; nothing is caught):
               plain version's time, its bound (bytes or fp32 operations
               at the H100's published peaks) and the time of
               ``torch.matmul`` computing the same function.
+   sparse  -- the same for the ELL kernels (sparse_mix,
+              sparse_mix_aggregate) at four shapes: the ELL of a
+              ``k_regular`` plan of the paper's configuration (70 x
+              1,663,488 f32, d_max <= 10), an n = 100,000 ``ring`` (12,500
+              clusters of 8, d_max = 2, p = 2,048 f32), a ragged ``hub``
+              (37 x 1,000, f32 and bf16, d_max = 37) and FedAvg's identity
+              (d_max = 1).  Times beside ``torch.sparse.mm`` (CSR x dense)
+              as the library yardstick.
 3. train   -- Algorithm 1 end to end at full width through
               ``FederatedServer``: n = 70 clients in c = 7 clusters,
               ``k_regular`` k in [6, 9] with p_fail = 0.1, the McMahan
               CNN on 28x28x1 synthetic data, T = 5, batch 32, 3 rounds;
               backends 'fused' (-> the aggregate kernel), 'fused' with
               record_mixed (-> mix_aggregate) and 'pallas' with
-              record_mixed (-> mix), each scanned and sequential, against
+              record_mixed (-> mix), 'sparse' (-> the ELL combine row and
+              the aggregate kernel) and 'sparse' with record_mixed (->
+              sparse_mix_aggregate), each scanned and sequential, against
               the port's plain 'einsum' backend, under the fp32 policy
               the port's engine sets (no TF32, deterministic cuDNN).
-              Every kernel's launch count is reset before its path and
-              read after it.  Last, one more sequential 'fused' run
+              Then eq. 3 alone (``ops.sparse_mix``, -> sparse_mix) on the
+              first round's client deltas with the plan's ELL, against
+              the dense oracle.  Every kernel's launch count is reset
+              before its path and read after it.  Last, one more sequential 'fused' run
               without evaluation is traced with ``torch.profiler``
               (device activity only): the device events by time, one per
               correlation id, and the device's busy share of the traced
               wall time.
-4. report  -- a ``{"kernels": [...]}`` JSON line, the card's name and
+4. scale   -- an n = 100,000 ``ring`` plan built sparse (12,500
+              clusters of 8), one round of the logreg model (7,850
+              params, T = 1, batch 8 drawn from the seed) on 'sparse' and
+              on 'sparse' with record_mixed: d2d == n, the two agree, and
+              the peak device memory stays far below one (n, n) f32
+              array (40 GB).
+5. report  -- a ``{"kernels": [...]}`` JSON line, the card's name and
               power limit (nvidia-smi), and the final
               ``{"ok": true, "device": {...}}`` line.
 
@@ -227,6 +246,134 @@ def phase_kernels(n: int, p: int):
     return rows
 
 
+def _ell_case(family, n, c, seed, ctor="connectivity_aware",
+              **params):
+    """Round 0 of a sparse plan: ``(SparseA, tau, m)``."""
+    from repro_torch import topology
+    from repro_torch.core.server import ServerConfig
+    from repro_torch.fl.plan import RoundPlan
+
+    cfg = ServerConfig(T=5, t_max=1, seed=seed, m0=max(1, n // 10),
+                       m_fixed=max(1, (4 * n) // 5), bound_kind="general")
+    plan = getattr(RoundPlan, ctor)(
+        topology.make_spec(family, n=n, c=c, **params).build(), cfg,
+        sparse=True)
+    return plan.A_t[0], plan.tau_t[0], float(plan.m_t[0])
+
+
+def phase_sparse_kernels(seed: int):
+    """The ELL kernels against their plain versions at the four shapes;
+    returns their report rows (main shape: the k_regular plan's ELL at
+    the paper's width; launch counts filled in by phase 3)."""
+    import torch
+    from repro_torch.kernels.mixing import ops, ref, sparse
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    f4 = 4
+    tol = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+           torch.bfloat16: dict(rtol=2 ** -7, atol=2 ** -7)}
+    agg_tol = dict(rtol=1e-5, atol=1e-5)
+
+    def check(name, got, want, t):
+        e = float((got.float() - want.float()).abs().max())
+        print(f"[sparse]   {name}: max|err| {e:.3e} (rtol {t['rtol']:.1e}, "
+              f"atol {t['atol']:.1e})")
+        if not torch.allclose(got.float(), want.float(), **t):
+            raise AssertionError(f"{name} disagrees with its plain version")
+        return e
+
+    cases = [
+        ("main: k_regular plan, paper's config", "k_regular", 70, 7,
+         1_663_488, torch.float32, "connectivity_aware",
+         dict(k_range=(6, 9), p_fail=0.1)),
+        ("scale: ring of 12,500 clusters of 8", "ring", 100_000, 12_500,
+         2_048, torch.float32, "connectivity_aware", dict(hops=1)),
+        ("ragged: hub, one cluster of 37", "hub", 37, 1, 1_000,
+         torch.float32, "connectivity_aware", {}),
+        ("ragged: hub, one cluster of 37", "hub", 37, 1, 1_000,
+         torch.bfloat16, "connectivity_aware", {}),
+        ("identity: FedAvg plan", "k_regular", 70, 7, 1_663_488,
+         torch.float32, "fedavg", {}),
+    ]
+    rows, timed = [], {}
+    for label, family, n, c, p, dtype, ctor, params in cases:
+        A, tau, m = _ell_case(family, n, c, seed, ctor, **params)
+        idx_np, w_np = A.ell()
+        idx = torch.as_tensor(idx_np, device=dev)
+        w = torch.as_tensor(w_np, device=dev)
+        wrow = ops.combine_weights_ell(idx, w, torch.as_tensor(
+            tau, device=dev), torch.tensor(m, device=dev))
+        X = torch.randn(n, p, generator=g, device=dev).to(dtype)
+        print(f"[sparse] {label}: n={n} p={p} {dtype} d_max={idx.shape[1]} "
+              f"nnz={A.nnz}")
+        e1 = check("sparse_mix", sparse.sparse_mix_cuda(idx, w, X),
+                   ref.sparse_mix_ref(idx, w, X), tol[dtype])
+        mixed, agg = sparse.sparse_mix_aggregate_cuda(idx, w, wrow, X)
+        mixed_r, agg_r = ref.sparse_mix_aggregate_ref(idx, w, wrow, X)
+        e2 = max(check("sparse_mix_aggregate/mixed", mixed, mixed_r,
+                       tol[dtype]),
+                 check("sparse_mix_aggregate/agg", agg, agg_r, agg_tol))
+        torch.cuda.synchronize()
+        del mixed, agg, mixed_r, agg_r
+        if label.startswith(("main", "scale", "identity")):
+            timed[label.split(":")[0]] = (A, idx, w, wrow, X, e1, e2)
+        else:
+            del X
+    # the identity (d_max = 1) moves the main shape's bytes with one gather
+    # a row: beside the main shape it shows what the re-reads of d_max
+    # neighbour rows cost
+    for which in ("main", "scale", "identity"):
+        A, idx, w, wrow, X, e1, e2 = timed.pop(which)
+        n, p = X.shape
+        nnz = A.nnz
+        A_csr = torch.sparse_csr_tensor(
+            torch.as_tensor(A.indptr, device=dev),
+            torch.as_tensor(A.indices, dtype=torch.int64, device=dev),
+            torch.as_tensor(A.data, device=dev), size=(n, n),
+            check_invariants=True)
+        B_csr = torch.sparse_csr_tensor(   # [A; wrow], wrow a dense row
+            torch.as_tensor(list(A.indptr) + [nnz + n], device=dev),
+            torch.cat([A_csr.col_indices(),
+                       torch.arange(n, device=dev)]),
+            torch.cat([A_csr.values(), wrow]), size=(n + 1, n),
+            check_invariants=True)
+        ell_bytes = idx.numel() * 8
+        specs = [
+            ("sparse_mix", "src/repro/kernels/mixing/sparse.py:84", e1,
+             lambda: sparse.sparse_mix_cuda(idx, w, X),
+             lambda: ref.sparse_mix_ref(idx, w, X),
+             lambda: torch.sparse.mm(A_csr, X),
+             2 * n * p * f4 + ell_bytes, 2 * nnz * p),
+            ("sparse_mix_aggregate", "src/repro/kernels/mixing/sparse.py:109",
+             e2, lambda: sparse.sparse_mix_aggregate_cuda(idx, w, wrow, X),
+             lambda: ref.sparse_mix_aggregate_ref(idx, w, wrow, X),
+             lambda: torch.sparse.mm(B_csr, X),
+             2 * n * p * f4 + ell_bytes + n * f4 + p * f4,
+             2 * nnz * p + 2 * n * p),
+        ]
+        for name, replaces, e, kern, plain, lib, nbytes, flops in specs:
+            ms = cuda_ms(kern)
+            plain_ms = cuda_ms(plain, iters=5)
+            lib_ms = cuda_ms(lib, iters=10)
+            b_ms, b_by = bound(nbytes, flops)
+            print(f"[sparse] {name} @ {which} ({n}, {p}) f32: {ms:.4f} ms "
+                  f"(plain {plain_ms:.4f} ms, torch.sparse.mm "
+                  f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}: "
+                  f"{b_ms / ms:.1%} of it; {nbytes / ms / 1e6:.0f} GB/s)")
+            if which == "main":
+                rows.append({"name": name, "route": "cuda",
+                             "source": "src/repro_torch/kernels/csrc/"
+                                       "sparse_mixing.cu",
+                             "replaces": replaces, "launches": 0,
+                             "max_abs_err": e, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "library_ms": lib_ms})
+        del A_csr, B_csr, X
+        torch.cuda.empty_cache()
+    return rows
+
+
 # -- phase 3 ----------------------------------------------------------------
 
 def phase_train(rounds: int, seed: int):
@@ -241,7 +388,7 @@ def phase_train(rounds: int, seed: int):
                                   make_classification)
     from repro_torch.fl import packing
     from repro_torch.fl.engine import ExecutionConfig
-    from repro_torch.kernels.mixing import fused, mixing
+    from repro_torch.kernels.mixing import fused, mixing, sparse
     from repro_torch.models import cnn
 
     n, c, T, batch = 70, 7, 5, 32
@@ -265,7 +412,9 @@ def phase_train(rounds: int, seed: int):
     ys = torch.as_tensor(ds_test.y, device=dev).long()
     counters = {"aggregate": fused.aggregate_cuda,
                 "mix_aggregate": fused.mix_aggregate_cuda,
-                "mix": mixing.mix_cuda}
+                "mix": mixing.mix_cuda,
+                "sparse_mix": sparse.sparse_mix_cuda,
+                "sparse_mix_aggregate": sparse.sparse_mix_aggregate_cuda}
 
     def run(backend, record_mixed, scan, evaluate=True):
         stamps = [time.perf_counter()]
@@ -319,11 +468,17 @@ def phase_train(rounds: int, seed: int):
         return ([(r.t, r.m, r.m_actual, r.d2s, r.d2d, r.psi_bound, r.eta)
                  for r in h.records], h.ledger.total_cost)
 
-    paths = [("fused", False, "aggregate", "aggregate"),
-             ("fused", True, "fused", "mix_aggregate"),
-             ("pallas", True, "pallas", "mix")]
+    # launches a run must make: one a round per dtype group on the packed
+    # paths, one a round per leaf on the leaf-wise 'pallas' path
+    groups = pspec.n_groups
+    n_leaves = len(tree_flatten(init)[0])
+    paths = [("fused", False, "aggregate", "aggregate", groups),
+             ("fused", True, "fused", "mix_aggregate", groups),
+             ("pallas", True, "pallas", "mix", n_leaves),
+             ("sparse", False, "sparse_aggregate", "aggregate", groups),
+             ("sparse", True, "sparse", "sparse_mix_aggregate", groups)]
     launches = {}
-    for backend, record_mixed, effective, kernel in paths:
+    for backend, record_mixed, effective, kernel, per_round in paths:
         finals = {}
         for scan in (False, True):
             server, hist, counts, ms = run(backend, record_mixed, scan)
@@ -331,9 +486,10 @@ def phase_train(rounds: int, seed: int):
                 raise AssertionError(
                     f"{backend} record_mixed={record_mixed} dispatched "
                     f"{server.effective_backend}, expected {effective}")
-            if counts[kernel] <= 0:
-                raise AssertionError(f"{kernel} kernel never launched on "
-                                     f"its path: {counts}")
+            if counts[kernel] != per_round * rounds:
+                raise AssertionError(f"{kernel} kernel launched "
+                                     f"{counts[kernel]} times on its path, "
+                                     f"not {per_round} a round: {counts}")
             others = {k: v for k, v in counts.items() if k != kernel}
             if any(others.values()):
                 raise AssertionError(f"path {effective} launched other "
@@ -365,9 +521,62 @@ def phase_train(rounds: int, seed: int):
     print(f"[train] History bookkeeping equal across all backends; total "
           f"comm cost {ref_hist.ledger.total_cost:.1f} (D2S "
           f"{ref_hist.ledger.total_d2s}, D2D {ref_hist.ledger.total_d2d})")
+    launches["sparse_mix"] = mix_alone(loss_fn, init, batcher, spec, rounds,
+                                       seed, counters)
     profile_rounds(lambda: run("fused", False, False, evaluate=False),
                    rounds)
     return launches
+
+
+def mix_alone(loss_fn, init, batcher, spec, rounds, seed, counters):
+    """Eq. 3 alone at full width, as a caller of the public op computes
+    it: the first round's client deltas (the server's first batch, the
+    plan's first step size) mixed by ``ops.sparse_mix`` with the ELL of
+    the sparse plan's first round, against the dense oracle
+    ``rounds.mix_deltas``.  Returns the sparse_mix launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core import rounds as rounds_lib
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.core.server import ServerConfig
+    from repro_torch.fl import packing
+    from repro_torch.fl.plan import RoundPlan
+    from repro_torch.kernels.mixing import ops
+
+    dev = torch.device("cuda")
+    plan = RoundPlan.connectivity_aware(
+        spec.build(), ServerConfig(T=batcher.T, t_max=rounds, seed=seed),
+        sparse=True)
+    idx, w = (torch.as_tensor(a[0], device=dev) for a in plan.A_t.ell())
+    x, y = batcher(np.random.default_rng([seed, 1]), 0)
+    params = tree_map(lambda v: v.to(dev), init)
+    eta = torch.tensor(plan.eta_t[0], dtype=torch.float32, device=dev)
+    deltas = rounds_lib.client_deltas(loss_fn, params,
+                                      (x.to(dev), y.to(dev)), eta)
+    pspec = packing.pack_spec(deltas)
+    bufs = packing.pack(deltas, pspec)
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    mixed = [ops.sparse_mix(idx, w, b) for b in bufs]
+    torch.cuda.synchronize()
+    counts = {k: f.launches for k, f in counters.items()}
+    if counts["sparse_mix"] != pspec.n_groups or \
+            sum(counts.values()) != counts["sparse_mix"]:
+        raise AssertionError(f"eq. 3 alone launched {counts}")
+    A0 = torch.as_tensor(plan.A_t[0].dense(), device=dev)
+    want = packing.pack(rounds_lib.mix_deltas(A0, deltas), pspec)
+    worst = 0.0
+    for got, ref_buf in zip(mixed, want):
+        if not torch.allclose(got, ref_buf, rtol=1e-5, atol=1e-7):
+            raise AssertionError("ops.sparse_mix differs from the dense "
+                                 "oracle")
+        worst = max(worst, float((got - ref_buf).abs().max()))
+    print(f"[train] eq. 3 alone: ops.sparse_mix on round 0's deltas "
+          f"({idx.shape[0]} x {pspec.padded}, d_max {idx.shape[1]}): "
+          f"{counts['sparse_mix']} sparse_mix launch(es), max|mixed - "
+          f"dense oracle| {worst:.3e}")
+    return counts["sparse_mix"]
 
 
 def profile_rounds(fn, rounds: int, top: int = 12):
@@ -428,6 +637,80 @@ def profile_rounds(fn, rounds: int, top: int = 12):
               f"x{count:<5d} {name[:90]}")
 
 
+# -- phase 4 ----------------------------------------------------------------
+
+def phase_scale(seed: int):
+    """One round of the logreg model at n = 100,000 on both sparse
+    backends, from a plan built sparse (nothing (n, n) anywhere)."""
+    import torch
+    from functools import partial as _partial
+    from repro_torch import topology
+    from repro_torch.core.pytree import tree_flatten
+    from repro_torch.core.server import ServerConfig
+    from repro_torch.fl.engine import ExecutionConfig, make_engine
+    from repro_torch.fl.plan import RoundPlan
+    from repro_torch.kernels.mixing import fused, sparse
+    from repro_torch.models import cnn
+
+    n, c, B = 100_000, 12_500, 8
+    t0 = time.perf_counter()
+    plan = RoundPlan.connectivity_aware(
+        topology.make_spec("ring", n=n, c=c, hops=1).build(),
+        ServerConfig(T=1, t_max=1, m0=n // 10, seed=seed,
+                     bound_kind="general"), sparse=True)
+    plan_s = time.perf_counter() - t0
+    if not plan.is_sparse or plan.A_t.max_degree != 2 or \
+            int(plan.d2d_t[0]) != n:
+        raise AssertionError("the n = 100,000 ring plan is not as built")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    batch = (torch.rand(n, 1, B, 28, 28, 1, generator=g, device=dev),
+             torch.randint(0, 10, (n, 1, B), generator=g, device=dev))
+    init = cnn.init_logreg(seed)
+    n_params = sum(int(x.numel()) for x in tree_flatten(init)[0])
+    loss_fn = _partial(cnn.l2_regularized_loss, cnn.logreg_apply)
+    print(f"[scale] ring n={n} in {c} clusters of {n // c}: sparse plan "
+          f"built in {plan_s:.2f} s (nnz {plan.A_t.nnz}, d_max "
+          f"{plan.A_t.max_degree}, m {int(plan.m_t[0])}); logreg "
+          f"{n_params:,} params, T=1, batch {B}")
+    finals = {}
+    for record_mixed, counter in ((False, fused.aggregate_cuda),
+                                  (True, sparse.sparse_mix_aggregate_cuda)):
+        eng = make_engine(ExecutionConfig(backend="sparse",
+                                          record_mixed=record_mixed),
+                          loss_fn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counter.launches = 0
+        t0 = time.perf_counter()
+        final, hist = eng.execute(plan, init, [batch])
+        torch.cuda.synchronize()
+        round_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        if hist.records[0].d2d != n or counter.launches != 1:
+            raise AssertionError(f"{eng.backend}: d2d "
+                                 f"{hist.records[0].d2d}, "
+                                 f"{counter.launches} launches")
+        if peak >= n * n * 4:
+            raise AssertionError(f"peak {peak / 1e9:.1f} GB: an (n, n) "
+                                 "array was allocated")
+        leaves = tree_flatten(final)[0]
+        if not all(torch.isfinite(x).all() for x in leaves):
+            raise AssertionError(f"{eng.backend}: non-finite params")
+        finals[record_mixed] = leaves
+        print(f"[scale] {eng.backend}: one round {round_ms:.1f} ms (first "
+              f"call, host clock), peak device memory {peak / 1e9:.2f} GB, "
+              f"d2d {hist.records[0].d2d}, {counter.launches} "
+              f"{counter.__name__} launch")
+    worst = max(float((a - b).abs().max())
+                for a, b in zip(finals[False], finals[True]))
+    if not all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+               for a, b in zip(finals[False], finals[True])):
+        raise AssertionError(f"the sparse backends disagree by {worst:.3e}")
+    print(f"[scale] sparse_aggregate and sparse agree: max|diff| "
+          f"{worst:.3e}")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         return _fail(f"no src/repro_torch beside {Path(__file__).name}: run "
@@ -444,7 +727,9 @@ def main() -> int:
           f"{torch.version.cuda}, python {sys.version.split()[0]}")
     phase_build()
     rows = phase_kernels(70, 1_663_488)
+    rows += phase_sparse_kernels(SEED)
     launches = phase_train(ROUNDS, SEED)
+    phase_scale(SEED)
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] <= 0:

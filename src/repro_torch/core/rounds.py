@@ -31,14 +31,26 @@ mixing_backend=...)``):
                  ``((tau^T A)/m) @ X_g`` is computed, the mixed deltas are
                  never materialized and the round returns ``None`` in
                  their place.
+  'sparse' / 'sparse_aggregate' -- the ELL (neighbour-list) backends:
+                 ``A`` arrives as the pair ``(idx, w)`` of (n, d_max)
+                 tensors (``repro_torch.core.sparse.SparseA.ell()``)
+                 instead of an (n, n) matrix.  'sparse' runs eq. 3 + eq. 4
+                 through ``sparse_mix_aggregate_cuda`` once per dtype
+                 group; 'sparse_aggregate' builds the combine row by a
+                 segment sum over the entries and runs ``aggregate_cuda``,
+                 returning ``None`` for the mixed deltas.  O(n d_max p)
+                 work and O(n d_max) topology storage: the only backends
+                 that scale n past the dense O(n^2) wall.  allclose (not
+                 bitwise) to 'einsum'.
 
-The sparse ('sparse', 'sparse_aggregate') backends and quantized payloads
-raise ``NotImplementedError`` until their slices of the port (ROADMAP
-queue 1 items 7 and 8).
+Quantized payloads raise ``NotImplementedError`` until their slice of the
+port (ROADMAP queue 1 item 8).
 
 ``make_scanned_rounds`` runs K rounds as a Python loop over stacked
-``(A_t, tau_t, m_t, eta_t[, active_t])`` columns; it executes the same
-round function as the sequential driver, so the two are bitwise equal.
+``(A_t, tau_t, m_t, eta_t[, active_t])`` columns (the sparse backends take
+``A_seq = (idx_seq, w_seq)`` of (K, n, d_max) tensors); it executes the
+same round function as the sequential driver, so the two are bitwise
+equal.
 
 Straggler masks: every round function takes an optional ``active`` (n,)
 0/1 mask.  A dropped client contributes zero delta to its D2D neighbors
@@ -57,8 +69,9 @@ from torch.func import grad, vmap
 
 from repro_torch.core.pytree import tree_leaves, tree_map
 from repro_torch.fl import packing
-from repro_torch.kernels.mixing.ops import (aggregate_grouped,
-                                            mix_aggregate_grouped, mix_pytree)
+from repro_torch.kernels.mixing.ops import (
+    aggregate_grouped, mix_aggregate_grouped, mix_pytree,
+    sparse_aggregate_grouped, sparse_mix_aggregate_grouped)
 
 __all__ = [
     "local_sgd",
@@ -71,23 +84,19 @@ __all__ = [
     "make_scanned_rounds",
     "check_backend",
     "MIXING_BACKENDS",
-    "PENDING_BACKENDS",
+    "SPARSE_BACKENDS",
 ]
 
 PyTree = Any
 LossFn = Callable[[PyTree, PyTree], torch.Tensor]  # (params, batch) -> scalar
 
-MIXING_BACKENDS = ("einsum", "pallas", "fused", "aggregate")
-# the reference's ELL backends: their slice of the port is still to come
-PENDING_BACKENDS = ("sparse", "sparse_aggregate")
+MIXING_BACKENDS = ("einsum", "pallas", "fused", "aggregate", "sparse",
+                   "sparse_aggregate")
+SPARSE_BACKENDS = ("sparse", "sparse_aggregate")
 
 
 def check_backend(mixing_backend: str) -> None:
     """Raise unless ``mixing_backend`` is one this port runs."""
-    if mixing_backend in PENDING_BACKENDS:
-        raise NotImplementedError(
-            f"mixing_backend {mixing_backend!r} is not yet ported to "
-            "repro_torch (ROADMAP queue 1 item 7, sparse slice)")
     if mixing_backend not in MIXING_BACKENDS:
         raise ValueError(
             f"mixing_backend must be one of {MIXING_BACKENDS}, "
@@ -201,6 +210,22 @@ def _mix_and_update(global_params, deltas, A, tau, m, *, mixing_backend,
         agg_rows = aggregate_grouped(A, tau, m, bufs, active=active)
         return packing.apply_aggregate_row(global_params, agg_rows,
                                            spec), None
+    if mixing_backend in SPARSE_BACKENDS:
+        idx, w = A      # ELL pair (n, d_max), never an (n, n) matrix
+        spec = packing.pack_spec(deltas)
+        bufs = packing.pack(deltas, spec)
+        if mixing_backend == "sparse_aggregate":
+            agg_rows = sparse_aggregate_grouped(idx, w, tau, m, bufs,
+                                                active=active)
+            return packing.apply_aggregate_row(global_params, agg_rows,
+                                               spec), None
+        # the mixed leg streams the payload as given: zero dropped rows
+        if active is not None:
+            bufs = tuple(mask_clients(list(bufs), active))
+        mixed_bufs, agg_rows = sparse_mix_aggregate_grouped(
+            idx, w, tau, m, bufs, active=active)
+        return (packing.apply_aggregate_row(global_params, agg_rows, spec),
+                packing.unpack(mixed_bufs, spec))
     check_backend(mixing_backend)
     raise AssertionError(mixing_backend)   # pragma: no cover
 
@@ -212,13 +237,15 @@ def make_round_fn(loss_fn: LossFn, mixing_backend: str = "einsum", *,
     Signature: ``round_fn(global_params, client_batches, A, tau, m, eta[,
     active])``
       - client_batches leaves: (n, T, ...) -- T local minibatches per client
-      - A: (n, n) equal-neighbor matrix; tau: (n,) 0/1 sampling
-        indicators; m: the eq.-4 divisor; eta: the step size (all fp32
-        tensors on the params' device)
+      - A: (n, n) equal-neighbor matrix -- the sparse backends take the
+        ELL pair ``(idx, w)`` of (n, d_max) tensors instead (int32 and
+        fp32); tau: (n,) 0/1 sampling indicators; m: the eq.-4 divisor;
+        eta: the step size (all fp32 tensors on the params' device)
       - active: optional (n,) 0/1 straggler mask; ``m`` must then be the
         effective sampled-and-active count
     Returns ``(new_global_params, mixed_deltas)`` -- ``None`` in place of
-    the mixed deltas under the 'aggregate' backend.
+    the mixed deltas under the 'aggregate' and 'sparse_aggregate'
+    backends.
     """
     check_backend(mixing_backend)
     if quant is not None:
@@ -246,7 +273,9 @@ def make_scanned_rounds(loss_fn: LossFn, K: int,
     eta_seq[, active_seq]) -> (final_params, params_seq)``
 
       - client_batches_seq leaves: (K, n, T, ...) -- stacked round batches
-      - A_seq (K, n, n), tau_seq (K, n), m_seq (K,), eta_seq (K,)
+      - A_seq (K, n, n), tau_seq (K, n), m_seq (K,), eta_seq (K,); the
+        sparse backends take ``A_seq = (idx_seq, w_seq)`` of (K, n, d_max)
+        tensors (``SparseAseq.ell()``, one d_max shared by all rounds)
       - active_seq: optional (K, n) stacked straggler masks
       - params_seq leaves: (K, ...) -- the global params after each round
         (params_seq[K-1] == final_params)
@@ -256,6 +285,7 @@ def make_scanned_rounds(loss_fn: LossFn, K: int,
     ``round_fn`` calls on the same inputs.
     """
     round_fn = make_round_fn(loss_fn, mixing_backend, quant=quant)
+    sparse = mixing_backend in SPARSE_BACKENDS
 
     def scanned(global_params: PyTree, client_batches_seq: PyTree,
                 A_seq: torch.Tensor, tau_seq: torch.Tensor,
@@ -266,7 +296,8 @@ def make_scanned_rounds(loss_fn: LossFn, K: int,
         for t in range(K):
             batches = tree_map(lambda b: b[t], client_batches_seq)
             active = active_seq[t] if active_seq is not None else None
-            params, _ = round_fn(params, batches, A_seq[t], tau_seq[t],
+            A = (tuple(a[t] for a in A_seq) if sparse else A_seq[t])
+            params, _ = round_fn(params, batches, A, tau_seq[t],
                                  m_seq[t], eta_seq[t], active)
             seq.append(params)
         return params, tree_map(lambda *xs: torch.stack(xs), *seq)

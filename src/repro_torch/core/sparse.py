@@ -27,10 +27,8 @@ module holds the representations that remove the O(n^2) wall:
     that needs no masking in the kernel.
 
 The eq.-4 D2S combine row ``(tau^T A) / m`` never needs the dense matrix
-either: it is a segment-sum over the same edge list (the reference's
-``combine_weights_ell``).  In the port these containers serve host-side
-planning only; the sparse plans, ops and kernels come with the sparse
-slice (ROADMAP queue 1 item 7).
+either: it is a segment-sum over the same edge list
+(``repro_torch.kernels.mixing.ops.combine_weights_ell``).
 """
 
 from __future__ import annotations

@@ -15,10 +15,15 @@ Backend selection::
     ---------------------------------  ---------------------------  ----
     einsum | pallas | fused            False upgrades pallas/fused  yes
     | aggregate                        -> 'aggregate'
+    sparse | sparse_aggregate          False upgrades sparse ->     yes
+                                       'sparse_aggregate'
 
+The sparse backends take any plan: a sparse (CSR) plan's ``A_t`` goes to
+the device as (K, n, d_max) ELL columns without densifying, a dense plan
+is converted O(nnz)-wise; the dense backends densify a sparse plan.
 The reference's mesh, stream (semi-async) and wall-clock runtimes, and
-its sparse and quantized payloads, raise ``NotImplementedError`` until
-their slices of the port (ROADMAP queue 1).
+its quantized payloads, raise ``NotImplementedError`` until their slices
+of the port (ROADMAP queue 1).
 
 Straggler masks: when ``plan.has_dropout`` the per-round ``active_t``
 column is threaded into the round functions; all-ones plans skip the mask
@@ -35,8 +40,9 @@ import torch
 
 from repro_torch.core.metrics import CommLedger
 from repro_torch.core.pytree import tree_map
-from repro_torch.core.rounds import (check_backend, make_round_fn,
-                                     make_scanned_rounds)
+from repro_torch.core.rounds import (SPARSE_BACKENDS, check_backend,
+                                     make_round_fn, make_scanned_rounds)
+from repro_torch.core.sparse import SparseAseq
 from repro_torch.core.server import History, RoundRecord
 from .plan import RoundPlan
 
@@ -76,15 +82,17 @@ def resolve_backend(cfg: ExecutionConfig) -> str:
                 f"ExecutionConfig.{field} is not yet ported to repro_torch "
                 f"(ROADMAP queue 1 item {item})")
     check_backend(cfg.backend)
-    if cfg.record_mixed and cfg.backend == "aggregate":
+    if cfg.record_mixed and cfg.backend in ("aggregate", "sparse_aggregate"):
         raise ValueError(
-            "record_mixed=True contradicts the 'aggregate' backend, which "
-            "never materializes mixed deltas")
+            f"record_mixed=True contradicts the {cfg.backend!r} backend, "
+            "which never materializes mixed deltas")
     # History never records per-client mixed deltas, so unless the caller
     # explicitly keeps them, the kernel backends take the aggregate-only
     # fast path.
     if not cfg.record_mixed and cfg.backend in ("pallas", "fused"):
         return "aggregate"
+    if not cfg.record_mixed and cfg.backend == "sparse":
+        return "sparse_aggregate"
     return cfg.backend
 
 
@@ -112,15 +120,33 @@ def set_fp32_policy() -> None:
     torch.backends.cudnn.benchmark = False
 
 
-def _device_columns(plan: RoundPlan, device: torch.device):
-    """Plan columns as stacked fp32 tensors on ``device`` (the scanned
-    driver's inputs; the sequential driver indexes into the same
-    tensors, which keeps the per-round values identical)."""
+def _device_columns(plan: RoundPlan, device: torch.device,
+                    sparse: bool = False):
+    """Plan columns as stacked tensors on ``device`` (the scanned driver's
+    inputs; the sequential driver indexes into the same tensors, which
+    keeps the per-round values identical).
+
+    ``sparse=True`` (the ELL backends) gives ``A_seq`` as the pair
+    ``(idx_seq, w_seq)`` of (K, n, d_max) int32 / fp32 tensors -- straight
+    from a sparse plan without densifying, converted O(nnz)-wise from a
+    dense one.  Dense backends on a sparse plan densify it (small-n
+    parity testing; at scale keep representation and backend aligned).
+    """
     def col(a):
         return torch.as_tensor(a, dtype=torch.float32, device=device)
 
+    if sparse:
+        A = plan.A_t if plan.is_sparse else SparseAseq.from_dense(plan.A_t)
+        idx_seq, w_seq = A.ell()
+        if idx_seq.size and not (0 <= idx_seq.min()
+                                 and idx_seq.max() < plan.n_clients):
+            raise ValueError("ELL neighbour ids outside [0, n)")
+        A_seq = (torch.as_tensor(idx_seq, dtype=torch.int32, device=device),
+                 col(w_seq))
+    else:
+        A_seq = col(plan.A_t.dense() if plan.is_sparse else plan.A_t)
     active_seq = col(plan.active_t) if plan.has_dropout else None
-    return (col(plan.A_t), col(plan.tau_t), col(plan.m_t), col(plan.eta_t),
+    return (A_seq, col(plan.tau_t), col(plan.m_t), col(plan.eta_t),
             active_seq)
 
 
@@ -180,8 +206,9 @@ class LocalEngine:
         _check_batches(plan, batches)
         K = plan.n_rounds
         device = self.device
+        sparse = self.backend in SPARSE_BACKENDS
         A_seq, tau_seq, m_seq, eta_seq, active_seq = _device_columns(
-            plan, device)
+            plan, device, sparse)
         history = History(algorithm=plan.algorithm,
                           ledger=CommLedger(energy_ratio=energy_ratio))
         params = _to_device(params, device)
@@ -203,7 +230,8 @@ class LocalEngine:
         round_fn = make_round_fn(self.loss_fn, self.backend)
         for t in range(K):
             active = active_seq[t] if active_seq is not None else None
-            params, _ = round_fn(params, batches[t], A_seq[t], tau_seq[t],
+            A = (A_seq[0][t], A_seq[1][t]) if sparse else A_seq[t]
+            params, _ = round_fn(params, batches[t], A, tau_seq[t],
                                  m_seq[t], eta_seq[t], active)
             # record inline: only the current round's params stay live
             _append_record(plan, history, t, lambda p=params: p,

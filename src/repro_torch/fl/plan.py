@@ -2,7 +2,7 @@
 
 The paper's algorithm is host-side *planning* -- a trajectory of
 ``(A_t, tau_t, m_t, eta_t)`` chosen by the connectivity-aware rule --
-executed by an interchangeable compiled runtime.  ``RoundPlan`` reifies
+executed by an interchangeable runtime.  ``RoundPlan`` reifies
 that trajectory: stacked numpy columns, one row per global round, built
 once on the host and handed to an ``Engine`` (``repro_torch.fl.engine``) for
 execution.  Because the plan is plain host data it is also serializable
@@ -12,12 +12,16 @@ diffable artifact.
 
 Columns (K = number of rounds, n = number of clients):
 
-    A_t        (K, n, n) f32  equal-neighbor mixing matrices (eq. 2-3),
-                              dense (the reference's CSR form, the
-                              ``sparse=True`` constructors and the v4
-                              JSON encoding raise until the sparse slice
-                              of the port; a plan's ``quant`` field
-                              likewise until the quant slice)
+    A_t        (K, n, n) f32  equal-neighbor mixing matrices (eq. 2-3);
+                              EITHER a dense ndarray OR a
+                              ``repro_torch.core.sparse.SparseAseq`` (CSR
+                              per round) -- the sparse form stores O(nnz)
+                              instead of O(K n^2), so plans at
+                              n = 100_000 build and serialize without
+                              ever allocating an (n, n) array.  Build
+                              one with ``sparse=True`` on any
+                              constructor, or convert with
+                              ``sparsify()``/``densify()``.
     tau_t      (K, n)    f32  0/1 PS sampling indicators (Sec. 3.3)
     m_t        (K,)      f64  eq.-4 divisor: the *effective* number of
                               sampled-and-active clients (clamped >= 1)
@@ -35,10 +39,9 @@ sample sizes, D2D transmission counts, the eq.-6 psi bound) and an
     arrival_t  (K, n)    f32  per-upload delay after round dispatch
                               (``inf`` = never delivered).  Absent
                               (None) for synchronous plans; attached by
-                              ``with_arrivals`` (or carried in from a
-                              reference plan's JSON) for the stream
-                              engine -- the synchronous engine ignores
-                              it.
+                              ``with_faults``/``with_arrivals`` for the
+                              stream engine (still to be ported) --
+                              the synchronous engine ignores it.
 
 Constructors map one-to-one onto the algorithms the server runs:
 
@@ -61,11 +64,15 @@ e.g. ``geometric`` mobility).  When the network exposes a serializable
 plans are *regenerable* artifacts, not only replayable ones.
 
 Straggler support is a plan *transform*, not a runtime flag:
-``plan.with_dropout(rate, rng)`` draws i.i.d. masks (the generator lives
-in ``repro_torch.fl.faults``) and ``plan.with_active(mask)`` takes any
-explicit mask; both renormalize the ``m_t``/``d2s`` bookkeeping to the
-surviving uploads.  The reference's bursty / whole-cluster dropout and
-fault-trace transforms come with the semi-async slice of the port.
+``plan.with_dropout(rate, rng)`` draws i.i.d. masks,
+``plan.with_markov_dropout(p_fail, p_recover)`` bursty two-state chains
+per client, ``plan.with_cluster_dropout(rate)`` whole-cluster outages,
+and ``plan.with_active(mask)`` takes any explicit mask; all renormalize
+the ``m_t``/``d2s`` bookkeeping to the surviving uploads.  The mask
+generators themselves live in ``repro_torch.fl.faults`` (one rng stream shared
+with the fault-injection layer); ``plan.with_faults(trace)`` applies a
+full ``FaultTrace`` -- availability mask plus arrival times -- in one
+transform.
 
 Round-resumable: ``plan[t0:]`` slices the trajectory (columns +
 bookkeeping preserved, ``t0`` recorded so History round indices stay
@@ -84,10 +91,12 @@ from typing import Iterator, Optional, Sequence, Union
 import numpy as np
 
 from repro_torch.core import sampling
-from repro_torch.core.adjacency import network_matrix
-from repro_torch.core.bounds import exact_phi_ell, phi_ell_bound_from_stats, \
-    psi_total
+from repro_torch.core.adjacency import network_matrix, network_matrix_sparse
+from repro_torch.core.bounds import exact_phi_ell, \
+    phi_ell_bound_from_stats, psi_total
+from repro_torch.core.graphs import SparseClusterGraph
 from repro_torch.core.metrics import count_d2d_transmissions
+from repro_torch.core.sparse import SparseA, SparseAseq
 from repro_torch.topology import TopologySpec
 
 from . import faults as _faults
@@ -100,6 +109,9 @@ _JSON_VERSION = 5
 # v1: pre-topology plans (no embedded spec); v2: no arrival_t column;
 # v3: dense-only A_t; v4: no quant config
 _JSON_SUPPORTED = (1, 2, 3, 4, 5)
+
+_QUANT_PENDING = ("quantized payloads are not yet ported to repro_torch "
+                  "(ROADMAP queue 1, quant slice)")
 
 
 def _sample_snapshot(network, rng, t):
@@ -117,17 +129,23 @@ def _sample_snapshot(network, rng, t):
     return sample(rng)
 
 
-_SPARSE_PENDING = ("sparse (CSR) plans are not yet ported to repro_torch "
-                   "(ROADMAP queue 1, sparse slice)")
-_QUANT_PENDING = ("quantized payloads are not yet ported to repro_torch "
-                  "(ROADMAP queue 1, quant slice)")
+def _sample_snapshot_sparse(network, rng, t):
+    """Sparse cluster snapshot: ``sample_sparse`` when the model provides
+    it (every ``ClusteredTopology``; identical rng consumption to
+    ``sample``), else the dense snapshot converted per cluster -- (s, s)
+    scratch per cluster, never anything (n, n)."""
+    sample = getattr(network, "sample_sparse", None)
+    if sample is not None:
+        return sample(rng, t)
+    return [SparseClusterGraph.from_dense(c.vertices, c.W)
+            for c in _sample_snapshot(network, rng, t)]
 
 
 @dataclasses.dataclass(frozen=True)
 class PlanRow:
     """One global round of a trajectory (host-side, numpy)."""
     t: int
-    A: np.ndarray             # (n, n) float32
+    A: Union[np.ndarray, SparseA]   # (n, n) float32 dense, or CSR
     tau: np.ndarray           # (n,)   float32
     m: float                  # eq.-4 divisor (effective sample count)
     eta: float
@@ -158,10 +176,16 @@ def plan_rows(network, config, algorithm: str = "semidec",
     bitwise.  Yields forever; take ``config.t_max`` rows (the
     ``RoundPlan`` constructors do).
 
-    ``sparse=True`` (CSR rows) raises until the sparse slice.
+    ``sparse=True`` emits rows whose ``A`` is a ``SparseA`` (CSR) built
+    by ``network_matrix_sparse`` -- no (n, n) array anywhere on the
+    planning path: D2D counts come off the CSR edge lists and the
+    ``bound_kind`` degree-stat bounds are computed from the degree
+    arrays alone (``SparseClusterGraph.stats``); ``bound_kind='exact'``
+    still densifies each (s, s) cluster block (SVD needs the matrix),
+    never the network.  The rng stream is consumed identically to the
+    dense path, so tau/m/eta/bookkeeping columns match it bitwise and
+    the ``A`` values match exactly.
     """
-    if sparse:
-        raise NotImplementedError(_SPARSE_PENDING)
     _check_algorithm(algorithm, config.m_fixed)
     if rng is None:
         rng = np.random.default_rng(config.seed)
@@ -172,12 +196,18 @@ def plan_rows(network, config, algorithm: str = "semidec",
     while True:
         uses_d2d = algorithm in ("semidec", "colrel")
         if uses_d2d:
-            clusters = _sample_snapshot(network, rng, t)
-            A = np.asarray(network_matrix(clusters, n), np.float32)
-            d2d = sum(count_d2d_transmissions(c.W) for c in clusters)
+            if sparse:
+                clusters = _sample_snapshot_sparse(network, rng, t)
+                A = network_matrix_sparse(clusters, n)
+                d2d = sum(c.d2d_transmissions for c in clusters)
+            else:
+                clusters = _sample_snapshot(network, rng, t)
+                A = np.asarray(network_matrix(clusters, n), np.float32)
+                d2d = sum(count_d2d_transmissions(c.W) for c in clusters)
         else:
             clusters = None
-            A = np.eye(n, dtype=np.float32)
+            A = SparseA.identity(n) if sparse else \
+                np.eye(n, dtype=np.float32)
             d2d = 0
 
         psi_bound = float("nan")
@@ -214,11 +244,12 @@ class RoundPlan:
     """A full ``K``-round trajectory as stacked host-side columns.
 
     Immutable; transforms (``with_active``/``with_dropout``) return new
-    plans.  Engines (``repro_torch.fl.engine``) consume the columns verbatim:
+    plans.  Engines (``repro_torch.fl.engine``) consume the columns
+    verbatim:
     the device never sees planning logic, only arrays.
     """
     algorithm: str
-    A_t: np.ndarray            # (K, n, n) float32
+    A_t: Union[np.ndarray, SparseAseq]   # (K, n, n) f32 dense, or CSR
     tau_t: np.ndarray          # (K, n)    float32
     m_t: np.ndarray            # (K,)      float64
     eta_t: np.ndarray          # (K,)      float64
@@ -279,6 +310,11 @@ class RoundPlan:
         return int(self.A_t.shape[-1])
 
     @property
+    def is_sparse(self) -> bool:
+        """True iff ``A_t`` is held in CSR form (``SparseAseq``)."""
+        return isinstance(self.A_t, SparseAseq)
+
+    @property
     def has_dropout(self) -> bool:
         """True iff any client is masked out in any round.  Engines skip
         the mask plumbing entirely for all-ones plans, so the
@@ -335,12 +371,21 @@ class RoundPlan:
     def from_rows(cls, rows: Sequence[PlanRow], algorithm: str = "semidec",
                   topology: Optional[TopologySpec] = None,
                   seed: Optional[int] = None) -> "RoundPlan":
-        """Stack explicit per-round rows into a plan (any trajectory)."""
+        """Stack explicit per-round rows into a plan (any trajectory).
+        Rows carrying ``SparseA`` matrices stack into a sparse plan."""
         if not rows:
             raise ValueError("from_rows: need at least one round")
+        if any(isinstance(r.A, SparseA) for r in rows):
+            if not all(isinstance(r.A, SparseA) for r in rows):
+                raise ValueError(
+                    "from_rows: all rows must share one A representation "
+                    "(got a mix of dense and SparseA)")
+            A_t = SparseAseq([r.A for r in rows])
+        else:
+            A_t = np.stack([np.asarray(r.A, np.float32) for r in rows])
         return cls(
             algorithm=algorithm,
-            A_t=np.stack([np.asarray(r.A, np.float32) for r in rows]),
+            A_t=A_t,
             tau_t=np.stack([np.asarray(r.tau, np.float32) for r in rows]),
             m_t=np.asarray([r.m for r in rows], np.float64),
             eta_t=np.asarray([r.eta for r in rows], np.float64),
@@ -373,7 +418,9 @@ class RoundPlan:
     def connectivity_aware(cls, network, config,
                            rng: Optional[np.random.Generator] = None,
                            *, sparse: bool = False) -> "RoundPlan":
-        """Algorithm 1: time-varying D2D mixing + the eq.-7 m(t) rule."""
+        """Algorithm 1: time-varying D2D mixing + the eq.-7 m(t) rule.
+        ``sparse=True`` plans in CSR -- O(nnz) memory, same rng stream
+        (see ``plan_rows``)."""
         return cls._planned(network, config, "semidec", rng, sparse)
 
     @classmethod
@@ -425,11 +472,18 @@ class RoundPlan:
         eff = (self.tau_t * active_t).sum(axis=1)
         # A_t[i, j] != 0 iff client j transmits to i; off-diagonal
         # entries in a dropped client's column are transmissions that
-        # never happen.
-        off_diag = (self.A_t != 0.0) \
-            & ~np.eye(self.n_clients, dtype=bool)[None]
-        dropped_tx = (off_diag * (active_t == 0.0)[:, None, :]) \
-            .sum(axis=(1, 2))
+        # never happen.  The sparse branch counts the same entries off
+        # the CSR edge lists -- O(nnz), never densifying.
+        if self.is_sparse:
+            dropped_tx = np.asarray(
+                [((m.data != 0.0) & (active_t[t][m.indices] == 0.0)
+                  & (m.row_ids() != m.indices)).sum()
+                 for t, m in enumerate(self.A_t)], np.int64)
+        else:
+            off_diag = (self.A_t != 0.0) \
+                & ~np.eye(self.n_clients, dtype=bool)[None]
+            dropped_tx = (off_diag * (active_t == 0.0)[:, None, :]) \
+                .sum(axis=(1, 2))
         return dataclasses.replace(
             self, active_t=active_t,
             m_t=np.maximum(eff, 1.0).astype(np.float64),
@@ -450,6 +504,54 @@ class RoundPlan:
         K, n = self.tau_t.shape
         return self.with_active(_faults.iid_active(rng, K, n, rate))
 
+    def with_markov_dropout(self, p_fail: float, p_recover: float,
+                            rng: Optional[np.random.Generator] = None
+                            ) -> "RoundPlan":
+        """Bursty (temporally-correlated) stragglers: each client is an
+        independent two-state Markov chain, failing with probability
+        ``p_fail`` per round and recovering with probability
+        ``p_recover`` -- mean outage length ``1/p_recover`` rounds, vs
+        the memoryless single-round outages of ``with_dropout``.  The
+        chain starts from its stationary distribution (long-run active
+        fraction ``p_recover / (p_fail + p_recover)``), so the marginal
+        dropout rate is constant from round 0.  ``p_fail = 0`` is
+        bitwise-identical to full participation.
+        """
+        for name, p in (("p_fail", p_fail), ("p_recover", p_recover)):
+            if not 0.0 <= p <= 1.0:
+                raise ValueError(f"need 0 <= {name} <= 1, got {p}")
+        if rng is None:
+            rng = np.random.default_rng(0)
+        K, n = self.tau_t.shape
+        return self.with_active(
+            _faults.markov_active(rng, K, n, p_fail, p_recover))
+
+    def with_cluster_dropout(self, rate: float,
+                             rng: Optional[np.random.Generator] = None,
+                             partition: Optional[Sequence[np.ndarray]] = None
+                             ) -> "RoundPlan":
+        """Whole-cluster outages: each cluster independently drops *all*
+        of its clients with probability ``rate`` per round (an access
+        point or relay going dark -- spatially-correlated failures the
+        i.i.d. model can't express).  ``partition`` defaults to the
+        embedded topology spec's t=0 membership (re-clustering schemes
+        keep their base partition).
+        """
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"need 0 <= rate < 1, got {rate}")
+        if partition is None:
+            if self.topology is None:
+                raise ValueError(
+                    "with_cluster_dropout needs a partition: pass one "
+                    "explicitly or use a plan with an embedded topology "
+                    "spec")
+            partition = self.topology.build().partition
+        if rng is None:
+            rng = np.random.default_rng(0)
+        K, n = self.tau_t.shape
+        return self.with_active(
+            _faults.cluster_active(rng, K, partition, n, rate))
+
     # -- payload-compression transform ---------------------------------------
 
     def with_quant(self, quant) -> "RoundPlan":
@@ -465,10 +567,34 @@ class RoundPlan:
                       ) -> "RoundPlan":
         """Attach (or clear, with None) the per-upload arrival-delay
         column.  Pure bookkeeping: synchronous engines never read it;
-        ``StreamEngine`` folds it into its virtual-time closure rule."""
+        the reference's ``StreamEngine`` folds it into its virtual-time
+        closure rule."""
         if arrival_t is not None:
             arrival_t = np.asarray(arrival_t, np.float32)
         return dataclasses.replace(self, arrival_t=arrival_t)
+
+    def with_source(self, source: Optional[str]) -> "RoundPlan":
+        """Tag (or clear) the provenance of the columns.  The ingestion
+        runtime stamps its recordings ``'measured'`` so a plan whose
+        arrival column came from wall-clock measurement is
+        distinguishable from a planned/simulated one downstream."""
+        return dataclasses.replace(self, source=source)
+
+    def with_faults(self, trace) -> "RoundPlan":
+        """Apply a realized ``repro_torch.fl.faults.FaultTrace``: the trace's
+        availability mask (failure chains AND departures) composes into
+        ``active_t`` -- renormalizing ``m_t``/``d2s``/``d2d`` exactly
+        like the dropout transforms -- and its arrival delays become the
+        ``arrival_t`` column.  A zero-latency trace applied here and
+        run synchronously is bitwise-identical to the same trace run
+        through the reference's ``StreamEngine``.
+        """
+        if (trace.K, trace.n) != self.tau_t.shape:
+            raise ValueError(
+                f"trace is ({trace.K}, {trace.n}), plan needs "
+                f"{self.tau_t.shape}")
+        out = self.with_active(self.active_t * trace.active)
+        return out.with_arrivals(trace.arrival)
 
     # -- regeneration from provenance ---------------------------------------
 
@@ -498,12 +624,19 @@ class RoundPlan:
         rows = []
         for t in range(self.n_rounds):
             if uses_d2d:
-                clusters = model.sample(rng, t)
-                A = np.asarray(network_matrix(clusters, n), np.float32)
-                d2d = sum(count_d2d_transmissions(c.W) for c in clusters)
+                if self.is_sparse:
+                    clusters = _sample_snapshot_sparse(model, rng, t)
+                    A = network_matrix_sparse(clusters, n)
+                    d2d = sum(c.d2d_transmissions for c in clusters)
+                else:
+                    clusters = model.sample(rng, t)
+                    A = np.asarray(network_matrix(clusters, n), np.float32)
+                    d2d = sum(count_d2d_transmissions(c.W)
+                              for c in clusters)
                 vertex_sets = [c.vertices for c in clusters]
             else:
-                A = np.eye(n, dtype=np.float32)
+                A = (SparseA.identity(n) if self.is_sparse
+                     else np.eye(n, dtype=np.float32))
                 d2d = 0
                 vertex_sets = model.partition
             m = int(self.m_planned_t[t])
@@ -519,6 +652,25 @@ class RoundPlan:
         if self.has_dropout:
             base = base.with_active(self.active_t)
         return base.with_arrivals(self.arrival_t)
+
+    # -- representation conversions -----------------------------------------
+
+    def sparsify(self) -> "RoundPlan":
+        """The same plan with ``A_t`` in CSR form (no-op if already
+        sparse).  ``sparsify().densify()`` is bitwise-identical to the
+        dense original: CSR stores exactly the nonzero f32 entries."""
+        if self.is_sparse:
+            return self
+        return dataclasses.replace(self,
+                                   A_t=SparseAseq.from_dense(self.A_t))
+
+    def densify(self) -> "RoundPlan":
+        """The same plan with ``A_t`` as a dense (K, n, n) ndarray
+        (no-op if already dense).  Small-n parity testing only -- this
+        is the O(n^2) allocation the sparse path exists to avoid."""
+        if not self.is_sparse:
+            return self
+        return dataclasses.replace(self, A_t=self.A_t.dense())
 
     # -- serialization ------------------------------------------------------
 
@@ -540,7 +692,14 @@ class RoundPlan:
             "seed": self.seed,
             "t0": self.t0,
             "source": self.source,
-            "A_t": self.A_t.tolist(),
+            # sparse plans serialize the CSR arrays (O(nnz) text, the
+            # only way an n = 100_000 plan fits anywhere); dense plans
+            # keep the v3 nested-list layout.
+            "A_t": ({"encoding": "csr",
+                     "indptr": [m.indptr.tolist() for m in self.A_t],
+                     "indices": [m.indices.tolist() for m in self.A_t],
+                     "data": [m.data.tolist() for m in self.A_t]}
+                    if self.is_sparse else self.A_t.tolist()),
             "tau_t": self.tau_t.tolist(),
             "m_t": self.m_t.tolist(),
             "eta_t": self.eta_t.tolist(),
@@ -572,7 +731,15 @@ class RoundPlan:
             if A_raw.get("encoding") != "csr":
                 raise ValueError(
                     f"unknown A_t encoding {A_raw.get('encoding')!r}")
-            raise NotImplementedError(_SPARSE_PENDING)
+            n = int(d["n_clients"])
+            A_t = SparseAseq(
+                [SparseA(n=n, indptr=np.asarray(ip, np.int64),
+                         indices=np.asarray(ix, np.int32),
+                         data=np.asarray(dt, np.float32))
+                 for ip, ix, dt in zip(A_raw["indptr"], A_raw["indices"],
+                                       A_raw["data"])])
+        else:
+            A_t = np.asarray(A_raw, np.float32)
         if d.get("quant") is not None:
             raise NotImplementedError(_QUANT_PENDING)
         return cls(
@@ -583,7 +750,7 @@ class RoundPlan:
             # absent in older payloads: provenance defaults to planned
             source=d.get("source"),
             algorithm=d["algorithm"],
-            A_t=np.asarray(A_raw, np.float32),
+            A_t=A_t,
             tau_t=np.asarray(d["tau_t"], np.float32),
             m_t=np.asarray(d["m_t"], np.float64),
             eta_t=np.asarray(d["eta_t"], np.float64),
@@ -620,6 +787,13 @@ class RoundPlan:
             return False
         for f in dataclasses.fields(self):
             a, b = getattr(self, f.name), getattr(other, f.name)
+            if isinstance(a, SparseAseq) or isinstance(b, SparseAseq):
+                # representation is part of plan identity: a sparse and
+                # a dense plan never compare equal (convert first)
+                if not (isinstance(a, SparseAseq)
+                        and isinstance(b, SparseAseq) and a.equals(b)):
+                    return False
+                continue
             if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
                 # optional columns: None on one side only is a mismatch
                 if a is None or b is None:

@@ -1,4 +1,5 @@
-"""ctypes binding of ``csrc/mixing.cu`` (C ABI documented there)."""
+"""ctypes bindings of ``csrc/mixing.cu`` and ``csrc/sparse_mixing.cu``
+(C ABIs documented there)."""
 
 from __future__ import annotations
 
@@ -8,9 +9,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["lib", "dtype_code", "launch_args", "check_cuda_operand"]
+__all__ = ["lib", "sparse_lib", "dtype_code", "launch_args",
+           "check_cuda_operand"]
 
 _LIB = None
+_SPARSE_LIB = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -28,6 +31,21 @@ def lib() -> ctypes.CDLL:
         handle.repro_mix_aggregate.restype = _I
         _LIB = handle
     return _LIB
+
+
+def sparse_lib() -> ctypes.CDLL:
+    """The built ``sparse_mixing`` library with its argument types bound
+    (builds on first use)."""
+    global _SPARSE_LIB
+    if _SPARSE_LIB is None:
+        handle = _build.load("sparse_mixing")
+        handle.repro_sparse_row_groups.argtypes = [_I, _LL, _I]
+        handle.repro_sparse_row_groups.restype = _I
+        handle.repro_sparse_mix_aggregate.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _P]
+        handle.repro_sparse_mix_aggregate.restype = _I
+        _SPARSE_LIB = handle
+    return _SPARSE_LIB
 
 
 def dtype_code(X: torch.Tensor) -> int:

@@ -1,6 +1,7 @@
 """Public graph-mixing entry points: combine-row math, pytree plumbing and
-dtype groups around the kernel wrappers (dense subset of
-``repro.kernels.mixing.ops``).
+dtype groups around the kernel wrappers (the dense and sparse subset of
+``repro.kernels.mixing.ops``; the quantized ``_q`` entry points are still
+to be ported).
 
 * ``mix`` / ``mix_pytree``       -- eq. 3 only (``Delta = A @ X``), one
                                     ``mixing.mix_cuda`` launch per leaf.
@@ -16,11 +17,19 @@ dtype groups around the kernel wrappers (dense subset of
                                     (``repro_torch.fl.packing``): one
                                     launch per dtype group sharing one
                                     precombined weight row.
+* ``sparse_mix`` /               -- the same on the ELL form of ``A``
+  ``sparse_mix_aggregate`` /        (``idx``, ``w`` of shape (n, d_max),
+  ``sparse_aggregate`` (+           ``core.sparse.SparseA.ell()``): the
+  ``_grouped``)                     gather kernels of ``sparse.py`` and,
+                                    for the aggregate-only path, the
+                                    combine row ``combine_weights_ell``
+                                    into ``fused.aggregate_cuda``.
+                                    Nothing (n, n) exists.
 
 The reference's TPU knobs are gone: there is no ``interpret`` mode, and no
-``chunk``/8-sublane padding -- the CUDA kernels mask ragged n and p
-themselves.  CPU tensors run the plain versions (``ref.py``), CUDA
-tensors the kernels.
+``chunk``/8-sublane padding (``_pad_inputs``, ``_pad_sparse_inputs``) --
+the CUDA kernels mask ragged n and p themselves.  CPU tensors run the
+plain versions (``ref.py``), CUDA tensors the kernels.
 """
 
 from __future__ import annotations
@@ -32,11 +41,15 @@ import torch
 from repro_torch.core.pytree import tree_map
 from .fused import aggregate_cuda, mix_aggregate_cuda
 from .mixing import mix_cuda
+from .sparse import sparse_mix_aggregate_cuda, sparse_mix_cuda
 
 PyTree = Any
 
 __all__ = ["mix", "mix_pytree", "mix_aggregate", "aggregate",
-           "mix_aggregate_grouped", "aggregate_grouped", "combine_weights"]
+           "mix_aggregate_grouped", "aggregate_grouped", "combine_weights",
+           "combine_weights_ell", "sparse_mix", "sparse_mix_aggregate",
+           "sparse_aggregate", "sparse_mix_aggregate_grouped",
+           "sparse_aggregate_grouped"]
 
 
 def combine_weights(A: torch.Tensor, tau: torch.Tensor, m,
@@ -66,6 +79,57 @@ def combine_weights(A: torch.Tensor, tau: torch.Tensor, m,
     if active is not None:
         w = w * active.float()
     return w
+
+
+def combine_weights_ell(idx: torch.Tensor, w_ell: torch.Tensor,
+                        tau: torch.Tensor, m,
+                        active: Optional[torch.Tensor] = None,
+                        weights=None) -> torch.Tensor:
+    """``combine_weights`` from the ELL form of ``A``, never densifying:
+    ``w[j] = (1/m) sum_{(i,k): idx[i,k]=j} tau_i w_ell[i,k]``, a segment
+    sum over the stored entries.  Masking semantics and the ``m == 0``
+    guard are those of the dense definition (allclose to it, not
+    bitwise: the reduction order differs).
+
+    The segment sum is deterministic on every device (``_segment_sum``):
+    no float atomics, so a replay and the scanned driver reproduce a run
+    bitwise on the card too."""
+    tau = _fold_mask(tau, active, weights)
+    contrib = tau[:, None] * w_ell.float()
+    w = _segment_sum(contrib.reshape(-1), idx.reshape(-1), tau.shape[0])
+    w = _safe_divide_by_m(w, m)
+    if active is not None:
+        w = w * active.float()
+    return w
+
+
+def _segment_sum(values: torch.Tensor, segments: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """``out[j] = sum of values[e] over segments[e] == j`` in a fixed
+    order: the entries are stable-sorted by segment (so each segment keeps
+    the reference's flat entry order), laid out one segment per row of an
+    (n, width) zero matrix at distinct positions, and summed along the
+    rows.  ``index_add_`` would use float atomics on CUDA, whose order
+    changes from run to run.
+
+    Zero-weight entries (the ELL padding slots, index 0 weight 0.0) are
+    left out first: they add an exact 0 and would otherwise widen segment
+    0 to the padding count.  Two host syncs (the mask and the width)."""
+    keep = values != 0
+    values, segments = values[keep], segments[keep].long()
+    out = torch.zeros(n, dtype=torch.float32, device=values.device)
+    if values.numel() == 0:
+        return out
+    order = torch.argsort(segments, stable=True)
+    segments, values = segments[order], values[order]
+    counts = torch.bincount(segments, minlength=n)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(segments.numel(), device=values.device) \
+        - starts[segments]
+    table = torch.zeros(n, int(counts.max()), dtype=torch.float32,
+                        device=values.device)
+    table[segments, pos] = values
+    return table.sum(1)
 
 
 def _fold_mask(tau, active, weights):
@@ -149,3 +213,71 @@ def aggregate_grouped(A: torch.Tensor, tau: torch.Tensor, m,
     mixed deltas never materialized."""
     w = combine_weights(A, tau, m, active, weights).contiguous()
     return tuple(aggregate_cuda(w, b.contiguous()) for b in bufs)
+
+
+# --------------------------------------------------------------------------
+# Sparse (ELL) entry points -- A as padded neighbour lists
+# (``repro_torch.core.sparse.SparseA.ell()``), never an (n, n) array.
+# --------------------------------------------------------------------------
+
+
+def sparse_mix(idx: torch.Tensor, w: torch.Tensor, X: torch.Tensor
+               ) -> torch.Tensor:
+    """Sparse ``Delta = A @ X`` for arbitrary (n, p): the ELL gather
+    kernel, O(n d_max p) work.  allclose to the dense ``mix`` (fp32
+    accumulation both sides; the order differs)."""
+    return sparse_mix_cuda(idx.contiguous(), w.float().contiguous(),
+                           X.contiguous())
+
+
+def sparse_mix_aggregate(idx: torch.Tensor, w: torch.Tensor,
+                         tau: torch.Tensor, m, X: torch.Tensor, *,
+                         active: Optional[torch.Tensor] = None, weights=None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sparse fused eq. 3 + eq. 4: one pass over ``X`` emits the mixed
+    payload and the fp32 aggregate row, the combine row built by
+    ``combine_weights_ell`` (O(nnz)).  Mask/weight semantics match
+    ``mix_aggregate``."""
+    wrow = combine_weights_ell(idx, w, tau, m, active, weights)
+    return sparse_mix_aggregate_cuda(idx.contiguous(),
+                                     w.float().contiguous(),
+                                     wrow.contiguous(), X.contiguous())
+
+
+def sparse_aggregate(idx: torch.Tensor, w: torch.Tensor, tau: torch.Tensor,
+                     m, X: torch.Tensor, *,
+                     active: Optional[torch.Tensor] = None,
+                     weights=None) -> torch.Tensor:
+    """Sparse aggregate-only fast path: the combine row is a segment sum
+    over the ELL entries, then ``w @ X`` is the dense aggregate kernel
+    (``fused.aggregate_cuda``) -- no new kernel, nothing (n, n)."""
+    wrow = combine_weights_ell(idx, w, tau, m, active, weights)
+    return aggregate_cuda(wrow.contiguous(), X.contiguous())
+
+
+def sparse_mix_aggregate_grouped(idx: torch.Tensor, w: torch.Tensor,
+                                 tau: torch.Tensor, m,
+                                 bufs: Tuple[torch.Tensor, ...], *,
+                                 active: Optional[torch.Tensor] = None,
+                                 weights=None
+                                 ) -> Tuple[Tuple[torch.Tensor, ...],
+                                            Tuple[torch.Tensor, ...]]:
+    """``mix_aggregate_grouped`` on the ELL form: one sparse fused launch
+    per dtype group, sharing one combine row."""
+    idx = idx.contiguous()
+    w32 = w.float().contiguous()
+    wrow = combine_weights_ell(idx, w, tau, m, active, weights).contiguous()
+    out = [sparse_mix_aggregate_cuda(idx, w32, wrow, b.contiguous())
+           for b in bufs]
+    return tuple(mb for mb, _ in out), tuple(r for _, r in out)
+
+
+def sparse_aggregate_grouped(idx: torch.Tensor, w: torch.Tensor,
+                             tau: torch.Tensor, m,
+                             bufs: Tuple[torch.Tensor, ...], *,
+                             active: Optional[torch.Tensor] = None,
+                             weights=None) -> Tuple[torch.Tensor, ...]:
+    """``aggregate_grouped`` on the ELL form: per-group fp32 rows, the
+    mixed deltas never materialized, nothing (n, n)."""
+    wrow = combine_weights_ell(idx, w, tau, m, active, weights).contiguous()
+    return tuple(aggregate_cuda(wrow, b.contiguous()) for b in bufs)

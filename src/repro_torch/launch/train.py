@@ -14,10 +14,18 @@ Runs on ``cuda`` unless ``--device cpu`` (with no GPU and no --device it
 exits with an error).  Runtime selection is one ``ExecutionConfig``
 (``--backend``, ``--scan``, ``--record-mixed``: without it the kernel
 backends 'pallas'/'fused' take the aggregate-only kernel, with it they
-run the mix / fused mix+aggregate kernels); ``--plan-out`` saves the
-executed ``RoundPlan`` as JSON, ``--plan`` replays one verbatim (plans are
-byte-identical to the JAX package's), and ``--dropout RATE`` adds i.i.d.
-per-round client stragglers as a plan column.
+run the mix / fused mix+aggregate kernels; 'sparse' runs the ELL
+kernels: without --record-mixed the combine row into the aggregate kernel,
+with it the fused sparse mix+aggregate kernel); ``--topology
+'family:key=val,...'`` picks any registered graph family (default: the
+paper's k_regular model from --k-min/--k-max/--p); ``--plan-out`` saves
+the executed ``RoundPlan`` as JSON, ``--plan`` replays one verbatim (plans
+are byte-identical to the JAX package's), and ``--dropout RATE`` adds
+per-round client stragglers as a plan column (``--dropout-kind``: i.i.d.,
+bursty Markov chains with ``--dropout-recover``, or whole clusters).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --backend sparse \
+      --topology ring:hops=1
 """
 
 from __future__ import annotations
@@ -80,9 +88,22 @@ def main(argv=None) -> int:
                          "record_mixed): 'fused' then runs the fused "
                          "mix+aggregate kernel and 'pallas' the mix "
                          "kernel instead of the aggregate-only one")
+    ap.add_argument("--topology", default="",
+                    help="declarative topology spec 'family:key=val,...' "
+                         f"(families: {', '.join(topology.families())}); "
+                         "default: the paper's k_regular model from "
+                         "--k-min/--k-max/--p")
     ap.add_argument("--dropout", type=float, default=0.0,
-                    help="i.i.d. per-round client straggler probability "
+                    help="per-round client straggler probability "
                          "(adds an active_t column to the plan)")
+    ap.add_argument("--dropout-kind", default="iid",
+                    choices=("iid", "markov", "cluster"),
+                    help="straggler model: i.i.d. per round, bursty "
+                         "two-state Markov chains, or whole-cluster "
+                         "outages")
+    ap.add_argument("--dropout-recover", type=float, default=0.5,
+                    help="markov dropout: per-round recovery probability "
+                         "(mean outage = 1/recover rounds)")
     ap.add_argument("--plan", default="",
                     help="replay a saved RoundPlan JSON instead of "
                          "planning here")
@@ -120,9 +141,13 @@ def main(argv=None) -> int:
         return {"test_acc": cnn_lib.accuracy(apply_fn, p, xs, ys),
                 "test_loss": loss}
 
-    spec = topology.make_spec("k_regular", n=args.n, c=args.clusters,
-                              k_range=(args.k_min, args.k_max),
-                              p_fail=args.p)
+    if args.topology:
+        spec = topology.parse_spec(args.topology, n=args.n,
+                                   c=args.clusters)
+    else:
+        spec = topology.make_spec("k_regular", n=args.n, c=args.clusters,
+                                  k_range=(args.k_min, args.k_max),
+                                  p_fail=args.p)
     network = spec.build()
     cfg = ServerConfig(
         T=args.T, t_max=args.rounds, phi_max=args.phi_max,
@@ -140,8 +165,20 @@ def main(argv=None) -> int:
             plan = {"semidec": RoundPlan.connectivity_aware,
                     "fedavg": RoundPlan.fedavg,
                     "colrel": RoundPlan.colrel}[args.algorithm](network, cfg)
-        plan = plan.with_dropout(args.dropout,
-                                 np.random.default_rng(args.seed + 1))
+        drop_rng = np.random.default_rng(args.seed + 1)
+        if args.dropout_kind == "markov":
+            # --dropout is the *marginal* straggler rate for every kind:
+            # the stationary chain with recovery p_rec drops a
+            # p_fail/(p_fail+p_rec) fraction, so invert for p_fail
+            p_rec = args.dropout_recover
+            p_fail = min(args.dropout / max(1.0 - args.dropout, 1e-9)
+                         * p_rec, 1.0)
+            plan = plan.with_markov_dropout(p_fail, p_rec, drop_rng)
+        elif args.dropout_kind == "cluster":
+            plan = plan.with_cluster_dropout(args.dropout, drop_rng,
+                                             partition=network.partition)
+        else:
+            plan = plan.with_dropout(args.dropout, drop_rng)
     history = server.run(eval_fn=eval_fn, plan=plan)
     if args.plan_out:
         server.last_plan.save(args.plan_out)

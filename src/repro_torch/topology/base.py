@@ -157,7 +157,8 @@ class TopologySpec:
 
 
 class TopologyModel(Protocol):
-    """What planners (``repro_torch.fl.plan.plan_rows``) need from a network."""
+    """What planners (``repro_torch.fl.plan.plan_rows``) need from a
+    network."""
 
     spec: TopologySpec
 
@@ -228,11 +229,6 @@ def make_partition(n: int, c: int, membership: str = "equal",
 
 _FAMILIES: Dict[str, Type["ClusteredTopology"]] = {}
 
-# the reference's other registered families: named in the lookup error
-# until their slice of the port lands
-NOT_YET_PORTED = ("erdos_renyi", "geometric", "ring", "small_world", "hub",
-                  "preferential_attachment", "learned", "measured_trace")
-
 
 def register(name: str) -> Callable[[type], type]:
     """Class decorator: bind a model class to a family name.  The class
@@ -262,10 +258,6 @@ def _family_class(family: str) -> Type["ClusteredTopology"]:
     try:
         return _FAMILIES[family]
     except KeyError:
-        if family in NOT_YET_PORTED:
-            raise ValueError(f"topology family {family!r} is not yet "
-                             "ported to repro_torch (ported: "
-                             f"{families()})") from None
         raise ValueError(f"unknown topology family {family!r}; registered: "
                          f"{families()}") from None
 

@@ -4,7 +4,8 @@ Planning is numpy in both packages and draws ``default_rng(seed)`` in the
 same order, so the plans must be equal byte for byte: the same topology
 spec and seed give the same ``RoundPlan.to_json()`` text, through every
 dense constructor and the straggler transforms, and ``regenerate()``
-rebuilds the same columns.
+rebuilds the same columns.  (Sparse plans and the other families:
+``test_torch_topology.py``.)
 """
 
 import numpy as np
@@ -72,11 +73,13 @@ def test_dropout_regenerate_and_slices_are_byte_identical(seed):
 
 def test_pending_slices_raise():
     net, cfg, _, _ = _pair(0, n=10, c=2, t_max=2)
-    with pytest.raises(NotImplementedError, match="sparse"):
-        RoundPlan.connectivity_aware(net, cfg, sparse=True)
     plan = RoundPlan.connectivity_aware(net, cfg)
     with pytest.raises(NotImplementedError, match="quant"):
         plan.with_quant(object())
-    with pytest.raises(ValueError, match="not yet ported"):
-        topology.make_spec("geometric", n=10, c=2)
-    assert topology.families() == ("k_regular",)
+    with pytest.raises(NotImplementedError, match="closed-loop"):
+        RoundPlan.controlled(net, cfg, "static")
+    # the sparse slice has landed: CSR plans over every family
+    assert RoundPlan.connectivity_aware(net, cfg, sparse=True).is_sparse
+    assert len(topology.families()) == 9
+    with pytest.raises(ValueError, match="unknown topology family"):
+        topology.make_spec("torus", n=10, c=2)

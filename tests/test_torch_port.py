@@ -65,12 +65,14 @@ def test_cuda_engine_sets_the_fp32_policy(monkeypatch, device, fp32):
 
 
 @pytest.mark.parametrize("cfg,exc", [
-    (ExecutionConfig(backend="sparse"), NotImplementedError),
+    (ExecutionConfig(backend="sparse", quant="int8"), NotImplementedError),
     (ExecutionConfig(quant="int8"), NotImplementedError),
     (ExecutionConfig(mesh=object()), NotImplementedError),
     (ExecutionConfig(stream=object()), NotImplementedError),
     (ExecutionConfig(backend="aggregate", record_mixed=True), ValueError),
-    (ExecutionConfig(backend="nope"), ValueError)])
+    (ExecutionConfig(backend="nope"), ValueError),
+    (ExecutionConfig(backend="sparse_aggregate", record_mixed=True),
+     ValueError)])
 def test_pending_and_invalid_configs_raise(cfg, exc):
     with pytest.raises(exc):
         resolve_backend(cfg)
@@ -81,7 +83,10 @@ def test_pending_and_invalid_configs_raise(cfg, exc):
     (ExecutionConfig(backend="pallas"), "aggregate"),
     (ExecutionConfig(backend="fused", record_mixed=True), "fused"),
     (ExecutionConfig(backend="pallas", record_mixed=True), "pallas"),
-    (ExecutionConfig(backend="einsum", record_mixed=True), "einsum")])
+    (ExecutionConfig(backend="einsum", record_mixed=True), "einsum"),
+    (ExecutionConfig(backend="sparse"), "sparse_aggregate"),
+    (ExecutionConfig(backend="sparse", record_mixed=True), "sparse"),
+    (ExecutionConfig(backend="sparse_aggregate"), "sparse_aggregate")])
 def test_record_mixed_upgrade_matrix(cfg, effective):
     assert resolve_backend(cfg) == effective
 
