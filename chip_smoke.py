@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py            # one CUDA card; ~4-5 minutes
+    python3 chip_smoke.py            # one CUDA card
 
 Phases (each raises on failure; nothing is caught):
 
@@ -28,6 +28,18 @@ Phases (each raises on failure; nothing is caught):
               (37 x 1,000, f32 and bf16, d_max = 37) and FedAvg's identity
               (d_max = 1).  Times beside ``torch.sparse.mm`` (CSR x dense)
               as the library yardstick.
+   quant   -- the same for the dequant kernels (aggregate_dequant,
+              mix_aggregate_dequant, sparse_mix_aggregate_dequant) on
+              payloads the port's quantizer makes on the card (block 512),
+              whose stored containers and scales must equal the CPU
+              quantizer's bitwise: int8, int4 and fp8 at the paper's shape
+              (the sparse kernel on the k_regular plan's ELL), ragged
+              shapes (13 rows dense, a 37-row hub ELL), and the sparse
+              kernel at n = 100,000 x 2,048 int8 ring.  The sparse mixed
+              output must be bitwise its plain version's.  No single
+              PyTorch call computes these functions; the dequantize +
+              torch.matmul / torch.sparse.mm pair is printed as a
+              two-call yardstick.
 3. train   -- Algorithm 1 end to end at full width through
               ``FederatedServer``: n = 70 clients in c = 7 clusters,
               ``k_regular`` k in [6, 9] with p_fail = 0.1, the McMahan
@@ -47,13 +59,25 @@ Phases (each raises on failure; nothing is caught):
               (device activity only): the device events by time, one per
               correlation id, and the device's busy share of the traced
               wall time.
+              Then the quantized payload path (error feedback, block 512):
+              int8 on 'fused' (-> aggregate_dequant), 'fused' with
+              record_mixed (-> mix_aggregate_dequant), 'sparse' (->
+              aggregate_dequant after the ELL combine row) and 'sparse'
+              with record_mixed (-> sparse_mix_aggregate_dequant), and
+              int4 and fp8 on 'fused', each scanned and sequential,
+              against the quantized 'einsum' oracle of its storage
+              (bookkeeping exactly equal; params within rtol 1e-4 / atol
+              1e-5 or, where a rounding decision flipped, within one grid
+              step times the combine weight, summed over the rounds;
+              scanned == sequential bitwise), with the time of the
+              plain-PyTorch quantizer in a round; and one traced int8 run.
 4. scale   -- an n = 100,000 ``ring`` plan built sparse (12,500
               clusters of 8), one round of the logreg model (7,850
               params, T = 1, batch 8 drawn from the seed) on 'sparse' and
               on 'sparse' with record_mixed: d2d == n, the two agree, and
               the peak device memory stays far below one (n, n) f32
               array (40 GB).
-5. report  -- a ``{"kernels": [...]}`` JSON line, the card's name and
+5. report  -- a ``{"kernels": [...]}`` JSON line (eight kernels), the card's name and
               power limit (nvidia-smi), and the final
               ``{"ok": true, "device": {...}}`` line.
 
@@ -374,6 +398,191 @@ def phase_sparse_kernels(seed: int):
     return rows
 
 
+def phase_quant_kernels(seed: int):
+    """The three dequant kernels against their plain versions on payloads
+    the port's quantizer made on the card (block 512): at the paper's
+    shape for int8, int4 and fp8 (the sparse kernel on the ELL of a
+    ``k_regular`` plan of the paper's configuration), at ragged shapes (13
+    rows dense, a 37-row ``hub`` ELL), and the sparse kernel at n = 100,000
+    x 2,048 int8 ``ring``.  The CUDA quantizer must give the CPU's stored
+    containers and scales bitwise.  Returns the report rows (int8 at the
+    paper's shape; launch counts filled in by phase 3)."""
+    import torch
+    from repro_torch.fl import packing
+    from repro_torch.kernels.mixing import fused, ops, ref, sparse
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    block, f4 = 512, 4
+    # fp32 sums over <= n rows in another order than the plain version's
+    tol = dict(rtol=1e-5, atol=1e-5)
+    src = "src/repro_torch/kernels/csrc/quant_mixing.cu"
+
+    def check(name, got, want, bitwise=False):
+        e = float((got - want).abs().max())
+        ok = torch.equal(got, want) if bitwise else \
+            torch.allclose(got, want, **tol)
+        print(f"[quant]   {name}: max|err| {e:.3e} ("
+              + ("bitwise" if bitwise else
+                 f"rtol {tol['rtol']:.1e}, atol {tol['atol']:.1e}") + ")")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        return e
+
+    def csr_of(A, wrow, n):
+        """[A; wrow] as a CSR tensor (the yardstick's operand)."""
+        nnz = A.nnz
+        return torch.sparse_csr_tensor(
+            torch.as_tensor(list(A.indptr) + [nnz + n], device=dev),
+            torch.cat([torch.as_tensor(A.indices, dtype=torch.int64,
+                                       device=dev),
+                       torch.arange(n, device=dev)]),
+            torch.cat([torch.as_tensor(A.data, device=dev), wrow]),
+            size=(n + 1, n), check_invariants=True)
+
+    def case(label, Xf, storage, dense, ell, timed):
+        """Quantize Xf, check the kernels, optionally time them."""
+        quant = packing.QuantSpec(storage=storage, block=block)
+        n, p = Xf.shape
+        Xq, S = packing.quantize_group(Xf, quant)
+        Xq_h, S_h = packing.quantize_group(Xf.cpu(), quant)
+        as_bits = (lambda t: t.view(torch.uint8)) if storage == "fp8" \
+            else (lambda t: t)
+        if not (torch.equal(as_bits(Xq).cpu(), as_bits(Xq_h))
+                and torch.equal(S.cpu(), S_h)):
+            raise AssertionError(f"{label} {storage}: the CUDA quantizer "
+                                 "differs from the CPU's")
+        del Xq_h, S_h
+        q = dict(storage=storage, block=block)
+        print(f"[quant] {label}: n={n} p={p} {storage} (stored "
+              f"{Xq.numel() * Xq.element_size() / 1e6:.1f} MB + scales "
+              f"{S.numel() * 4 / 1e6:.2f} MB; CUDA quantizer == CPU "
+              f"quantizer bitwise)")
+        errs = {}
+        if dense is not None:
+            A, w = dense
+            errs["aggregate_dequant"] = check(
+                "aggregate_dequant", fused.aggregate_dequant_cuda(
+                    w, Xq, S, **q),
+                ref.aggregate_dequant_ref(w, Xq, S, storage, block))
+            got = fused.mix_aggregate_dequant_cuda(A, w, Xq, S, **q)
+            want = ref.mix_aggregate_dequant_ref(A, w, Xq, S, storage,
+                                                 block)
+            errs["mix_aggregate_dequant"] = max(
+                check("mix_aggregate_dequant/mixed", got[0], want[0]),
+                check("mix_aggregate_dequant/agg", got[1], want[1]))
+            del got, want
+        if ell is not None:
+            Asp, idx, wl, wrow = ell
+            got = sparse.sparse_mix_aggregate_dequant_cuda(idx, wl, wrow, Xq,
+                                                           S, **q)
+            want = ref.sparse_mix_aggregate_dequant_ref(idx, wl, wrow, Xq, S,
+                                                        storage, block)
+            errs["sparse_mix_aggregate_dequant"] = max(
+                check("sparse_mix_aggregate_dequant/mixed", got[0], want[0],
+                      bitwise=True),
+                check("sparse_mix_aggregate_dequant/agg", got[1], want[1]))
+            del got, want
+        torch.cuda.synchronize()
+        if not timed:
+            return {}
+        pay = Xq.numel() * Xq.element_size() + S.numel() * f4
+        out = {}
+        specs = []
+        if dense is not None:
+            B = torch.cat([A, w[None]])
+            specs += [
+                ("aggregate_dequant", "src/repro/kernels/mixing/fused.py:236",
+                 lambda: fused.aggregate_dequant_cuda(w, Xq, S, **q),
+                 lambda: ref.aggregate_dequant_ref(w, Xq, S, storage, block),
+                 lambda: torch.matmul(w, packing.dequantize_group(
+                     Xq, S, quant)),
+                 "dequantize_group + torch.matmul",
+                 pay + n * f4 + p * f4, n * p + 2 * n * p),
+                ("mix_aggregate_dequant",
+                 "src/repro/kernels/mixing/fused.py:199",
+                 lambda: fused.mix_aggregate_dequant_cuda(A, w, Xq, S, **q),
+                 lambda: ref.mix_aggregate_dequant_ref(A, w, Xq, S, storage,
+                                                       block),
+                 lambda: torch.matmul(B, packing.dequantize_group(
+                     Xq, S, quant)),
+                 "dequantize_group + torch.matmul",
+                 pay + (n + 1) * n * f4 + n * p * f4 + p * f4,
+                 n * p + 2 * (n + 1) * n * p)]
+        if ell is not None:
+            Asp, idx, wl, wrow = ell
+            B_csr = csr_of(Asp, wrow, n)
+            specs.append(
+                ("sparse_mix_aggregate_dequant",
+                 "src/repro/kernels/mixing/sparse.py:162",
+                 lambda: sparse.sparse_mix_aggregate_dequant_cuda(
+                     idx, wl, wrow, Xq, S, **q),
+                 lambda: ref.sparse_mix_aggregate_dequant_ref(
+                     idx, wl, wrow, Xq, S, storage, block),
+                 lambda: torch.sparse.mm(B_csr, packing.dequantize_group(
+                     Xq, S, quant)),
+                 "dequantize_group + torch.sparse.mm",
+                 pay + idx.numel() * 8 + n * f4 + n * p * f4 + p * f4,
+                 n * p + 2 * Asp.nnz * p + 2 * n * p))
+        for name, replaces, kern, plain, yard, yard_name, nbytes, flops \
+                in specs:
+            ms = cuda_ms(kern)
+            plain_ms = cuda_ms(plain, iters=5)
+            yard_ms = cuda_ms(yard, iters=10)
+            b_ms, b_by = bound(nbytes, flops)
+            print(f"[quant] {name} @ {label} ({n}, {p}) {storage}: "
+                  f"{ms:.4f} ms (plain {plain_ms:.4f} ms; yardstick, two "
+                  f"calls, {yard_name} {yard_ms:.4f} ms; bound {b_ms:.4f} "
+                  f"ms by {b_by}: {b_ms / ms:.1%} of it; "
+                  f"{nbytes / ms / 1e6:.0f} GB/s)")
+            out[name] = {"name": name, "route": "cuda", "source": src,
+                         "replaces": replaces, "launches": 0,
+                         "max_abs_err": errs[name], "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": None}
+        return out
+
+    def ell_of(family, n, c, ctor="connectivity_aware", **params):
+        Asp, tau, m = _ell_case(family, n, c, seed, ctor, **params)
+        idx_np, w_np = Asp.ell()
+        idx = torch.as_tensor(idx_np, device=dev)
+        wl = torch.as_tensor(w_np, device=dev)
+        wrow = ops.combine_weights_ell(idx, wl, torch.as_tensor(
+            tau, device=dev), torch.tensor(m, device=dev))
+        return Asp, idx, wl, wrow
+
+    def dense_of(n):
+        A = torch.rand(n, n, generator=g, device=dev)
+        A = A / A.sum(0, keepdim=True)             # column-stochastic
+        return A, torch.rand(n, generator=g, device=dev) / n
+
+    rows = {}
+    n, p = 70, 1_663_488
+    dense, ell = dense_of(n), ell_of("k_regular", n, 7, k_range=(6, 9),
+                                     p_fail=0.1)
+    print(f"[quant] main ELL: k_regular plan, paper's config, d_max "
+          f"{ell[1].shape[1]}, nnz {ell[0].nnz}")
+    # deltas-sized values with a spread of magnitudes across rows
+    X = torch.randn(n, p, generator=g, device=dev) * 10.0 ** -torch.randint(
+        1, 5, (n, 1), generator=g, device=dev)
+    for storage in ("int8", "int4", "fp8"):
+        out = case("main", X, storage, dense, ell, timed=True)
+        if storage == "int8":
+            rows = out
+    del X
+    for storage in ("int8", "int4", "fp8"):
+        case("ragged dense", torch.randn(13, 2048, generator=g, device=dev),
+             storage, dense_of(13), None, timed=False)
+        case("ragged hub", torch.randn(37, 2048, generator=g, device=dev),
+             storage, None, ell_of("hub", 37, 1), timed=False)
+    scale = ell_of("ring", 100_000, 12_500, hops=1)
+    case("scale ring", torch.randn(100_000, 2048, generator=g, device=dev),
+         "int8", None, scale, timed=True)
+    torch.cuda.empty_cache()
+    return [rows[k] for k in ("aggregate_dequant", "mix_aggregate_dequant",
+                              "sparse_mix_aggregate_dequant")]
+
+
 # -- phase 3 ----------------------------------------------------------------
 
 def phase_train(rounds: int, seed: int):
@@ -414,9 +623,21 @@ def phase_train(rounds: int, seed: int):
                 "mix_aggregate": fused.mix_aggregate_cuda,
                 "mix": mixing.mix_cuda,
                 "sparse_mix": sparse.sparse_mix_cuda,
-                "sparse_mix_aggregate": sparse.sparse_mix_aggregate_cuda}
+                "sparse_mix_aggregate": sparse.sparse_mix_aggregate_cuda,
+                "aggregate_dequant": fused.aggregate_dequant_cuda,
+                "mix_aggregate_dequant": fused.mix_aggregate_dequant_cuda,
+                "sparse_mix_aggregate_dequant":
+                    sparse.sparse_mix_aggregate_dequant_cuda}
 
-    def run(backend, record_mixed, scan, evaluate=True):
+    def server_for(backend, record_mixed, scan, quant=None):
+        return FederatedServer(
+            spec.build(), loss_fn, init,
+            batcher, ServerConfig(T=T, t_max=rounds, seed=seed),
+            execution=ExecutionConfig(backend=backend, scan=scan,
+                                      record_mixed=record_mixed,
+                                      quant=quant))
+
+    def run(backend, record_mixed, scan, evaluate=True, quant=None):
         stamps = [time.perf_counter()]
         exits = [stamps[0]]
 
@@ -429,11 +650,7 @@ def phase_train(rounds: int, seed: int):
             exits.append(time.perf_counter())
             return out
 
-        server = FederatedServer(
-            spec.build(), loss_fn, init,
-            batcher, ServerConfig(T=T, t_max=rounds, seed=seed),
-            execution=ExecutionConfig(backend=backend, scan=scan,
-                                      record_mixed=record_mixed))
+        server = server_for(backend, record_mixed, scan, quant)
         for f in counters.values():
             f.launches = 0
         hist = server.run(eval_fn=eval_fn if evaluate else None)
@@ -525,6 +742,139 @@ def phase_train(rounds: int, seed: int):
                                        seed, counters)
     profile_rounds(lambda: run("fused", False, False, evaluate=False),
                    rounds)
+    launches.update(train_quant(run, server_for, loss_fn, bookkeeping,
+                                counters, groups, rounds))
+    return launches
+
+
+def train_quant(run, server_for, loss_fn, bookkeeping, counters, groups,
+                rounds):
+    """The quantized payload path at full width (error feedback on, block
+    512): int8 on 'fused' (-> aggregate_dequant), 'fused' with
+    record_mixed (-> mix_aggregate_dequant), 'sparse' (-> the ELL combine
+    row and aggregate_dequant) and 'sparse' with record_mixed (->
+    sparse_mix_aggregate_dequant), and int4 and fp8 on the default route,
+    each scanned and sequential, against the quantized 'einsum' oracle of
+    its storage.  Returns the dequant kernels' launches."""
+    import torch
+    from repro_torch.core.pytree import tree_flatten
+    from repro_torch.core.rounds import client_deltas, make_round_fn
+    from repro_torch.fl import packing
+    from repro_torch.fl.engine import (ExecutionConfig, _device_columns,
+                                       _quant_setup, _to_device)
+    from repro_torch.kernels.mixing import ops
+
+    dev = torch.device("cuda")
+    paths = [("int8", "fused", False, "aggregate", "aggregate_dequant"),
+             ("int8", "fused", True, "fused", "mix_aggregate_dequant"),
+             ("int8", "sparse", False, "sparse_aggregate",
+              "aggregate_dequant"),
+             ("int8", "sparse", True, "sparse",
+              "sparse_mix_aggregate_dequant"),
+             ("int4", "fused", False, "aggregate", "aggregate_dequant"),
+             ("fp8", "fused", False, "aggregate", "aggregate_dequant")]
+    oracles, launches = {}, {}
+    for storage in ("int8", "int4", "fp8"):
+        quant = packing.QuantSpec(storage=storage, block=512)
+        srv, hist_srv = run("einsum", False, False, quant=quant)[:2]
+        final_srv = srv.params
+        # the same oracle replayed round by round (the server's plan,
+        # batches and device columns), to learn each round's grid steps:
+        # a value within a few ulps of a rounding boundary can round the
+        # other way on a kernel path, whose mixing sums in another order,
+        # and moves the aggregate by at most |w_i| * step_i
+        server = server_for("einsum", False, False, quant)
+        plan, batches = server._plan_and_batches()
+        A_seq, tau_seq, m_seq, eta_seq, active_seq = _device_columns(
+            plan, dev)
+        params = _to_device(server.params, dev)
+        n = plan.n_clients
+        _, qs = _quant_setup(ExecutionConfig(quant=quant), plan, params,
+                             "einsum", dev)
+        round_fn = make_round_fn(loss_fn, "einsum", quant=quant)
+        allow, quant_ms = 0.0, None
+        for t in range(plan.n_rounds):
+            batch = _to_device(batches[t], dev)
+            active = None if active_seq is None else active_seq[t]
+            deltas = client_deltas(loss_fn, params, batch, eta_seq[t])
+            pspec = packing.pack_spec(deltas, quant=quant)
+            bufs = packing.pack(deltas, pspec)
+            x = bufs[0] + qs[0][0]
+            steps = x.reshape(n, -1, 512).abs().amax(2) / quant.qmax
+            wrow = ops.combine_weights(A_seq[t], tau_seq[t], m_seq[t],
+                                       active)
+            allow = allow + wrow.abs() @ steps
+            if quant_ms is None:
+                quant_ms = cuda_ms(lambda: packing.quantize_packed(
+                    bufs, pspec, qs[0]), iters=10)
+            params, _, qs = round_fn(params, batch, A_seq[t], tau_seq[t],
+                                     m_seq[t], eta_seq[t], active, qs)
+        torch.cuda.synchronize()
+        oracle_leaves = tree_flatten(params)[0]
+        if not all(torch.equal(a, b) for a, b in zip(
+                oracle_leaves, tree_flatten(final_srv)[0])):
+            raise AssertionError(f"{storage}: the replayed einsum oracle "
+                                 "differs from the server's")
+        allow_leaves = tree_flatten(packing.unpack_row(
+            allow.repeat_interleave(512), pspec))[0]
+        oracles[storage] = (hist_srv, oracle_leaves, allow_leaves)
+        print(f"[train] quant {storage} (block 512, error feedback): einsum "
+              f"oracle sequential, replayed bitwise; the plain-PyTorch "
+              f"quantizer takes {quant_ms:.4f} ms of a round at ({n}, "
+              f"{pspec.padded}) (CUDA events, round 0's deltas)")
+    for storage, backend, record_mixed, effective, kernel in paths:
+        quant = packing.QuantSpec(storage=storage, block=512)
+        hist_o, leaves_o, allow_o = oracles[storage]
+        finals = {}
+        for scan in (False, True):
+            server, hist, counts, ms = run(backend, record_mixed, scan,
+                                           quant=quant)
+            if server.effective_backend != effective:
+                raise AssertionError(
+                    f"quant {backend} record_mixed={record_mixed} "
+                    f"dispatched {server.effective_backend}")
+            if counts[kernel] != groups * rounds or \
+                    sum(counts.values()) != counts[kernel]:
+                raise AssertionError(f"quant {effective}: launches "
+                                     f"{counts}, expected {groups} "
+                                     f"{kernel} a round")
+            launches[kernel] = launches.get(kernel, 0) + counts[kernel]
+            if bookkeeping(hist) != bookkeeping(hist_o):
+                raise AssertionError(f"quant {effective}: History "
+                                     "bookkeeping differs from einsum")
+            leaves = tree_flatten(server.params)[0]
+            worst, flipped = 0.0, 0
+            for a, b, c in zip(leaves, leaves_o, allow_o):
+                if a.shape != b.shape or not torch.isfinite(a).all():
+                    raise AssertionError(f"quant {effective}: bad params")
+                d = (a - b).abs()
+                plain = d <= 1e-5 + 1e-4 * b.abs()
+                if not (plain | (d <= c + 1e-5 + 1e-4 * b.abs())).all():
+                    raise AssertionError(
+                        f"quant {storage} {effective} scan={scan}: params "
+                        f"differ from einsum by {float(d.max()):.3e}, past "
+                        "the one-step allowance")
+                flipped += int((~plain).sum())
+                worst = max(worst, float(d.max()))
+            finals[scan] = leaves
+            print(f"[train] quant {storage} {backend} "
+                  f"record_mixed={record_mixed} -> {effective}, "
+                  f"{'scanned' if scan else 'sequential'}: {counts[kernel]} "
+                  f"{kernel} launches, round ms {[round(x, 1) for x in ms]}, "
+                  f"max|params - einsum| {worst:.3e} ({flipped} past rtol "
+                  f"1e-4 / atol 1e-5, all within the one-step allowance), "
+                  f"test_acc {[r.metrics['test_acc'] for r in hist.records]}")
+        same = all(torch.equal(a, b) for a, b in zip(finals[False],
+                                                     finals[True]))
+        if not same:
+            raise AssertionError(f"quant {storage} {effective}: scanned != "
+                                 "sequential")
+        print(f"[train] quant {storage} {effective}: scanned == sequential "
+              f"bitwise: {same}")
+    quant = packing.QuantSpec(storage="int8", block=512)
+    profile_rounds(lambda: run("fused", False, False, evaluate=False,
+                               quant=quant), rounds,
+                   label="quant int8 aggregate path")
     return launches
 
 
@@ -579,8 +929,9 @@ def mix_alone(loss_fn, init, batcher, spec, rounds, seed, counters):
     return counts["sparse_mix"]
 
 
-def profile_rounds(fn, rounds: int, top: int = 12):
-    """Trace ``fn()`` (a sequential aggregate-path run) with
+def profile_rounds(fn, rounds: int, top: int = 12,
+                   label: str = "aggregate path"):
+    """Trace ``fn()`` (a sequential run of the ``label`` path) with
     ``torch.profiler``, device activity only, and print the device events
     (kernels, copies, sets) by total time and the device's busy share of
     the traced wall time.  Events are read from the exported trace and
@@ -623,7 +974,7 @@ def profile_rounds(fn, rounds: int, top: int = 12):
         per_stream[sid] = (count + 1, us + e["dur"])
     total = sum(us for _, us in per_name.values()) / 1e3
     busy = busy_us / 1e3
-    print(f"[profile] aggregate path, {rounds} sequential rounds (no "
+    print(f"[profile] {label}, {rounds} sequential rounds (no "
           f"eval), device activity traced: wall {wall_ms:.1f} ms, device "
           f"busy {busy:.1f} ms ({busy / wall_ms:.1%}, idle "
           f"{1 - busy / wall_ms:.1%}); {len(raw)} device events in the "
@@ -728,6 +1079,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(70, 1_663_488)
     rows += phase_sparse_kernels(SEED)
+    rows += phase_quant_kernels(SEED)
     launches = phase_train(ROUNDS, SEED)
     phase_scale(SEED)
     for row in rows:

@@ -43,8 +43,13 @@ mixing_backend=...)``):
                  that scale n past the dense O(n^2) wall.  allclose (not
                  bitwise) to 'einsum'.
 
-Quantized payloads raise ``NotImplementedError`` until their slice of the
-port (ROADMAP queue 1 item 8).
+Quantized payloads (``make_round_fn(..., quant=QuantSpec)``): the deltas
+cross the wire as stored containers + fp32 per-block scales
+(``packing.quantize_packed``, with error feedback) on every backend of
+``QUANT_BACKENDS``: the kernel backends run the dequant kernels
+(``ops.*_q``), the 'einsum' oracle dequantizes and mixes in plain
+PyTorch.  The quantizer state ``(residuals, (seed, counter))`` is an
+argument and a result of every round, and the carry of the scanned loop.
 
 ``make_scanned_rounds`` runs K rounds as a Python loop over stacked
 ``(A_t, tau_t, m_t, eta_t[, active_t])`` columns (the sparse backends take
@@ -70,8 +75,10 @@ from torch.func import grad, vmap
 from repro_torch.core.pytree import tree_leaves, tree_map
 from repro_torch.fl import packing
 from repro_torch.kernels.mixing.ops import (
-    aggregate_grouped, mix_aggregate_grouped, mix_pytree,
-    sparse_aggregate_grouped, sparse_mix_aggregate_grouped)
+    aggregate_grouped, aggregate_grouped_q, mix_aggregate_grouped,
+    mix_aggregate_grouped_q, mix_pytree, sparse_aggregate_grouped,
+    sparse_aggregate_grouped_q, sparse_mix_aggregate_grouped,
+    sparse_mix_aggregate_grouped_q)
 
 __all__ = [
     "local_sgd",
@@ -83,8 +90,10 @@ __all__ = [
     "make_round_fn",
     "make_scanned_rounds",
     "check_backend",
+    "check_quant_backend",
     "MIXING_BACKENDS",
     "SPARSE_BACKENDS",
+    "QUANT_BACKENDS",
 ]
 
 PyTree = Any
@@ -93,6 +102,11 @@ LossFn = Callable[[PyTree, PyTree], torch.Tensor]  # (params, batch) -> scalar
 MIXING_BACKENDS = ("einsum", "pallas", "fused", "aggregate", "sparse",
                    "sparse_aggregate")
 SPARSE_BACKENDS = ("sparse", "sparse_aggregate")
+# backends that accept quantized payload groups: every packed one-pass path
+# (dequant inside the kernels) plus the einsum oracle.  The leaf-wise
+# 'pallas' backend has no packed buffers to attach scales to.
+QUANT_BACKENDS = ("einsum", "fused", "aggregate", "sparse",
+                  "sparse_aggregate")
 
 
 def check_backend(mixing_backend: str) -> None:
@@ -230,6 +244,88 @@ def _mix_and_update(global_params, deltas, A, tau, m, *, mixing_backend,
     raise AssertionError(mixing_backend)   # pragma: no cover
 
 
+def check_quant_backend(mixing_backend: str) -> None:
+    """Raise unless ``mixing_backend`` takes quantized payloads."""
+    if mixing_backend not in QUANT_BACKENDS:
+        raise ValueError(
+            f"quantized rounds support mixing_backend in {QUANT_BACKENDS}, "
+            f"got {mixing_backend!r}")
+
+
+def _quantize_deltas(deltas, *, quant, qstate):
+    """Client-side quantizer step shared by every quant backend: pack the
+    delta tree, quantize ``x + residual`` under ``quant``, and advance the
+    ``(residuals, (seed, counter))`` state.  With error feedback off the
+    residual buffers stay zero; the counter only advances for stochastic
+    rounding (nearest-mode trajectories do not depend on it)."""
+    spec = packing.pack_spec(deltas, quant=quant)
+    bufs = packing.pack(deltas, spec)
+    residuals, (seed, counter) = qstate
+    key = None
+    if quant.rounding == "stochastic":
+        key, counter = (seed, counter), counter + 1
+    stored, scales, new_res = packing.quantize_packed(
+        bufs, spec, residuals if quant.error_feedback else None, key)
+    new_qstate = ((new_res if quant.error_feedback else residuals),
+                  (seed, counter))
+    return spec, stored, scales, new_qstate
+
+
+def _mix_and_update_quant(global_params, deltas, A, tau, m, *,
+                          mixing_backend, active, quant, qstate):
+    """Quantized eq. 3 + eq. 4: every backend consumes the wire format
+    directly (the einsum oracle dequantizes explicitly).  Returns
+    ``(new_global, mixed, new_qstate)``.
+
+    Straggler masks act on the *wire*: a dropped client's payload is
+    zeroed by masking its scale rows (mixed leg) and its upload folds out
+    of the combine row (aggregate leg).  The quantizer state still
+    advances for dropped clients -- quantization happens before the
+    network, the drop on it."""
+    spec, stored, scales, new_qstate = _quantize_deltas(
+        deltas, quant=quant, qstate=qstate)
+
+    def done(agg_rows, mixed_bufs=None):
+        return (packing.apply_aggregate_row(global_params, agg_rows, spec),
+                None if mixed_bufs is None
+                else packing.unpack(mixed_bufs, spec), new_qstate)
+
+    if mixing_backend == "einsum":
+        # the oracle: mix the dequantized fp32 buffers with the same mask
+        # recipe as the unquantized einsum branch
+        dq = packing.dequantize_packed(stored, scales, spec)
+        if active is not None:
+            dq = tuple(mask_clients(list(dq), active))
+            tau = tau * active
+        A32, tau32 = A.float(), tau.float()
+        mixed_bufs = tuple(A32 @ b for b in dq)
+        return done(tuple((tau32 @ mb) / m for mb in mixed_bufs),
+                    mixed_bufs)
+    if mixing_backend == "aggregate":
+        return done(aggregate_grouped_q(A, tau, m, stored, scales,
+                                        quant=quant, active=active))
+    if mixing_backend == "sparse_aggregate":
+        idx, w = A
+        return done(sparse_aggregate_grouped_q(idx, w, tau, m, stored,
+                                               scales, quant=quant,
+                                               active=active))
+    if mixing_backend in ("fused", "sparse"):
+        # mask the mixed leg on the scales: one multiply on the small side
+        # buffer, the payload is never touched
+        if active is not None:
+            scales = tuple(mask_clients(list(scales), active))
+        if mixing_backend == "fused":
+            mixed_bufs, agg_rows = mix_aggregate_grouped_q(
+                A, tau, m, stored, scales, quant=quant, active=active)
+        else:
+            idx, w = A
+            mixed_bufs, agg_rows = sparse_mix_aggregate_grouped_q(
+                idx, w, tau, m, stored, scales, quant=quant, active=active)
+        return done(agg_rows, mixed_bufs)
+    check_quant_backend(mixing_backend)
+    raise AssertionError(mixing_backend)   # pragma: no cover
+
+
 def make_round_fn(loss_fn: LossFn, mixing_backend: str = "einsum", *,
                   quant=None):
     """Build the global-round function.
@@ -246,12 +342,35 @@ def make_round_fn(loss_fn: LossFn, mixing_backend: str = "einsum", *,
     Returns ``(new_global_params, mixed_deltas)`` -- ``None`` in place of
     the mixed deltas under the 'aggregate' and 'sparse_aggregate'
     backends.
+
+    ``quant`` (a ``repro_torch.fl.packing.QuantSpec``, default None)
+    switches the round to quantized payload groups: the signature grows a
+    trailing ``qstate`` argument (``packing.init_quant_state``) and the
+    round returns ``(new_global_params, mixed_deltas, new_qstate)``.  Only
+    ``QUANT_BACKENDS`` take it.
     """
     check_backend(mixing_backend)
     if quant is not None:
-        raise NotImplementedError(
-            "quantized payloads are not yet ported to repro_torch "
-            "(ROADMAP queue 1 item 8, quant slice)")
+        check_quant_backend(mixing_backend)
+
+        def round_fn_q(global_params: PyTree, client_batches: PyTree,
+                       A: torch.Tensor, tau: torch.Tensor, m: torch.Tensor,
+                       eta: torch.Tensor,
+                       active: Optional[torch.Tensor] = None,
+                       qstate=None) -> Tuple[PyTree, PyTree, Any]:
+            if qstate is None:
+                raise ValueError(
+                    "quantized round_fn needs the quantizer state: build "
+                    "it with packing.init_quant_state(spec, n) and thread "
+                    "the returned new_qstate into the next round")
+            deltas = client_deltas(loss_fn, global_params, client_batches,
+                                   eta)
+            return _mix_and_update_quant(
+                global_params, deltas, A, tau, m,
+                mixing_backend=mixing_backend, active=active, quant=quant,
+                qstate=qstate)
+
+        return round_fn_q
 
     def round_fn(global_params: PyTree, client_batches: PyTree,
                  A: torch.Tensor, tau: torch.Tensor, m: torch.Tensor,
@@ -283,6 +402,11 @@ def make_scanned_rounds(loss_fn: LossFn, K: int,
     The loop body is ``make_round_fn``'s round function on row ``t`` of
     each column, so the trajectory is bitwise-identical to K sequential
     ``round_fn`` calls on the same inputs.
+
+    With ``quant`` set the quantizer state joins the loop's carry: the
+    driver takes a trailing ``qstate`` argument and returns ``(final,
+    params_seq, final_qstate)`` -- error-feedback residuals accumulate
+    across the K rounds exactly as in the sequential loop.
     """
     round_fn = make_round_fn(loss_fn, mixing_backend, quant=quant)
     sparse = mixing_backend in SPARSE_BACKENDS
@@ -290,16 +414,22 @@ def make_scanned_rounds(loss_fn: LossFn, K: int,
     def scanned(global_params: PyTree, client_batches_seq: PyTree,
                 A_seq: torch.Tensor, tau_seq: torch.Tensor,
                 m_seq: torch.Tensor, eta_seq: torch.Tensor,
-                active_seq: Optional[torch.Tensor] = None
-                ) -> Tuple[PyTree, PyTree]:
+                active_seq: Optional[torch.Tensor] = None, qstate=None):
         params, seq = global_params, []
         for t in range(K):
             batches = tree_map(lambda b: b[t], client_batches_seq)
             active = active_seq[t] if active_seq is not None else None
             A = (tuple(a[t] for a in A_seq) if sparse else A_seq[t])
-            params, _ = round_fn(params, batches, A, tau_seq[t],
-                                 m_seq[t], eta_seq[t], active)
+            args = (params, batches, A, tau_seq[t], m_seq[t], eta_seq[t],
+                    active)
+            if quant is not None:
+                params, _, qstate = round_fn(*args, qstate)
+            else:
+                params, _ = round_fn(*args)
             seq.append(params)
-        return params, tree_map(lambda *xs: torch.stack(xs), *seq)
+        params_seq = tree_map(lambda *xs: torch.stack(xs), *seq)
+        if quant is not None:
+            return params, params_seq, qstate
+        return params, params_seq
 
     return scanned

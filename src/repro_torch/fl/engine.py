@@ -2,7 +2,7 @@
 (single-host port of ``repro.fl.engine``).
 
     ExecutionConfig   what to run: backend name, scan on/off, mixed-delta
-                      recording.
+                      recording, payload quantization.
     LocalEngine       single-host runtime over ``repro_torch.core.rounds``
                       (``make_round_fn`` / ``make_scanned_rounds``) on one
                       device -- ``cuda`` unless the caller passes
@@ -21,9 +21,15 @@ Backend selection::
 The sparse backends take any plan: a sparse (CSR) plan's ``A_t`` goes to
 the device as (K, n, d_max) ELL columns without densifying, a dense plan
 is converted O(nnz)-wise; the dense backends densify a sparse plan.
-The reference's mesh, stream (semi-async) and wall-clock runtimes, and
-its quantized payloads, raise ``NotImplementedError`` until their slices
-of the port (ROADMAP queue 1).
+The reference's mesh, stream (semi-async) and wall-clock runtimes raise
+``NotImplementedError`` until their slices of the port (ROADMAP queue 1).
+
+Quantized payloads: ``ExecutionConfig.quant`` (or, when it is None, the
+plan's ``quant``) quantizes every client upload (``QuantSpec``); the
+*effective* backend must be one of ``QUANT_BACKENDS``, so 'fused' that
+upgraded to 'aggregate' quantizes while 'pallas' kept by
+``record_mixed`` is rejected.  Both drivers thread the quantizer state
+from round to round.
 
 Straggler masks: when ``plan.has_dropout`` the per-round ``active_t``
 column is threaded into the round functions; all-ones plans skip the mask
@@ -41,10 +47,12 @@ import torch
 from repro_torch.core.metrics import CommLedger
 from repro_torch.core.pytree import tree_map
 from repro_torch.core.rounds import (SPARSE_BACKENDS, check_backend,
-                                     make_round_fn, make_scanned_rounds)
+                                     check_quant_backend, make_round_fn,
+                                     make_scanned_rounds)
 from repro_torch.core.sparse import SparseAseq
 from repro_torch.core.server import History, RoundRecord
-from .plan import RoundPlan
+from . import packing
+from .plan import RoundPlan, _check_quant_type
 
 __all__ = ["ExecutionConfig", "LocalEngine", "make_engine",
            "resolve_backend", "resolve_device", "set_fp32_policy"]
@@ -62,9 +70,10 @@ class ExecutionConfig:
     ``scan=True`` runs the whole K-round trajectory from stacked columns
     (``make_scanned_rounds``).  ``record_mixed=True`` keeps per-client
     mixed deltas materialized; otherwise the kernel backends upgrade to
-    the aggregate-only fast path.  ``mesh``, ``stream`` and ``quant`` are
-    the reference's other runtimes and payload formats: setting any of
-    them raises until its slice of the port.
+    the aggregate-only fast path.  ``quant`` (a ``packing.QuantSpec``)
+    quantizes the client payloads and overrides the plan's.  ``mesh`` and
+    ``stream`` are the reference's other runtimes: setting either raises
+    until its slice of the port.
     """
     backend: str = "einsum"
     scan: bool = False
@@ -76,7 +85,7 @@ class ExecutionConfig:
 
 def resolve_backend(cfg: ExecutionConfig) -> str:
     """Validate ``cfg`` and return the *effective* backend name."""
-    for field, item in (("mesh", 13), ("stream", 9), ("quant", 8)):
+    for field, item in (("mesh", 13), ("stream", 9)):
         if getattr(cfg, field) is not None:
             raise NotImplementedError(
                 f"ExecutionConfig.{field} is not yet ported to repro_torch "
@@ -89,11 +98,44 @@ def resolve_backend(cfg: ExecutionConfig) -> str:
     # History never records per-client mixed deltas, so unless the caller
     # explicitly keeps them, the kernel backends take the aggregate-only
     # fast path.
+    effective = cfg.backend
     if not cfg.record_mixed and cfg.backend in ("pallas", "fused"):
-        return "aggregate"
+        effective = "aggregate"
     if not cfg.record_mixed and cfg.backend == "sparse":
-        return "sparse_aggregate"
-    return cfg.backend
+        effective = "sparse_aggregate"
+    _check_quant_backend(cfg.quant, effective)
+    return effective
+
+
+def _check_quant_backend(quant, backend: str) -> None:
+    """A quant config must be a ``QuantSpec`` and the *effective* backend
+    one of ``QUANT_BACKENDS``: 'pallas' kept alive by record_mixed is
+    rejected (its leaf-wise kernels have no packed buffers to attach
+    scales to)."""
+    if quant is None:
+        return
+    _check_quant_type(quant)
+    check_quant_backend(backend)
+
+
+def _quant_setup(cfg: ExecutionConfig, plan: RoundPlan, params: PyTree,
+                 backend: str, device: torch.device):
+    """The effective quant config (cfg overrides plan) and the round-0
+    quantizer state on ``device``.  The packing spec reads only leaf
+    shapes and dtypes, so it is built from ``meta`` tensors of the delta
+    tree (deltas share the param tree's structure and dtypes) -- the same
+    cache entry the round functions hit.  ``(None, None)`` when neither
+    source quantizes."""
+    quant = cfg.quant if cfg.quant is not None else plan.quant
+    if quant is None:
+        return None, None
+    _check_quant_backend(quant, backend)
+    n = plan.n_clients
+    spec = packing.pack_spec(
+        tree_map(lambda p: torch.empty((n,) + tuple(p.shape),
+                                       dtype=p.dtype, device="meta"),
+                 params), quant=quant)
+    return quant, packing.init_quant_state(spec, n, device)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -213,13 +255,17 @@ class LocalEngine:
                           ledger=CommLedger(energy_ratio=energy_ratio))
         params = _to_device(params, device)
         batches = [_to_device(b, device) for b in batches]
+        quant, qstate = _quant_setup(self.cfg, plan, params, self.backend,
+                                     device)
+        qargs = () if quant is None else (qstate,)
 
         if self.cfg.scan:
-            scanned = make_scanned_rounds(self.loss_fn, K, self.backend)
+            scanned = make_scanned_rounds(self.loss_fn, K, self.backend,
+                                          quant=quant)
             batches_seq = tree_map(lambda *bs: torch.stack(bs), *batches)
             params, params_seq = scanned(params, batches_seq, A_seq,
                                          tau_seq, m_seq, eta_seq,
-                                         active_seq)
+                                         active_seq, *qargs)[:2]
             for t in range(K):
                 _append_record(
                     plan, history, t,
@@ -227,12 +273,13 @@ class LocalEngine:
                     eval_fn, eval_every)
             return params, history
 
-        round_fn = make_round_fn(self.loss_fn, self.backend)
+        round_fn = make_round_fn(self.loss_fn, self.backend, quant=quant)
         for t in range(K):
             active = active_seq[t] if active_seq is not None else None
             A = (A_seq[0][t], A_seq[1][t]) if sparse else A_seq[t]
-            params, _ = round_fn(params, batches[t], A, tau_seq[t],
-                                 m_seq[t], eta_seq[t], active)
+            out = round_fn(params, batches[t], A, tau_seq[t], m_seq[t],
+                           eta_seq[t], active, *qargs)
+            params, qargs = out[0], out[2:]   # quantized: (new qstate,)
             # record inline: only the current round's params stay live
             _append_record(plan, history, t, lambda p=params: p,
                            eval_fn, eval_every)

@@ -100,6 +100,7 @@ from repro_torch.core.sparse import SparseA, SparseAseq
 from repro_torch.topology import TopologySpec
 
 from . import faults as _faults
+from .packing import QuantSpec
 
 __all__ = ["ALGORITHMS", "PlanRow", "RoundPlan", "plan_rows"]
 
@@ -110,8 +111,13 @@ _JSON_VERSION = 5
 # v3: dense-only A_t; v4: no quant config
 _JSON_SUPPORTED = (1, 2, 3, 4, 5)
 
-_QUANT_PENDING = ("quantized payloads are not yet ported to repro_torch "
-                  "(ROADMAP queue 1, quant slice)")
+
+
+def _check_quant_type(quant) -> None:
+    if quant is not None and not isinstance(quant, QuantSpec):
+        raise ValueError(
+            "quant must be a repro_torch.fl.packing.QuantSpec (or None), "
+            f"got {type(quant).__name__}")
 
 
 def _sample_snapshot(network, rng, t):
@@ -262,7 +268,7 @@ class RoundPlan:
     # -- streaming bookkeeping (None for synchronous plans) -------------
     arrival_t: Optional[np.ndarray] = None   # (K, n) f32, inf = lost
     # -- payload compression (None = full-precision wire) ----------------
-    quant: None = None         # quant slice pending: always None
+    quant: Optional[QuantSpec] = None
     # -- provenance: who generated these columns, and from where --------
     topology: Optional[TopologySpec] = None   # embedded topology spec
     seed: Optional[int] = None     # planning seed (None: external rng)
@@ -292,8 +298,7 @@ class RoundPlan:
                     f"{self.arrival_t.shape}")
             if (self.arrival_t < 0).any():
                 raise ValueError("arrival_t must be non-negative")
-        if self.quant is not None:
-            raise NotImplementedError(_QUANT_PENDING)
+        _check_quant_type(self.quant)
         if self.algorithm not in ALGORITHMS:
             raise ValueError(f"algorithm must be one of {ALGORITHMS}")
         if self.t0 < 0:
@@ -554,12 +559,14 @@ class RoundPlan:
 
     # -- payload-compression transform ---------------------------------------
 
-    def with_quant(self, quant) -> "RoundPlan":
-        """Attach a payload quantization config: only ``None`` until the
-        quant slice of the port."""
-        if quant is not None:
-            raise NotImplementedError(_QUANT_PENDING)
-        return dataclasses.replace(self, quant=None)
+    def with_quant(self, quant: Optional[QuantSpec]) -> "RoundPlan":
+        """Attach (or clear, with None) the payload quantization config.
+
+        Pure execution metadata -- no column changes: engines that run a
+        quant-carrying plan quantize every client upload under this spec.
+        An explicit ``ExecutionConfig.quant`` overrides the plan's."""
+        _check_quant_type(quant)
+        return dataclasses.replace(self, quant=quant)
 
     # -- streaming transforms ------------------------------------------------
 
@@ -714,7 +721,7 @@ class RoundPlan:
                           [[None if not math.isfinite(v) else v
                             for v in row]
                            for row in self.arrival_t.tolist()]),
-            "quant": None,
+            "quant": (None if self.quant is None else self.quant.as_dict()),
         }
         return json.dumps(payload)
 
@@ -740,8 +747,6 @@ class RoundPlan:
                                        A_raw["data"])])
         else:
             A_t = np.asarray(A_raw, np.float32)
-        if d.get("quant") is not None:
-            raise NotImplementedError(_QUANT_PENDING)
         return cls(
             topology=(None if spec is None
                       else TopologySpec.from_dict(spec)),
@@ -767,6 +772,9 @@ class RoundPlan:
                                     for v in row]
                                    for row in d["arrival_t"]],
                                   np.float32)),
+            # absent in v<=4 payloads: older plans load as unquantized
+            quant=(None if d.get("quant") is None
+                   else QuantSpec.from_dict(d["quant"])),
         )
 
     def save(self, path: str) -> None:
@@ -782,6 +790,8 @@ class RoundPlan:
 
     def allclose(self, other: "RoundPlan", exact: bool = True) -> bool:
         if self.algorithm != other.algorithm:
+            return False
+        if self.quant != other.quant:   # frozen dataclass: field-wise eq
             return False
         if self.source != other.source:
             return False

@@ -1,0 +1,718 @@
+// Graph-mixing kernels over a quantized payload, for Hopper (sm_90a): the
+// port of the three Pallas TPU kernels with a fused dequant epilogue.
+//
+//   repro_aggregate_dequant      replaces repro/kernels/mixing/fused.py::
+//                                aggregate_dequant_pallas (_agg_dequant_kernel):
+//                                agg = w @ deq(Xq, S)
+//   repro_mix_aggregate_dequant  replaces fused.py::mix_aggregate_dequant_pallas
+//                                (_fused_dequant_kernel):
+//                                mixed = A @ deq(Xq, S), agg = w @ deq(Xq, S)
+//   repro_sparse_mix_aggregate_dequant
+//                                replaces repro/kernels/mixing/sparse.py::
+//                                sparse_mix_aggregate_dequant_pallas
+//                                (_sparse_fused_dequant_kernel): the ELL gather
+//                                mixed[i] = sum_k w[i, k] * x[idx[i, k]] and
+//                                agg = wrow @ x over x = deq(Xq, S)
+//
+// Build (one shared library per source, plain C ABI, loaded with ctypes by
+// repro_torch/kernels/_build.py):
+//
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+//        -Xcompiler -fPIC -Xptxas -v -o libquant_mixing.so quant_mixing.cu
+//
+// The wire format (repro_torch/fl/packing.py::QuantSpec).  Xq holds the
+// stored containers of an (n, p) payload, row-major: 'int8' one int8 a
+// value (p bytes a row), 'int4' two values a byte with the even column in
+// the low nibble (p / 2 bytes a row), 'fp8' one float8_e4m3fn a value.
+// S (n, p / block) holds one fp32 scale per row and block of `block`
+// columns; block is a positive multiple of 128 (of 256 for int4), so p is
+// too.  The dequantized value is
+//
+//   deq(Xq, S)[i, c] = float(v[i, c]) * S[i, c / block]
+//
+// with v the int8 value, the sign-extended nibble or the e4m3 value (all
+// exact in fp32), and the product rounded once (__fmul_rn, which nvcc never
+// contracts into the following FMA): bitwise packing.dequantize_group.  The
+// dequantized payload exists only in registers and shared memory, never in
+// device memory.  Outputs are fp32.
+//
+// C ABI.  Device pointers and the CUDA stream are void* (ctypes.c_void_p),
+// sizes int / long long, `storage` 0 = int8, 1 = int4, 2 = fp8, and the
+// device ordinal.  Each entry point launches on the given stream, never
+// synchronises, allocates nothing, and returns cudaGetLastError() as an int
+// (0 = success; repro_error_string(code) names any other).  Xq must be
+// 16-byte aligned; every array is contiguous.
+//
+//   int repro_aggregate_dequant(const float* w,   // (n,) f32 combine row
+//                               const void* Xq, const float* S,
+//                               float* agg,       // (p,) f32 out
+//                               int n, long long p, int block, int storage,
+//                               int device, void* stream);
+//
+//   int repro_mix_aggregate_dequant(const float* B,  // (n + 1, n): [A; w]
+//                                   const void* Xq, const float* S,
+//                                   float* mixed,    // (n, p) f32 out
+//                                   float* agg,      // (p,) f32 out
+//                                   int n, long long p, int block,
+//                                   int storage, int device, void* stream);
+//
+//   int repro_sparse_dequant_row_groups(int n, long long p);
+//       the number G of row groups the sparse kernel splits the n rows
+//       into; the aggregate leg needs a (G, p) f32 scratch when G > 1.
+//
+//   int repro_sparse_mix_aggregate_dequant(
+//       const int* idx,      // (n, d_max) int32 in-neighbours, in [0, n)
+//       const float* w,      // (n, d_max) f32 weights (padding: index 0, 0.0)
+//       const float* wrow,   // (n,) f32 combine row
+//       const void* Xq, const float* S,
+//       float* mixed,        // (n, p) f32 out
+//       float* agg,          // (p,) f32 out
+//       float* partial,      // (G, p) f32 scratch when G > 1
+//       int n, int d_max, long long p, int block, int storage,
+//       int device, void* stream);
+//
+// Arithmetic.  aggregate and mix_aggregate accumulate fmaf(w, deq, acc)
+// over the rows in order (fp32, no tensor cores).  The sparse kernel does,
+// for every slot k = 0 .. d_max-1 in order, padding slots included,
+// acc = acc + w[i, k] * deq(X)[idx[i, k]] with the product and the sum
+// rounded apart (__fmul_rn / __fadd_rn), as the reference's _gather_mix:
+// its mixed output is bitwise its plain version's
+// (ref.py::sparse_mix_aggregate_dequant_ref); its agg is an fp32 FMA sum.
+
+#include <cuda_runtime.h>
+#include <cuda_fp8.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kInt8 = 0, kInt4 = 1, kFp8 = 2;
+
+// ---------------------------------------------------------------------------
+// Decoding.  One 32-bit container word holds 4 int8 / fp8 values (byte j =
+// column j) or 8 int4 values (nibble j = column j: byte j / 2, low nibble
+// for even j).  Every conversion is exact.
+// ---------------------------------------------------------------------------
+
+template <int ST>
+struct Word {
+  static constexpr int kVals = ST == kInt4 ? 8 : 4;   // values a word
+  __device__ __forceinline__ static void decode(uint32_t u, float* v) {
+    if constexpr (ST == kInt8) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)      // shift the byte to the top, extend
+        v[j] = (float)((int32_t)(u << (24 - 8 * j)) >> 24);
+    } else if constexpr (ST == kInt4) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        v[j] = (float)((int32_t)(u << (28 - 4 * j)) >> 28);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const __half_raw h = __nv_cvt_fp8_to_halfraw(
+            (__nv_fp8_storage_t)((u >> (8 * j)) & 0xFFu), __NV_E4M3);
+        v[j] = __half2float(__half(h));   // e4m3 -> f16 -> f32, exact
+      }
+    }
+  }
+};
+
+// W container words -> W * kVals values, each times the row's block scale
+// s, one rounded product each.
+template <int ST, int W>
+__device__ __forceinline__ void dequant_words(const uint32_t (&u)[W], float s,
+                                              float* v) {
+  constexpr int K = Word<ST>::kVals;
+#pragma unroll
+  for (int q = 0; q < W; ++q) {
+    float t[K];
+    Word<ST>::decode(u[q], t);
+#pragma unroll
+    for (int j = 0; j < K; ++j) v[q * K + j] = __fmul_rn(t[j], s);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// aggregate_dequant: agg[c] = sum_i w[i] * deq(Xq, S)[i, c]
+//
+// Bound: bytes.  The compressed payload is read once (n p bits / 8), the
+// scales once (n p / block * 4) and the f32 row written once (4 p): at the
+// paper's shape (70 x 1,663,488, block 512) 124.0 MB for int8 / fp8, so
+// ~0.037 ms at 3.35 TB/s, and 65.8 MB (~0.020 ms) for int4; the 2 n p
+// flops are far under the fp32 rate.  Design: csrc/mixing.cu's
+// aggregate_kernel GEMV on the container.  Each thread owns one 16-byte
+// container vector of a row (16 int8 / fp8 or 32 int4 values, inside one
+// scale block since the block is a multiple of 128 or 256 columns) and
+// walks all n rows with 16-byte
+// streaming loads (__ldcs: the payload is never reused), reading its row's
+// scale once per row; the row loop is unrolled so several rows' loads are
+// in flight.  w is staged through shared memory in tiles of kWTile rows, so
+// any n works.
+// ---------------------------------------------------------------------------
+
+constexpr int kAggThreads = 256;
+constexpr int kWTile = 2048;
+
+template <int ST>
+__global__ void __launch_bounds__(kAggThreads)
+aggregate_dequant_kernel(const float* __restrict__ w,
+                         const uint8_t* __restrict__ Xq,
+                         const float* __restrict__ S,
+                         float* __restrict__ agg, int n, long long p,
+                         int block) {
+  constexpr int V = 4 * Word<ST>::kVals;          // values a 16-byte vector
+  __shared__ float ws[kWTile];
+  const long long qcols = p / V * 16;             // container bytes a row
+  const long long nb = p / block;                 // scales a row
+  const long long t = (long long)blockIdx.x * kAggThreads + threadIdx.x;
+  const long long c0 = t * V;
+  const bool live = c0 < p;
+  const long long sb = c0 / block;
+  float acc[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = 0.f;
+
+  for (int r0 = 0; r0 < n; r0 += kWTile) {
+    const int rn = min(kWTile, n - r0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < rn; i += kAggThreads) ws[i] = w[r0 + i];
+    __syncthreads();
+    if (live) {
+      const uint8_t* xp = Xq + (long long)r0 * qcols + t * 16;
+      const float* sp = S + (long long)r0 * nb + sb;
+#pragma unroll 4
+      for (int r = 0; r < rn; ++r) {
+        const uint4 q = __ldcs(reinterpret_cast<const uint4*>(
+            xp + (long long)r * qcols));
+        const float s = __ldg(sp + (long long)r * nb);
+        const uint32_t u[4] = {q.x, q.y, q.z, q.w};
+        float v[V];
+        dequant_words<ST, 4>(u, s, v);
+        const float wr = ws[r];
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[j] = fmaf(wr, v[j], acc[j]);
+      }
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < V; j += 4)
+      *reinterpret_cast<float4*>(agg + c0 + j) =
+          make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// mix_aggregate_dequant: Y = B @ deq(Xq, S) with B = [A; w] ((n + 1, n),
+// f32).  Rows r < n of Y are the mixed deltas, row n the aggregate row,
+// both f32.
+//
+// Bound: operations at the paper's shape.  Bytes: the payload read once,
+// the scales, B, and the f32 mixed output written once (589.8 MB for int8:
+// ~0.176 ms at 3.35 TB/s); operations 2 (n + 1) n p fp32 flops (16.5 GFLOP:
+// ~0.247 ms at the 67 TFLOP/s non-tensor fp32 rate).  Design: the
+// register-blocked tiled product of csrc/mixing.cu::mix_aggregate_kernel,
+// with the X slab dequantized as it is staged:
+//   * A block owns kColTile = 128 columns (inside one scale block, since the
+//     block is a multiple of 128) and 16 RM output rows; thread (tx, ty) of
+//     the 16 x 16 block computes RM rows times 8 columns.
+//   * The reduction over n walks kTK = 16-row slabs.  Each thread loads the
+//     container bytes of 8 consecutive values of one slab row (8 bytes for
+//     int8 / fp8, 4 for int4) and that row's scale into registers before
+//     the current slab is computed; when it stages them into shared memory
+//     it decodes and multiplies them by the scale, so shared memory holds
+//     fp32 values and the FMA loop is mix_aggregate_kernel's.
+//   * p is a multiple of 128, so no column is ragged; rows >= n load a zero
+//     container and a zero scale.  Any n works.
+// ---------------------------------------------------------------------------
+
+constexpr int kMixTX = 16;                       // threads along columns
+constexpr int kMixTY = 16;                       // threads along rows
+constexpr int kMixThreads = kMixTX * kMixTY;     // 256
+constexpr int kColTile = 8 * kMixTX;             // 128 columns, 8 a thread
+constexpr int kTK = 16;                          // reduction slab depth
+constexpr int kRowsMax = 8;                      // RM <= 8: 128-row tiles
+// one thread stages 8 values of one slab row: 16 threads a row, 16 rows
+static_assert(kTK * kColTile == 8 * kMixThreads, "X slab: 8 values a thread");
+static_assert(kTK * kMixTY == kMixThreads, "B slab: one element a thread");
+
+template <int ST>
+struct SlabLoad {
+  static constexpr int W = ST == kInt4 ? 1 : 2;   // 32-bit words for 8 values
+  uint32_t u[W];
+  float s;
+};
+
+template <int ST>
+__device__ __forceinline__ void load_xq_slab(const uint8_t* __restrict__ Xq,
+                                             const float* __restrict__ S,
+                                             int n, long long qcols,
+                                             long long nb, long long sb,
+                                             int k0, long long col0, int tid,
+                                             SlabLoad<ST>& r) {
+  constexpr int W = SlabLoad<ST>::W;
+  const int kk = k0 + tid / (kColTile / 8);
+  const long long col = col0 + (tid % (kColTile / 8)) * 8;
+  if (kk < n) {
+    const uint8_t* src = Xq + (long long)kk * qcols + col * W / 2;
+    if constexpr (W == 2) {
+      const uint2 q = __ldcs(reinterpret_cast<const uint2*>(src));
+      r.u[0] = q.x;
+      r.u[W - 1] = q.y;
+    } else {
+      r.u[0] = __ldcs(reinterpret_cast<const unsigned int*>(src));
+    }
+    r.s = __ldg(S + (long long)kk * nb + sb);
+  } else {
+#pragma unroll
+    for (int q = 0; q < W; ++q) r.u[q] = 0u;
+    r.s = 0.f;
+  }
+}
+
+template <int ST>
+__device__ __forceinline__ void store_xq_slab(float (*Xs)[kColTile], int tid,
+                                              const SlabLoad<ST>& r) {
+  float v[8];
+  dequant_words<ST, SlabLoad<ST>::W>(r.u, r.s, v);
+  float* dst = &Xs[tid / (kColTile / 8)][(tid % (kColTile / 8)) * 8];
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// B slab: columns k0 .. k0 + kTK of the block's 16 RM rows (as in
+// csrc/mixing.cu).
+template <int RM>
+__device__ __forceinline__ void load_b_slab(const float* __restrict__ B,
+                                            int n, int R, int k0, int row0,
+                                            int tid, float (&br)[RM]) {
+#pragma unroll
+  for (int j = 0; j < RM; ++j) {
+    const int e = tid + j * kMixThreads;
+    const int row = row0 + e / kTK, kk = k0 + e % kTK;
+    br[j] = (row < R && kk < n) ? B[(long long)row * n + kk] : 0.f;
+  }
+}
+
+template <int RM, int RMP>
+__device__ __forceinline__ void store_b_slab(float (*Bs)[kMixTY * RMP],
+                                             int tid, const float (&br)[RM]) {
+#pragma unroll
+  for (int j = 0; j < RM; ++j) {
+    const int e = tid + j * kMixThreads;
+    const int rr = e / kTK;
+    Bs[e % kTK][(rr / RM) * RMP + rr % RM] = br[j];
+  }
+}
+
+template <int ST, int RM>
+__global__ void __launch_bounds__(kMixThreads, 2)
+mix_aggregate_dequant_kernel(const float* __restrict__ B,
+                             const uint8_t* __restrict__ Xq,
+                             const float* __restrict__ S,
+                             float* __restrict__ mixed,
+                             float* __restrict__ agg, int n, long long p,
+                             int block) {
+  constexpr int RMP = (RM + 3) / 4 * 4;          // rows padded for float4
+  __shared__ __align__(16) float Xs[2][kTK][kColTile];
+  __shared__ __align__(16) float Bs[2][kTK][kMixTY * RMP];
+
+  const int R = n + 1;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * kMixTX + tx;
+  const int row0 = blockIdx.y * (kMixTY * RM);
+  const long long col0 = (long long)blockIdx.x * kColTile;
+  const long long qcols = p * (ST == kInt4 ? 4 : 8) / 8;
+  const long long nb = p / block;
+  const long long sb = col0 / block;             // the tile's scale column
+
+  float acc[RM][8];
+#pragma unroll
+  for (int r = 0; r < RM; ++r)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
+
+  SlabLoad<ST> xr;
+  float br[RM];
+  auto fetch = [&](int k0) {
+    load_xq_slab<ST>(Xq, S, n, qcols, nb, sb, k0, col0, tid, xr);
+    load_b_slab<RM>(B, n, R, k0, row0, tid, br);
+  };
+  auto stash = [&](int buf) {
+    store_xq_slab<ST>(Xs[buf], tid, xr);
+    store_b_slab<RM, RMP>(Bs[buf], tid, br);
+  };
+
+  fetch(0);
+  stash(0);
+  __syncthreads();
+  int buf = 0;
+  for (int k0 = 0; k0 < n; k0 += kTK) {
+    const bool more = k0 + kTK < n;
+    if (more) fetch(k0 + kTK);     // in flight while this slab computes
+    const int kn = min(kTK, n - k0);
+#pragma unroll 1
+    for (int k = 0; k < kn; ++k) {
+      const float4 xa = *reinterpret_cast<const float4*>(&Xs[buf][k][4 * tx]);
+      const float4 xb =
+          *reinterpret_cast<const float4*>(&Xs[buf][k][64 + 4 * tx]);
+      const float x[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+      float b[RMP];
+#pragma unroll
+      for (int q = 0; q < RMP; q += 4) {
+        const float4 t =
+            *reinterpret_cast<const float4*>(&Bs[buf][k][ty * RMP + q]);
+        b[q] = t.x; b[q + 1] = t.y; b[q + 2] = t.z; b[q + 3] = t.w;
+      }
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(b[r], x[j], acc[r][j]);
+    }
+    // the other buffer was last read before the previous barrier
+    if (more) stash(buf ^ 1);
+    __syncthreads();
+    buf ^= 1;
+  }
+
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const int row = row0 + ty * RM + r;
+    if (row >= R) break;
+    float* out = row < n ? mixed + (long long)row * p : agg;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* a = acc[r] + 4 * h;
+      *reinterpret_cast<float4*>(out + col0 + 64 * h + 4 * tx) =
+          make_float4(a[0], a[1], a[2], a[3]);
+    }
+  }
+}
+
+template <int ST, int RM>
+cudaError_t launch_mix_rm(const float* B, const void* Xq, const float* S,
+                          float* mixed, float* agg, int n, long long p,
+                          int block, cudaStream_t stream) {
+  const int TR = kMixTY * RM;
+  dim3 threads(kMixTX, kMixTY);
+  dim3 grid((unsigned)(p / kColTile), (unsigned)((n + 1 + TR - 1) / TR));
+  mix_aggregate_dequant_kernel<ST, RM><<<grid, threads, 0, stream>>>(
+      B, static_cast<const uint8_t*>(Xq), S, mixed, agg, n, p, block);
+  return cudaGetLastError();
+}
+
+template <int ST>
+cudaError_t launch_mix(const float* B, const void* Xq, const float* S,
+                       float* mixed, float* agg, int n, long long p,
+                       int block, cudaStream_t stream) {
+  // RM rows per thread: one row tile when n + 1 <= 128, else 128-row tiles
+  int rm = (n + 1 + kMixTY - 1) / kMixTY;
+  if (rm > kRowsMax) rm = kRowsMax;
+  switch (rm) {
+    case 1: return launch_mix_rm<ST, 1>(B, Xq, S, mixed, agg, n, p, block, stream);
+    case 2: return launch_mix_rm<ST, 2>(B, Xq, S, mixed, agg, n, p, block, stream);
+    case 3: return launch_mix_rm<ST, 3>(B, Xq, S, mixed, agg, n, p, block, stream);
+    case 4: return launch_mix_rm<ST, 4>(B, Xq, S, mixed, agg, n, p, block, stream);
+    case 5: return launch_mix_rm<ST, 5>(B, Xq, S, mixed, agg, n, p, block, stream);
+    case 6: return launch_mix_rm<ST, 6>(B, Xq, S, mixed, agg, n, p, block, stream);
+    case 7: return launch_mix_rm<ST, 7>(B, Xq, S, mixed, agg, n, p, block, stream);
+    default:
+      return launch_mix_rm<ST, 8>(B, Xq, S, mixed, agg, n, p, block, stream);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// sparse_mix_aggregate_dequant: the ELL gather kernel of
+// csrc/sparse_mixing.cu on the container.
+//
+// Bound: bytes.  The payload and scales read once, the f32 mixed output
+// written once, the ELL and the rows of agg: 589.8 MB (int8, ~0.176 ms) at
+// the paper's shape; at n = 100,000 x 2,048 int8 (ring, d_max = 2)
+// 1,025.6 MB, ~0.306 ms.  The 2 nnz p flops are a few a byte.  Design:
+//   * A block of 256 threads owns a column tile of 2,048 values (a thread 8
+//     neighbouring values: 8 container bytes, or 4 for int4, in one scale
+//     block) and walks a contiguous range of output rows; rows go on
+//     gridDim.x with the tiles (block b: tile b % tiles, row group
+//     b / tiles), never on y or z.  Row offsets are 64-bit.
+//   * Every slot gathers the neighbour row's container bytes and its own
+//     block scale straight from global memory (__ldg; L1 / L2 serve the
+//     re-reads within a cluster), dequantizes (__fmul_rn) and accumulates
+//     acc = __fadd_rn(acc, __fmul_rn(w, x)).  mixed goes out with
+//     streaming stores.
+//   * d_max is unrolled up to a template bound D in {2, 4, 8, 16} (slots
+//     >= d_max predicated off); larger d_max takes a generic loop.
+//   * The aggregate leg reads each own row once more and accumulates
+//     wrow[i] * x[i] with fmaf.  When the tiles alone give too few blocks
+//     (large n, small p) the rows split into G groups; each writes a
+//     partial row to scratch and a second kernel sums them in a fixed
+//     order: no float atomics, agg is deterministic.  G depends on (n, p)
+//     only.
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 256;
+constexpr int kVals = 8;                          // values a thread
+constexpr long long kTile = (long long)kThreads * kVals;   // 2,048 columns
+constexpr long long kTargetBlocks = 1024;         // ~8 resident a SM
+constexpr int kMinRowsPerBlock = 64;
+
+// The 8 dequantized values of row j at columns col .. col + 7.
+template <int ST>
+__device__ __forceinline__ void load_row8(const uint8_t* __restrict__ Xq,
+                                          const float* __restrict__ S,
+                                          long long j, long long qcols,
+                                          long long nb, long long col,
+                                          long long sb, float* v) {
+  constexpr int W = SlabLoad<ST>::W;
+  const uint8_t* src = Xq + j * qcols + col * W / 2;
+  uint32_t u[W];
+  if constexpr (W == 2) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(src));
+    u[0] = q.x;
+    u[W - 1] = q.y;
+  } else {
+    u[0] = __ldg(reinterpret_cast<const unsigned int*>(src));
+  }
+  dequant_words<ST, W>(u, __ldg(S + j * nb + sb), v);
+}
+
+template <int ST>
+__device__ __forceinline__ void gather_slot(const uint8_t* __restrict__ Xq,
+                                            const float* __restrict__ S,
+                                            int j, float wk, long long qcols,
+                                            long long nb, long long col,
+                                            long long sb, float* acc) {
+  float v[kVals];
+  load_row8<ST>(Xq, S, j, qcols, nb, col, sb, v);
+#pragma unroll
+  for (int q = 0; q < kVals; ++q)
+    acc[q] = __fadd_rn(acc[q], __fmul_rn(wk, v[q]));
+}
+
+template <int ST, int D>
+__global__ void __launch_bounds__(kThreads)
+sparse_mix_dequant_kernel(const int* __restrict__ idx,
+                          const float* __restrict__ w,
+                          const float* __restrict__ wrow,
+                          const uint8_t* __restrict__ Xq,
+                          const float* __restrict__ S,
+                          float* __restrict__ mixed,
+                          float* __restrict__ agg_rows, int n, int d_max,
+                          long long p, int block, long long tiles,
+                          int rows_per_block) {
+  const long long tile = blockIdx.x % tiles;
+  const long long group = blockIdx.x / tiles;
+  const long long col = tile * kTile + threadIdx.x * kVals;
+  if (col >= p) return;          // p % 128 == 0: all 8 values or none
+  const long long qcols = p * SlabLoad<ST>::W / 2;
+  const long long nb = p / block;
+  const long long sb = col / block;
+  const int r0 = (int)(group * rows_per_block);
+  const int r1 = min(n, r0 + rows_per_block);
+
+  float aacc[kVals];
+#pragma unroll
+  for (int q = 0; q < kVals; ++q) aacc[q] = 0.f;
+
+  for (int i = r0; i < r1; ++i) {
+    const int* ip = idx + (long long)i * d_max;
+    const float* wp = w + (long long)i * d_max;
+    float acc[kVals];
+#pragma unroll
+    for (int q = 0; q < kVals; ++q) acc[q] = 0.f;
+    if constexpr (D > 0) {
+#pragma unroll
+      for (int k = 0; k < D; ++k)
+        if (k < d_max) gather_slot<ST>(Xq, S, __ldg(ip + k), __ldg(wp + k),
+                                       qcols, nb, col, sb, acc);
+    } else {
+#pragma unroll 4
+      for (int k = 0; k < d_max; ++k)
+        gather_slot<ST>(Xq, S, __ldg(ip + k), __ldg(wp + k), qcols, nb, col,
+                        sb, acc);
+    }
+    float* out = mixed + (long long)i * p + col;
+    __stcs(reinterpret_cast<float4*>(out),
+           make_float4(acc[0], acc[1], acc[2], acc[3]));
+    __stcs(reinterpret_cast<float4*>(out + 4),
+           make_float4(acc[4], acc[5], acc[6], acc[7]));
+    float v[kVals];
+    load_row8<ST>(Xq, S, i, qcols, nb, col, sb, v);
+    const float wi = __ldg(wrow + i);
+#pragma unroll
+    for (int q = 0; q < kVals; ++q) aacc[q] = fmaf(wi, v[q], aacc[q]);
+  }
+  float* ar = agg_rows + group * p + col;
+  *reinterpret_cast<float4*>(ar) =
+      make_float4(aacc[0], aacc[1], aacc[2], aacc[3]);
+  *reinterpret_cast<float4*>(ar + 4) =
+      make_float4(aacc[4], aacc[5], aacc[6], aacc[7]);
+}
+
+// agg[c] = sum_g partial[g, c], g in a fixed order (as in
+// csrc/sparse_mixing.cu): a 32 x 8
+// block takes 32 columns, thread row y sums groups y, y + 8, ..., then row
+// 0 adds the eight stripes in order.
+__global__ void __launch_bounds__(kThreads)
+sum_groups_kernel(const float* __restrict__ partial, float* __restrict__ agg,
+                  int groups, long long p) {
+  __shared__ float s[8][33];
+  const long long c = (long long)blockIdx.x * 32 + threadIdx.x;
+  float acc = 0.f;
+  if (c < p)
+    for (int g = threadIdx.y; g < groups; g += 8)
+      acc += partial[(long long)g * p + c];
+  s[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < p) {
+    float t = s[0][threadIdx.x];
+#pragma unroll
+    for (int y = 1; y < 8; ++y) t += s[y][threadIdx.x];
+    agg[c] = t;
+  }
+}
+
+long long tiles_of(long long p) { return (p + kTile - 1) / kTile; }
+
+int rows_per_block_of(int n, long long tiles) {
+  long long rows = (n * tiles + kTargetBlocks - 1) / kTargetBlocks;
+  if (rows < kMinRowsPerBlock) rows = kMinRowsPerBlock;
+  if (rows > n) rows = n;
+  return rows < 1 ? 1 : (int)rows;
+}
+
+template <int ST, int D>
+cudaError_t launch_sparse_d(const int* idx, const float* w,
+                            const float* wrow, const void* Xq,
+                            const float* S, float* mixed, float* agg_rows,
+                            int n, int d_max, long long p, int block,
+                            long long tiles, int rows, int groups,
+                            cudaStream_t stream) {
+  const long long blocks = tiles * groups;
+  sparse_mix_dequant_kernel<ST, D><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      idx, w, wrow, static_cast<const uint8_t*>(Xq), S, mixed, agg_rows, n,
+      d_max, p, block, tiles, rows);
+  return cudaGetLastError();
+}
+
+template <int ST>
+cudaError_t launch_sparse(const int* idx, const float* w, const float* wrow,
+                          const void* Xq, const float* S, float* mixed,
+                          float* agg_rows, int n, int d_max, long long p,
+                          int block, cudaStream_t stream) {
+  const long long tiles = tiles_of(p);
+  const int rows = rows_per_block_of(n, tiles);
+  const int groups = (n + rows - 1) / rows;
+#define REPRO_SPARSE_D(D)                                                   \
+  return launch_sparse_d<ST, D>(idx, w, wrow, Xq, S, mixed, agg_rows, n,    \
+                                d_max, p, block, tiles, rows, groups, stream)
+  if (d_max <= 2) REPRO_SPARSE_D(2);
+  if (d_max <= 4) REPRO_SPARSE_D(4);
+  if (d_max <= 8) REPRO_SPARSE_D(8);
+  if (d_max <= 16) REPRO_SPARSE_D(16);
+  REPRO_SPARSE_D(0);
+#undef REPRO_SPARSE_D
+}
+
+// The host-side checks every entry point shares: a valid storage code, a
+// block the storage allows, p a multiple of it, a 16-byte aligned Xq.
+bool valid_geometry(const void* Xq, long long p, int block, int storage) {
+  if (storage < kInt8 || storage > kFp8) return false;
+  const int unit = storage == kInt4 ? 256 : 128;
+  if (block <= 0 || block % unit != 0 || p % block != 0) return false;
+  return reinterpret_cast<uintptr_t>(Xq) % 16 == 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* repro_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+int repro_aggregate_dequant(const float* w, const void* Xq, const float* S,
+                            float* agg, int n, long long p, int block,
+                            int storage, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!valid_geometry(Xq, p, block, storage) ||
+      reinterpret_cast<uintptr_t>(agg) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (p <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long vals = storage == kInt4 ? 32 : 16;   // a 16-byte vector
+  const long long threads = p / vals;
+  const unsigned blocks =
+      (unsigned)((threads + kAggThreads - 1) / kAggThreads);
+  const uint8_t* x = static_cast<const uint8_t*>(Xq);
+  if (storage == kInt8)
+    aggregate_dequant_kernel<kInt8><<<blocks, kAggThreads, 0, s>>>(
+        w, x, S, agg, n, p, block);
+  else if (storage == kInt4)
+    aggregate_dequant_kernel<kInt4><<<blocks, kAggThreads, 0, s>>>(
+        w, x, S, agg, n, p, block);
+  else
+    aggregate_dequant_kernel<kFp8><<<blocks, kAggThreads, 0, s>>>(
+        w, x, S, agg, n, p, block);
+  return (int)cudaGetLastError();
+}
+
+int repro_mix_aggregate_dequant(const float* B, const void* Xq,
+                                const float* S, float* mixed, float* agg,
+                                int n, long long p, int block, int storage,
+                                int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!valid_geometry(Xq, p, block, storage) ||
+      reinterpret_cast<uintptr_t>(mixed) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(agg) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (p <= 0 || n <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (storage == kInt8)
+    return (int)launch_mix<kInt8>(B, Xq, S, mixed, agg, n, p, block, s);
+  if (storage == kInt4)
+    return (int)launch_mix<kInt4>(B, Xq, S, mixed, agg, n, p, block, s);
+  return (int)launch_mix<kFp8>(B, Xq, S, mixed, agg, n, p, block, s);
+}
+
+int repro_sparse_dequant_row_groups(int n, long long p) {
+  if (n <= 0 || p <= 0) return 1;
+  const int rows = rows_per_block_of(n, tiles_of(p));
+  return (n + rows - 1) / rows;
+}
+
+int repro_sparse_mix_aggregate_dequant(const int* idx, const float* w,
+                                       const float* wrow, const void* Xq,
+                                       const float* S, float* mixed,
+                                       float* agg, float* partial, int n,
+                                       int d_max, long long p, int block,
+                                       int storage, int device,
+                                       void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!valid_geometry(Xq, p, block, storage) || d_max < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0 || p <= 0) return (int)cudaGetLastError();
+  const int groups = repro_sparse_dequant_row_groups(n, p);
+  if (groups > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
+  float* agg_rows = groups > 1 ? partial : agg;
+  if (reinterpret_cast<uintptr_t>(mixed) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(agg_rows) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (storage == kInt8)
+    err = launch_sparse<kInt8>(idx, w, wrow, Xq, S, mixed, agg_rows, n,
+                               d_max, p, block, s);
+  else if (storage == kInt4)
+    err = launch_sparse<kInt4>(idx, w, wrow, Xq, S, mixed, agg_rows, n,
+                               d_max, p, block, s);
+  else
+    err = launch_sparse<kFp8>(idx, w, wrow, Xq, S, mixed, agg_rows, n,
+                              d_max, p, block, s);
+  if (err != cudaSuccess || groups == 1) return (int)err;
+  sum_groups_kernel<<<(unsigned)((p + 31) / 32), dim3(32, 8), 0, s>>>(
+      partial, agg, groups, p);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -18,6 +18,14 @@ dims), so with the precombined row ``w = (tau^T A) / m``
     mixed deltas in X's dtype and the f32 aggregate row from one read of
     X (``csrc/mixing.cu::mix_aggregate_kernel``).  The 'fused' backend
     with ``record_mixed=True``.
+``aggregate_dequant_cuda`` / ``mix_aggregate_dequant_cuda``
+    the same two products over a quantized payload in its wire format
+    (stored int8 / int4 / fp8 containers ``Xq`` and fp32 per-block scales
+    ``S``, ``repro_torch.fl.packing.QuantSpec``), dequantized inside the
+    kernels (``csrc/quant_mixing.cu``): the port of
+    ``aggregate_dequant_pallas`` and ``mix_aggregate_dequant_pallas``.
+    Both outputs are f32.  The 'aggregate' and 'fused' round backends
+    with a ``quant`` spec.
 
 Each wrapper sends CPU tensors to its plain version (``ref.py``) and, for
 a CUDA payload, launches its kernel on the current stream or raises; its
@@ -32,9 +40,11 @@ import torch
 
 from repro_torch.kernels import _build
 from . import _lib
-from .ref import aggregate_ref, mix_aggregate_ref
+from .ref import (aggregate_dequant_ref, aggregate_ref,
+                  mix_aggregate_dequant_ref, mix_aggregate_ref)
 
-__all__ = ["aggregate_cuda", "mix_aggregate_cuda"]
+__all__ = ["aggregate_cuda", "mix_aggregate_cuda", "aggregate_dequant_cuda",
+           "mix_aggregate_dequant_cuda"]
 
 
 def aggregate_cuda(w: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -94,3 +104,67 @@ def mix_aggregate_cuda(A: torch.Tensor, w: torch.Tensor, X: torch.Tensor
 
 
 mix_aggregate_cuda.launches = 0
+
+
+def aggregate_dequant_cuda(w: torch.Tensor, Xq: torch.Tensor,
+                           S: torch.Tensor, *, storage: str, block: int
+                           ) -> torch.Tensor:
+    """``w @ deq(Xq, S)``: w (n,) f32, Xq (n, p * bits / 8) containers,
+    S (n, p / block) f32 scales -> the (p,) f32 aggregate row, the
+    dequantized payload never materialized."""
+    code, n, p = _lib.check_quant_operands(Xq, S, storage, block)
+    if not Xq.is_cuda:
+        return aggregate_dequant_ref(w, Xq, S, storage, block)
+    _lib.check_cuda_quant_operands(Xq, S)
+    _lib.check_cuda_operand(w, "w", Xq.device, torch.float32, ndim=1)
+    if w.shape[0] != n:
+        raise ValueError(f"w must be ({n},), got {tuple(w.shape)}")
+    agg = torch.empty(p, dtype=torch.float32, device=Xq.device)
+    if p == 0:
+        return agg
+    lib = _lib.quant_lib()
+    device, stream = _lib.launch_args(Xq)
+    rc = lib.repro_aggregate_dequant(w.data_ptr(), Xq.data_ptr(),
+                                     S.data_ptr(), agg.data_ptr(), n, p,
+                                     block, code, device, stream)
+    _build.check(lib, rc, "aggregate_dequant")
+    aggregate_dequant_cuda.launches += 1
+    return agg
+
+
+aggregate_dequant_cuda.launches = 0
+
+
+def mix_aggregate_dequant_cuda(A: torch.Tensor, w: torch.Tensor,
+                               Xq: torch.Tensor, S: torch.Tensor, *,
+                               storage: str, block: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(A @ x, w @ x)`` over ``x = deq(Xq, S)`` from one read of the
+    payload: A (n, n) f32, w (n,) f32, Xq / S as in
+    ``aggregate_dequant_cuda`` -> mixed (n, p) f32 and the (p,) f32
+    aggregate row."""
+    code, n, p = _lib.check_quant_operands(Xq, S, storage, block)
+    if not Xq.is_cuda:
+        return mix_aggregate_dequant_ref(A, w, Xq, S, storage, block)
+    _lib.check_cuda_quant_operands(Xq, S)
+    _lib.check_cuda_operand(A, "A", Xq.device, torch.float32, ndim=2)
+    _lib.check_cuda_operand(w, "w", Xq.device, torch.float32, ndim=1)
+    if A.shape != (n, n) or w.shape[0] != n:
+        raise ValueError(f"A must be ({n}, {n}) and w ({n},), got "
+                         f"{tuple(A.shape)} and {tuple(w.shape)}")
+    mixed = torch.empty(n, p, dtype=torch.float32, device=Xq.device)
+    agg = torch.empty(p, dtype=torch.float32, device=Xq.device)
+    if p == 0 or n == 0:
+        return mixed, agg.zero_()
+    B = torch.cat([A, w[None]])          # (n + 1, n): row n is w
+    lib = _lib.quant_lib()
+    device, stream = _lib.launch_args(Xq)
+    rc = lib.repro_mix_aggregate_dequant(
+        B.data_ptr(), Xq.data_ptr(), S.data_ptr(), mixed.data_ptr(),
+        agg.data_ptr(), n, p, block, code, device, stream)
+    _build.check(lib, rc, "mix_aggregate_dequant")
+    mix_aggregate_dequant_cuda.launches += 1
+    return mixed, agg
+
+
+mix_aggregate_dequant_cuda.launches = 0

@@ -1,7 +1,6 @@
 """Public graph-mixing entry points: combine-row math, pytree plumbing and
-dtype groups around the kernel wrappers (the dense and sparse subset of
-``repro.kernels.mixing.ops``; the quantized ``_q`` entry points are still
-to be ported).
+dtype groups around the kernel wrappers (port of
+``repro.kernels.mixing.ops``).
 
 * ``mix`` / ``mix_pytree``       -- eq. 3 only (``Delta = A @ X``), one
                                     ``mixing.mix_cuda`` launch per leaf.
@@ -25,11 +24,21 @@ to be ported).
                                     combine row ``combine_weights_ell``
                                     into ``fused.aggregate_cuda``.
                                     Nothing (n, n) exists.
+* ``*_q``                        -- the one-pass schedules over a
+                                    quantized payload in its wire format
+                                    (``repro_torch.fl.packing.QuantSpec``:
+                                    stored containers + fp32 per-block
+                                    scales), dequantized inside the
+                                    kernels (``fused.*_dequant_cuda``,
+                                    ``sparse.sparse_mix_aggregate_dequant_
+                                    cuda``); mixed and aggregate outputs
+                                    are fp32.
 
 The reference's TPU knobs are gone: there is no ``interpret`` mode, and no
 ``chunk``/8-sublane padding (``_pad_inputs``, ``_pad_sparse_inputs``) --
-the CUDA kernels mask ragged n and p themselves.  CPU tensors run the
-plain versions (``ref.py``), CUDA tensors the kernels.
+the CUDA kernels mask ragged n and p themselves, and the quantized
+entry points have no ``chunk`` and no ``_pad_quant_inputs``.  CPU tensors
+run the plain versions (``ref.py``), CUDA tensors the kernels.
 """
 
 from __future__ import annotations
@@ -39,9 +48,11 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.core.pytree import tree_map
-from .fused import aggregate_cuda, mix_aggregate_cuda
+from .fused import (aggregate_cuda, aggregate_dequant_cuda, mix_aggregate_cuda,
+                    mix_aggregate_dequant_cuda)
 from .mixing import mix_cuda
-from .sparse import sparse_mix_aggregate_cuda, sparse_mix_cuda
+from .sparse import (sparse_mix_aggregate_cuda,
+                     sparse_mix_aggregate_dequant_cuda, sparse_mix_cuda)
 
 PyTree = Any
 
@@ -49,7 +60,10 @@ __all__ = ["mix", "mix_pytree", "mix_aggregate", "aggregate",
            "mix_aggregate_grouped", "aggregate_grouped", "combine_weights",
            "combine_weights_ell", "sparse_mix", "sparse_mix_aggregate",
            "sparse_aggregate", "sparse_mix_aggregate_grouped",
-           "sparse_aggregate_grouped"]
+           "sparse_aggregate_grouped", "mix_aggregate_q", "aggregate_q",
+           "mix_aggregate_grouped_q", "aggregate_grouped_q",
+           "sparse_mix_aggregate_q", "sparse_aggregate_q",
+           "sparse_mix_aggregate_grouped_q", "sparse_aggregate_grouped_q"]
 
 
 def combine_weights(A: torch.Tensor, tau: torch.Tensor, m,
@@ -281,3 +295,133 @@ def sparse_aggregate_grouped(idx: torch.Tensor, w: torch.Tensor,
     mixed deltas never materialized, nothing (n, n)."""
     wrow = combine_weights_ell(idx, w, tau, m, active, weights).contiguous()
     return tuple(aggregate_cuda(wrow, b.contiguous()) for b in bufs)
+
+
+# --------------------------------------------------------------------------
+# Quantized-payload entry points (``_q`` suffix): the same one-pass
+# schedules over a wire-format payload -- stored containers ``Xq`` + fp32
+# per-block scales ``S`` in, fp32 mixed / aggregate out.  ``quant`` is the
+# ``repro_torch.fl.packing.QuantSpec``.  A straggler mask zeroes dropped
+# clients out of the *aggregate* leg only (combine row); callers that also
+# need a masked mixed output zero the dropped rows of ``S`` first.
+# --------------------------------------------------------------------------
+
+
+def _q(quant):
+    return dict(storage=quant.storage, block=quant.block)
+
+
+def mix_aggregate_q(A: torch.Tensor, tau: torch.Tensor, m, Xq: torch.Tensor,
+                    S: torch.Tensor, *, quant,
+                    active: Optional[torch.Tensor] = None, weights=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused eq. 3 + eq. 4 over one quantized group buffer: the f32
+    (n, P) mixed deltas and the f32 (P,) aggregate row."""
+    w = combine_weights(A, tau, m, active, weights)
+    return mix_aggregate_dequant_cuda(A.float().contiguous(), w.contiguous(),
+                                      Xq.contiguous(), S.contiguous(),
+                                      **_q(quant))
+
+
+def aggregate_q(A: torch.Tensor, tau: torch.Tensor, m, Xq: torch.Tensor,
+                S: torch.Tensor, *, quant,
+                active: Optional[torch.Tensor] = None,
+                weights=None) -> torch.Tensor:
+    """Aggregate-only fast path over one quantized group buffer: the f32
+    row ``((tau^T A)/m) @ deq(Xq, S)`` (P,), streaming the compressed
+    payload once."""
+    w = combine_weights(A, tau, m, active, weights)
+    return aggregate_dequant_cuda(w.contiguous(), Xq.contiguous(),
+                                  S.contiguous(), **_q(quant))
+
+
+def mix_aggregate_grouped_q(A: torch.Tensor, tau: torch.Tensor, m,
+                            stored: Tuple[torch.Tensor, ...],
+                            scales: Tuple[torch.Tensor, ...], *, quant,
+                            active: Optional[torch.Tensor] = None,
+                            weights=None
+                            ) -> Tuple[Tuple[torch.Tensor, ...],
+                                       Tuple[torch.Tensor, ...]]:
+    """``mix_aggregate_grouped`` over the wire format
+    (``packing.quantize_packed`` output): one fused dequant launch per
+    group, sharing one combine row.  Returns f32 ``(mixed_bufs,
+    agg_rows)``."""
+    A32 = A.float().contiguous()
+    w = combine_weights(A, tau, m, active, weights).contiguous()
+    out = [mix_aggregate_dequant_cuda(A32, w, xq.contiguous(),
+                                      s.contiguous(), **_q(quant))
+           for xq, s in zip(stored, scales)]
+    return tuple(mb for mb, _ in out), tuple(r for _, r in out)
+
+
+def aggregate_grouped_q(A: torch.Tensor, tau: torch.Tensor, m,
+                        stored: Tuple[torch.Tensor, ...],
+                        scales: Tuple[torch.Tensor, ...], *, quant,
+                        active: Optional[torch.Tensor] = None,
+                        weights=None) -> Tuple[torch.Tensor, ...]:
+    """``aggregate_grouped`` over the wire format: per-group f32 rows, one
+    aggregate-dequant launch per group."""
+    w = combine_weights(A, tau, m, active, weights).contiguous()
+    return tuple(aggregate_dequant_cuda(w, xq.contiguous(), s.contiguous(),
+                                        **_q(quant))
+                 for xq, s in zip(stored, scales))
+
+
+def sparse_mix_aggregate_q(idx: torch.Tensor, w: torch.Tensor,
+                           tau: torch.Tensor, m, Xq: torch.Tensor,
+                           S: torch.Tensor, *, quant,
+                           active: Optional[torch.Tensor] = None,
+                           weights=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sparse fused eq. 3 + eq. 4 over one quantized group buffer: the
+    ELL gather and the combine-row product over values dequantized in
+    the kernel.  Mask/weight semantics match ``mix_aggregate_q``."""
+    wrow = combine_weights_ell(idx, w, tau, m, active, weights)
+    return sparse_mix_aggregate_dequant_cuda(
+        idx.contiguous(), w.float().contiguous(), wrow.contiguous(),
+        Xq.contiguous(), S.contiguous(), **_q(quant))
+
+
+def sparse_aggregate_q(idx: torch.Tensor, w: torch.Tensor,
+                       tau: torch.Tensor, m, Xq: torch.Tensor,
+                       S: torch.Tensor, *, quant,
+                       active: Optional[torch.Tensor] = None,
+                       weights=None) -> torch.Tensor:
+    """Sparse aggregate-only dequant path: the combine row is the O(nnz)
+    segment sum, then the aggregate-dequant kernel streams the compressed
+    payload -- no sparse kernel needed."""
+    wrow = combine_weights_ell(idx, w, tau, m, active, weights)
+    return aggregate_dequant_cuda(wrow.contiguous(), Xq.contiguous(),
+                                  S.contiguous(), **_q(quant))
+
+
+def sparse_mix_aggregate_grouped_q(idx: torch.Tensor, w: torch.Tensor,
+                                   tau: torch.Tensor, m,
+                                   stored: Tuple[torch.Tensor, ...],
+                                   scales: Tuple[torch.Tensor, ...], *,
+                                   quant,
+                                   active: Optional[torch.Tensor] = None,
+                                   weights=None
+                                   ) -> Tuple[Tuple[torch.Tensor, ...],
+                                              Tuple[torch.Tensor, ...]]:
+    """``sparse_mix_aggregate_grouped`` over the wire format."""
+    idx = idx.contiguous()
+    w32 = w.float().contiguous()
+    wrow = combine_weights_ell(idx, w, tau, m, active, weights).contiguous()
+    out = [sparse_mix_aggregate_dequant_cuda(idx, w32, wrow, xq.contiguous(),
+                                             s.contiguous(), **_q(quant))
+           for xq, s in zip(stored, scales)]
+    return tuple(mb for mb, _ in out), tuple(r for _, r in out)
+
+
+def sparse_aggregate_grouped_q(idx: torch.Tensor, w: torch.Tensor,
+                               tau: torch.Tensor, m,
+                               stored: Tuple[torch.Tensor, ...],
+                               scales: Tuple[torch.Tensor, ...], *, quant,
+                               active: Optional[torch.Tensor] = None,
+                               weights=None) -> Tuple[torch.Tensor, ...]:
+    """``sparse_aggregate_grouped`` over the wire format."""
+    wrow = combine_weights_ell(idx, w, tau, m, active, weights).contiguous()
+    return tuple(aggregate_dequant_cuda(wrow, xq.contiguous(), s.contiguous(),
+                                        **_q(quant))
+                 for xq, s in zip(stored, scales))

@@ -10,6 +10,14 @@ accumulates in fp32 whatever X's dtype.  The kernel wrappers
 ``sparse.sparse_mix_cuda``, ``sparse.sparse_mix_aggregate_cuda``) run these
 for CPU tensors, and ``chip_smoke.py`` holds each kernel against them on
 the card.
+
+The ``_dequant_`` versions take a quantized payload in its wire format
+(``repro_torch.fl.packing.QuantSpec``): stored containers ``Xq`` (int8,
+nibble-packed int4, or float8_e4m3fn) and fp32 per-block scales ``S``.
+Each dequantizes (``dequant_ref``) and then runs the plain version above;
+their outputs are fp32 (the dequant kernels'
+``fused.aggregate_dequant_cuda``, ``fused.mix_aggregate_dequant_cuda``,
+``sparse.sparse_mix_aggregate_dequant_cuda``).
 """
 
 from __future__ import annotations
@@ -19,7 +27,8 @@ from typing import Tuple
 import torch
 
 __all__ = ["mix_ref", "aggregate_ref", "mix_aggregate_ref", "sparse_mix_ref",
-           "sparse_mix_aggregate_ref"]
+           "sparse_mix_aggregate_ref", "dequant_ref", "aggregate_dequant_ref",
+           "mix_aggregate_dequant_ref", "sparse_mix_aggregate_dequant_ref"]
 
 
 def mix_ref(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -60,3 +69,47 @@ def sparse_mix_aggregate_ref(idx: torch.Tensor, w: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(sparse_mix_ref(idx, w, X), wrow @ X in f32)``."""
     return sparse_mix_ref(idx, w, X), aggregate_ref(wrow, X)
+
+
+def dequant_ref(Xq: torch.Tensor, S: torch.Tensor, storage: str,
+                block: int) -> torch.Tensor:
+    """``deq(Xq, S)[i, c] = float(v[i, c]) * S[i, c // block]`` in fp32,
+    one rounded product per value: ``v`` is the int8 value, the
+    sign-extended nibble (low nibble = even column) for 'int4', or the
+    e4m3 value for 'fp8'.  Bitwise ``packing.dequantize_group``."""
+    if storage == "int4":
+        lo = (Xq << 4) >> 4
+        hi = Xq >> 4
+        v = torch.stack([lo, hi], dim=-1).reshape(Xq.shape[0], -1)
+    else:
+        v = Xq
+    n, nb = S.shape
+    x = v.float().reshape(n, nb, block) * S.float()[:, :, None]
+    return x.reshape(n, nb * block)
+
+
+def aggregate_dequant_ref(w: torch.Tensor, Xq: torch.Tensor,
+                          S: torch.Tensor, storage: str, block: int
+                          ) -> torch.Tensor:
+    """The (p,) f32 row ``w @ deq(Xq, S)``."""
+    return aggregate_ref(w, dequant_ref(Xq, S, storage, block))
+
+
+def mix_aggregate_dequant_ref(A: torch.Tensor, w: torch.Tensor,
+                              Xq: torch.Tensor, S: torch.Tensor,
+                              storage: str, block: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(A @ x, w @ x)`` over ``x = deq(Xq, S)``, both f32."""
+    return mix_aggregate_ref(A, w, dequant_ref(Xq, S, storage, block))
+
+
+def sparse_mix_aggregate_dequant_ref(idx: torch.Tensor, w: torch.Tensor,
+                                     wrow: torch.Tensor, Xq: torch.Tensor,
+                                     S: torch.Tensor, storage: str,
+                                     block: int
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ELL gather and ``wrow @ x`` over ``x = deq(Xq, S)``, both f32;
+    the gather keeps ``sparse_mix_ref``'s slot loop (product and sum
+    rounded apart)."""
+    return sparse_mix_aggregate_ref(idx, w, wrow,
+                                    dequant_ref(Xq, S, storage, block))

@@ -15,11 +15,19 @@ f32 weights, padding slots ``index 0, weight 0.0``.  Then
 ``sparse_mix_aggregate_cuda``
     the gather and the combine-row product from one pass over X: the
     'sparse' backend with ``record_mixed=True``.
+``sparse_mix_aggregate_dequant_cuda``
+    the same over a quantized payload in its wire format (``Xq``
+    containers, ``S`` fp32 per-block scales), each gathered neighbour
+    value dequantized with that row's own scale inside the kernel
+    (``csrc/quant_mixing.cu``; the port of
+    ``sparse_mix_aggregate_dequant_pallas``): the 'sparse' backend with
+    ``record_mixed=True`` and a ``quant`` spec.  Both outputs are f32.
 
 Both launch ``repro_sparse_mix_aggregate`` of ``csrc/sparse_mixing.cu``
 (the mix-only call passes no combine row); it is bound by X's bytes (see
 the source's header).  The aggregate-only 'sparse_aggregate' backend needs
-no kernel here: its combine row feeds ``fused.aggregate_cuda``.
+no kernel here: its combine row feeds ``fused.aggregate_cuda`` (or
+``fused.aggregate_dequant_cuda`` for a quantized payload).
 
 Each wrapper sends CPU tensors to its plain version (``ref.py``) and, for
 a CUDA payload, launches the kernel on the current stream or raises; its
@@ -36,9 +44,11 @@ import torch
 
 from repro_torch.kernels import _build
 from . import _lib
-from .ref import sparse_mix_aggregate_ref, sparse_mix_ref
+from .ref import (sparse_mix_aggregate_dequant_ref, sparse_mix_aggregate_ref,
+                  sparse_mix_ref)
 
-__all__ = ["sparse_mix_cuda", "sparse_mix_aggregate_cuda"]
+__all__ = ["sparse_mix_cuda", "sparse_mix_aggregate_cuda",
+           "sparse_mix_aggregate_dequant_cuda"]
 
 
 def _launch(idx: torch.Tensor, w: torch.Tensor, wrow: Optional[torch.Tensor],
@@ -108,3 +118,46 @@ def sparse_mix_aggregate_cuda(idx: torch.Tensor, w: torch.Tensor,
 
 
 sparse_mix_aggregate_cuda.launches = 0
+
+
+def sparse_mix_aggregate_dequant_cuda(idx: torch.Tensor, w: torch.Tensor,
+                                      wrow: torch.Tensor, Xq: torch.Tensor,
+                                      S: torch.Tensor, *, storage: str,
+                                      block: int
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ELL gather and ``wrow @ x`` over ``x = deq(Xq, S)`` from one
+    pass over the payload: idx/w as in ``sparse_mix_cuda``, wrow (n,) f32,
+    Xq (n, p * bits / 8) containers, S (n, p / block) f32 scales -> mixed
+    (n, p) f32 (bitwise the plain version's) and the (p,) f32 row."""
+    code, n, p = _lib.check_quant_operands(Xq, S, storage, block)
+    if not Xq.is_cuda:
+        return sparse_mix_aggregate_dequant_ref(idx, w, wrow, Xq, S,
+                                                storage, block)
+    _lib.check_cuda_quant_operands(Xq, S)
+    _lib.check_cuda_operand(idx, "idx", Xq.device, torch.int32, ndim=2)
+    _lib.check_cuda_operand(w, "w", Xq.device, torch.float32, ndim=2)
+    _lib.check_cuda_operand(wrow, "wrow", Xq.device, torch.float32, ndim=1)
+    if idx.shape[0] != n or w.shape != idx.shape or wrow.shape[0] != n:
+        raise ValueError(f"idx and w must be ({n}, d_max) and wrow ({n},), "
+                         f"got {tuple(idx.shape)}, {tuple(w.shape)} and "
+                         f"{tuple(wrow.shape)}")
+    mixed = torch.empty(n, p, dtype=torch.float32, device=Xq.device)
+    agg = torch.empty(p, dtype=torch.float32, device=Xq.device)
+    if n == 0 or p == 0:
+        return mixed, agg.zero_()
+    lib = _lib.quant_lib()
+    groups = lib.repro_sparse_dequant_row_groups(n, p)
+    partial = (torch.empty(groups, p, dtype=torch.float32, device=Xq.device)
+               if groups > 1 else None)
+    device, stream = _lib.launch_args(Xq)
+    rc = lib.repro_sparse_mix_aggregate_dequant(
+        idx.data_ptr(), w.data_ptr(), wrow.data_ptr(), Xq.data_ptr(),
+        S.data_ptr(), mixed.data_ptr(), agg.data_ptr(),
+        None if partial is None else partial.data_ptr(), n, idx.shape[1],
+        p, block, code, device, stream)
+    _build.check(lib, rc, "sparse_mix_aggregate_dequant")
+    sparse_mix_aggregate_dequant_cuda.launches += 1
+    return mixed, agg
+
+
+sparse_mix_aggregate_dequant_cuda.launches = 0

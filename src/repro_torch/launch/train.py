@@ -23,9 +23,15 @@ the executed ``RoundPlan`` as JSON, ``--plan`` replays one verbatim (plans
 are byte-identical to the JAX package's), and ``--dropout RATE`` adds
 per-round client stragglers as a plan column (``--dropout-kind``: i.i.d.,
 bursty Markov chains with ``--dropout-recover``, or whole clusters).
+``--quant {int8,int4,fp8}`` quantizes the client payloads (with
+``--quant-block``, ``--quant-rounding``, ``--no-error-feedback``): the
+kernel backends then run the dequant kernels, and the plan written by
+``--plan-out`` carries the spec.
 
   PYTHONPATH=src python -m repro_torch.launch.train --backend sparse \
       --topology ring:hops=1
+  PYTHONPATH=src python -m repro_torch.launch.train --backend fused \
+      --quant int8
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from repro_torch.core.server import FederatedServer, ServerConfig
 from repro_torch.data import (FederatedBatcher, label_sorted_partition,
                               make_classification)
 from repro_torch.fl.engine import ExecutionConfig, resolve_device
+from repro_torch.fl.packing import QuantSpec
 from repro_torch.fl.plan import RoundPlan
 from repro_torch.models import cnn as cnn_lib
 
@@ -109,6 +116,20 @@ def main(argv=None) -> int:
                          "planning here")
     ap.add_argument("--plan-out", default="",
                     help="save the executed RoundPlan as JSON")
+    ap.add_argument("--quant", default="",
+                    choices=["", "int8", "int4", "fp8"],
+                    help="quantize client payloads to this storage "
+                         "(empty = full-precision wire)")
+    ap.add_argument("--quant-block", type=int, default=512,
+                    help="values per absmax scale block (int4 needs a "
+                         "multiple of 256, others of 128)")
+    ap.add_argument("--quant-rounding", default="nearest",
+                    choices=["nearest", "stochastic"],
+                    help="quantizer rounding mode (stochastic: int "
+                         "grids only)")
+    ap.add_argument("--no-error-feedback", action="store_true",
+                    help="drop the round-trip residual instead of "
+                         "carrying it into the next round's quantization")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; required to run "
                          "without a GPU, e.g. --device cpu)")
@@ -153,11 +174,18 @@ def main(argv=None) -> int:
         T=args.T, t_max=args.rounds, phi_max=args.phi_max,
         m_fixed=args.m, seed=args.seed,
         eta=lambda t: args.lr0 * (args.lr_decay ** t))
+    quant = None
+    if args.quant:
+        quant = QuantSpec(storage=args.quant, block=args.quant_block,
+                          rounding=args.quant_rounding,
+                          error_feedback=not args.no_error_feedback,
+                          seed=args.seed)
     server = FederatedServer(network, loss_fn, params, batcher, cfg,
                              algorithm=args.algorithm,
                              execution=ExecutionConfig(
                                  backend=args.backend, scan=args.scan,
-                                 record_mixed=args.record_mixed),
+                                 record_mixed=args.record_mixed,
+                                 quant=quant),
                              device=device)
     plan = RoundPlan.load(args.plan) if args.plan else None
     if args.dropout > 0:
@@ -181,7 +209,12 @@ def main(argv=None) -> int:
             plan = plan.with_dropout(args.dropout, drop_rng)
     history = server.run(eval_fn=eval_fn, plan=plan)
     if args.plan_out:
-        server.last_plan.save(args.plan_out)
+        out_plan = server.last_plan
+        if quant is not None and out_plan.quant is None:
+            # fold the wire format into the artifact so a --plan replay
+            # reproduces the quantized run without re-passing the flags
+            out_plan = out_plan.with_quant(quant)
+        out_plan.save(args.plan_out)
         print(f"trajectory saved to {args.plan_out}")
     return _report(args, server, history)
 

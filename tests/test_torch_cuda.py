@@ -12,7 +12,13 @@ small Algorithm-1 run on every kernel backend must launch its kernel and
 agree with the plain 'einsum' backend.  The sparse (ELL) kernels also
 run at a shape that splits the rows into groups (the aggregate leg's
 two-pass sum), and the combine row they are fed must be bitwise the same
-from run to run.
+from run to run.  The three dequant kernels run on int8, int4 and fp8
+payloads made by the port's quantizer: the sparse one's mixed output
+must be bitwise its plain version's, the other outputs ``rtol=atol=1e-5``
+(fp32 FMA sums in another order); the quantizer itself must give on the
+card bitwise the containers and scales it gives on the CPU; and a small
+quantized run on every quant backend must launch its kernel, agree with
+the quantized 'einsum' oracle and replay bitwise when scanned.
 """
 
 from functools import partial
@@ -217,6 +223,161 @@ def test_server_runs_the_sparse_backends_on_the_card(cuda):
         seq = run("sparse", record_mixed)
         assert counter.launches == 2            # one a round, one group
         scn = run("sparse", record_mixed, scan=True)
+        for a, b, c in zip(seq, scn, ref_leaves):
+            assert torch.equal(a, b)
+            torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+
+
+STORAGES = [("int8", 128), ("int4", 256), ("fp8", 128), ("int8", 512)]
+
+
+def _wire(n, p, storage, block, device, seed):
+    """A payload quantized by the port's quantizer on ``device``: ``(Xq,
+    S)``, one row of zero scales (a dropped client) included."""
+    from repro_torch.fl import packing
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    X = torch.randn(n, p, generator=g, device=device)
+    Xq, S = packing.quantize_group(
+        X, packing.QuantSpec(storage=storage, block=block))
+    S[n // 2] = 0.0
+    return Xq, S
+
+
+@pytest.mark.parametrize("storage,block", STORAGES)
+@pytest.mark.parametrize("n,p", [(70, 4096), (13, 1024), (130, 2560),
+                                 (1, 512)])
+def test_dequant_kernels_match_plain_versions(cuda, storage, block, n, p):
+    from repro_torch.kernels.mixing import fused, ref, sparse
+
+    p = -(-p // block) * block
+    Xq, S = _wire(n, p, storage, block, cuda, n * p)
+    g = torch.Generator(device=cuda).manual_seed(p)
+    A = torch.rand(n, n, generator=g, device=cuda)
+    w = torch.rand(n, generator=g, device=cuda)
+    idx, wl = _ell(n, min(n, 5), n + p, cuda)
+    q = dict(storage=storage, block=block)
+    before = (fused.aggregate_dequant_cuda.launches,
+              fused.mix_aggregate_dequant_cuda.launches,
+              sparse.sparse_mix_aggregate_dequant_cuda.launches)
+    torch.testing.assert_close(
+        fused.aggregate_dequant_cuda(w, Xq, S, **q),
+        ref.aggregate_dequant_ref(w, Xq, S, storage, block), **F32)
+    mixed, agg = fused.mix_aggregate_dequant_cuda(A, w, Xq, S, **q)
+    mixed_r, agg_r = ref.mix_aggregate_dequant_ref(A, w, Xq, S, storage,
+                                                   block)
+    assert mixed.dtype == agg.dtype == torch.float32
+    torch.testing.assert_close(mixed, mixed_r, **F32)
+    torch.testing.assert_close(agg, agg_r, **F32)
+    mixed, agg = sparse.sparse_mix_aggregate_dequant_cuda(idx, wl, w, Xq, S,
+                                                          **q)
+    mixed_r, agg_r = ref.sparse_mix_aggregate_dequant_ref(idx, wl, w, Xq, S,
+                                                          storage, block)
+    assert torch.equal(mixed, mixed_r)
+    torch.testing.assert_close(agg, agg_r, **F32)
+    assert (fused.aggregate_dequant_cuda.launches,
+            fused.mix_aggregate_dequant_cuda.launches,
+            sparse.sparse_mix_aggregate_dequant_cuda.launches) == \
+        tuple(b + 1 for b in before)
+    torch.cuda.synchronize()
+
+
+def test_sparse_dequant_kernel_splits_rows_into_groups(cuda):
+    from repro_torch.kernels.mixing import ref, sparse
+
+    n, p = 5000, 2048
+    Xq, S = _wire(n, p, "int8", 512, cuda, 3)
+    idx, w = _ell(n, 2, 4, cuda)
+    wrow = torch.rand(n, device=cuda)
+    mixed, agg = sparse.sparse_mix_aggregate_dequant_cuda(
+        idx, w, wrow, Xq, S, storage="int8", block=512)
+    mixed_r, agg_r = ref.sparse_mix_aggregate_dequant_ref(idx, w, wrow, Xq,
+                                                          S, "int8", 512)
+    assert torch.equal(mixed, mixed_r)
+    # fp32 sums over 5,000 rows in another order, partial sums up to ~50:
+    # a few ulps there (3.8e-6 each)
+    torch.testing.assert_close(agg, agg_r, rtol=1e-5, atol=1e-4)
+    again = sparse.sparse_mix_aggregate_dequant_cuda(
+        idx, w, wrow, Xq, S, storage="int8", block=512)[1]
+    assert torch.equal(agg, again)
+
+
+def test_dequant_kernels_reject_what_they_do_not_take(cuda):
+    from repro_torch.kernels.mixing import fused
+
+    Xq, S = _wire(4, 256, "int8", 128, cuda, 0)
+    w = torch.rand(4, device=cuda)
+    with pytest.raises(TypeError):
+        fused.aggregate_dequant_cuda(w, Xq, S, storage="fp8", block=128)
+    with pytest.raises(ValueError):
+        fused.aggregate_dequant_cuda(w, Xq, S, storage="int4", block=128)
+    with pytest.raises(ValueError):
+        fused.aggregate_dequant_cuda(w, Xq[:, 16:], S, storage="int8",
+                                     block=128)
+    with pytest.raises(ValueError):
+        fused.aggregate_dequant_cuda(w, Xq, S.cpu(), storage="int8",
+                                     block=128)
+    with pytest.raises(ValueError):
+        fused.aggregate_dequant_cuda(w, Xq, S, storage="int8", block=256)
+
+
+@pytest.mark.parametrize("storage,block", STORAGES[:3])
+def test_quantizer_on_the_card_equals_the_cpu(cuda, storage, block):
+    from repro_torch.fl import packing
+
+    quant = packing.QuantSpec(storage=storage, block=block)
+    rng = np.random.default_rng(0)
+    X = (rng.standard_normal((64, 256 * block))
+         * 10.0 ** -rng.integers(0, 5, (64, 1))).astype(np.float32)
+    X[2, :block] = 0.0
+    X[3, :block] = np.arange(block) % 15 - 7 + 0.5
+    X[3, 0] = quant.qmax
+    got = packing.quantize_group(torch.as_tensor(X, device=cuda), quant)
+    want = packing.quantize_group(torch.as_tensor(X), quant)
+    for a, b in zip(got, want):
+        if a.dtype == torch.float8_e4m3fn:
+            a, b = a.view(torch.uint8), b.view(torch.uint8)
+        assert torch.equal(a.cpu(), b)
+
+
+def test_server_runs_every_quant_backend_on_the_card(cuda):
+    from repro_torch import topology
+    from repro_torch.core.pytree import tree_flatten
+    from repro_torch.core.server import FederatedServer, ServerConfig
+    from repro_torch.data import (FederatedBatcher, label_sorted_partition,
+                                  make_classification)
+    from repro_torch.fl.engine import ExecutionConfig
+    from repro_torch.fl.packing import QuantSpec
+    from repro_torch.kernels.mixing import fused, sparse
+    from repro_torch.models import cnn
+
+    ds = make_classification(n_samples=400, image_hw=8, seed=0)
+    parts = label_sorted_partition(ds, 12, rng=np.random.default_rng(0))
+    spec = topology.make_spec("k_regular", n=12, c=3, k_range=(3, 4))
+    loss = partial(cnn.l2_regularized_loss, cnn.cnn_apply)
+    quant = QuantSpec(storage="int8", block=128)
+
+    def run(backend, record_mixed, scan=False):
+        server = FederatedServer(
+            spec.build(), loss, cnn.init_cnn(0, image_hw=8),
+            FederatedBatcher(ds, parts, T=2, batch_size=4),
+            ServerConfig(T=2, t_max=2, seed=1),
+            execution=ExecutionConfig(backend=backend, scan=scan,
+                                      record_mixed=record_mixed,
+                                      quant=quant))
+        server.run()
+        return tree_flatten(server.params)[0]
+
+    ref_leaves = run("einsum", False)
+    for backend, record_mixed, counter in [
+            ("fused", False, fused.aggregate_dequant_cuda),
+            ("fused", True, fused.mix_aggregate_dequant_cuda),
+            ("sparse", False, fused.aggregate_dequant_cuda),
+            ("sparse", True, sparse.sparse_mix_aggregate_dequant_cuda)]:
+        counter.launches = 0
+        seq = run(backend, record_mixed)
+        assert counter.launches == 2            # one a round, one group
+        scn = run(backend, record_mixed, scan=True)
         for a, b, c in zip(seq, scn, ref_leaves):
             assert torch.equal(a, b)
             torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)

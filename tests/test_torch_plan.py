@@ -74,7 +74,8 @@ def test_dropout_regenerate_and_slices_are_byte_identical(seed):
 def test_pending_slices_raise():
     net, cfg, _, _ = _pair(0, n=10, c=2, t_max=2)
     plan = RoundPlan.connectivity_aware(net, cfg)
-    with pytest.raises(NotImplementedError, match="quant"):
+    # the quant slice has landed: with_quant validates the type only
+    with pytest.raises(ValueError, match="QuantSpec"):
         plan.with_quant(object())
     with pytest.raises(NotImplementedError, match="closed-loop"):
         RoundPlan.controlled(net, cfg, "static")

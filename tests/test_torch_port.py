@@ -1,6 +1,6 @@
 """Structure of the PyTorch port: it never imports JAX or the reference
 package, it never falls back to the CPU unasked, its CLI runs and replays
-plans, and the TPU-only / pending knobs raise.
+plans, and the pending knobs and invalid configs raise.
 """
 
 import ast
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.fl.engine import (ExecutionConfig, LocalEngine,
                                    resolve_backend, resolve_device)
+from repro_torch.fl.packing import QuantSpec
 from repro_torch.launch import train
 
 SRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
@@ -65,8 +66,9 @@ def test_cuda_engine_sets_the_fp32_policy(monkeypatch, device, fp32):
 
 
 @pytest.mark.parametrize("cfg,exc", [
-    (ExecutionConfig(backend="sparse", quant="int8"), NotImplementedError),
-    (ExecutionConfig(quant="int8"), NotImplementedError),
+    (ExecutionConfig(backend="pallas", record_mixed=True, quant=QuantSpec()),
+     ValueError),
+    (ExecutionConfig(backend="sparse", quant="int8"), ValueError),
     (ExecutionConfig(mesh=object()), NotImplementedError),
     (ExecutionConfig(stream=object()), NotImplementedError),
     (ExecutionConfig(backend="aggregate", record_mixed=True), ValueError),
@@ -86,7 +88,8 @@ def test_pending_and_invalid_configs_raise(cfg, exc):
     (ExecutionConfig(backend="einsum", record_mixed=True), "einsum"),
     (ExecutionConfig(backend="sparse"), "sparse_aggregate"),
     (ExecutionConfig(backend="sparse", record_mixed=True), "sparse"),
-    (ExecutionConfig(backend="sparse_aggregate"), "sparse_aggregate")])
+    (ExecutionConfig(backend="sparse_aggregate"), "sparse_aggregate"),
+    (ExecutionConfig(backend="fused", quant=QuantSpec()), "aggregate")])
 def test_record_mixed_upgrade_matrix(cfg, effective):
     assert resolve_backend(cfg) == effective
 
