@@ -40,6 +40,16 @@ Phases (each raises on failure; nothing is caught):
               PyTorch call computes these functions; the dequantize +
               torch.matmul / torch.sparse.mm pair is printed as a
               two-call yardstick.
+   flash   -- the flash-attention kernel against its plain version
+              (``flash_attention_ref``) at qwen2-7b's prefill shape (B 2,
+              S 2048, 28 / 4 heads of 128, bf16, causal), a ragged S,
+              sliding windows 16 / 100 / 256, non-causal, a masked kv
+              tail, and fp32 at head dims 32 / 64 / 128 with GQA groups 1
+              to 8 (the reference's tolerances: 2e-5 fp32, 2e-2 bf16);
+              its time at qwen2-7b's shape beside the plain version's, its
+              bound (at the bf16 tensor-core peak, the fp32 CUDA-core one
+              beside it) and ``scaled_dot_product_attention``'s as the
+              yardstick.
 3. train   -- Algorithm 1 end to end at full width through
               ``FederatedServer``: n = 70 clients in c = 7 clusters,
               ``k_regular`` k in [6, 9] with p_fail = 0.1, the McMahan
@@ -77,8 +87,16 @@ Phases (each raises on failure; nothing is caught):
               on 'sparse' with record_mixed: d2d == n, the two agree, and
               the peak device memory stays far below one (n, n) f32
               array (40 GB).
-5. report  -- a ``{"kernels": [...]}`` JSON line (eight kernels), the card's name and
-              power limit (nvidia-smi), and the final
+5. lm      -- the port's ``Model`` (``repro_torch.models``): qwen2-7b at
+              full width and depth in bf16 from random weights, a forward
+              on 2 x 2048 tokens with attn_impl='flash' (-> 28 flash
+              launches, counted) and with 'ref', ``generate`` (prefill,
+              then 16 greedy decode steps), both traced with
+              ``torch.profiler``; then qwen2-7b's widths in fp32 at 4
+              layers: flash vs ref logits within 1e-4, prefill + decode vs
+              the forward within 2e-3.
+6. report  -- a ``{"kernels": [...]}`` JSON line (nine kernels), the
+              card's name and power limit (nvidia-smi), and the final
               ``{"ok": true, "device": {...}}`` line.
 
 It imports only ``torch``, numpy and ``repro_torch`` (never JAX), and
@@ -99,10 +117,12 @@ ROOT = Path(__file__).resolve().parent
 ROUNDS = 3          # rounds of Algorithm 1 per training run
 SEED = 0            # data, partition, weights and plan
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bandwidth and
-# the fp32 rate outside the tensor cores -- the kernels run full fp32.
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bandwidth, the
+# fp32 rate outside the tensor cores (the mixing kernels run full fp32)
+# and the bf16 tensor-core rate (the least time of bf16 attention).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_TC_FLOPS_PER_S = 989e12
 
 
 def _fail(msg: str) -> int:
@@ -127,11 +147,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: int, flops: int):
+def bound(nbytes: int, flops: int, flops_per_s: float = FP32_FLOPS_PER_S):
     """``(bound_ms, bound_by)``: the larger of moving ``nbytes`` at the
-    HBM rate and doing ``flops`` fp32 operations at the CUDA-core rate."""
+    HBM rate and doing ``flops`` operations at ``flops_per_s`` (default:
+    fp32 on the CUDA cores)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -585,6 +606,23 @@ def phase_quant_kernels(seed: int):
 
 # -- phase 3 ----------------------------------------------------------------
 
+def kernel_counters():
+    """Every kernel wrapper by its report name; each counts its launches
+    in ``.launches``."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.mixing import fused, mixing, sparse
+    return {"aggregate": fused.aggregate_cuda,
+            "mix_aggregate": fused.mix_aggregate_cuda,
+            "mix": mixing.mix_cuda,
+            "sparse_mix": sparse.sparse_mix_cuda,
+            "sparse_mix_aggregate": sparse.sparse_mix_aggregate_cuda,
+            "aggregate_dequant": fused.aggregate_dequant_cuda,
+            "mix_aggregate_dequant": fused.mix_aggregate_dequant_cuda,
+            "sparse_mix_aggregate_dequant":
+                sparse.sparse_mix_aggregate_dequant_cuda,
+            "flash_attention": fa.flash_attention_cuda}
+
+
 def phase_train(rounds: int, seed: int):
     """Algorithm 1 at full width on every kernel backend; returns the
     launch count of each kernel in the path that runs it."""
@@ -597,7 +635,6 @@ def phase_train(rounds: int, seed: int):
                                   make_classification)
     from repro_torch.fl import packing
     from repro_torch.fl.engine import ExecutionConfig
-    from repro_torch.kernels.mixing import fused, mixing, sparse
     from repro_torch.models import cnn
 
     n, c, T, batch = 70, 7, 5, 32
@@ -619,15 +656,7 @@ def phase_train(rounds: int, seed: int):
     dev = torch.device("cuda")
     xs = torch.as_tensor(ds_test.x, device=dev)
     ys = torch.as_tensor(ds_test.y, device=dev).long()
-    counters = {"aggregate": fused.aggregate_cuda,
-                "mix_aggregate": fused.mix_aggregate_cuda,
-                "mix": mixing.mix_cuda,
-                "sparse_mix": sparse.sparse_mix_cuda,
-                "sparse_mix_aggregate": sparse.sparse_mix_aggregate_cuda,
-                "aggregate_dequant": fused.aggregate_dequant_cuda,
-                "mix_aggregate_dequant": fused.mix_aggregate_dequant_cuda,
-                "sparse_mix_aggregate_dequant":
-                    sparse.sparse_mix_aggregate_dequant_cuda}
+    counters = kernel_counters()
 
     def server_for(backend, record_mixed, scan, quant=None):
         return FederatedServer(
@@ -740,8 +769,8 @@ def phase_train(rounds: int, seed: int):
           f"{ref_hist.ledger.total_d2s}, D2D {ref_hist.ledger.total_d2d})")
     launches["sparse_mix"] = mix_alone(loss_fn, init, batcher, spec, rounds,
                                        seed, counters)
-    profile_rounds(lambda: run("fused", False, False, evaluate=False),
-                   rounds)
+    trace_device(lambda: run("fused", False, False, evaluate=False),
+                 f"aggregate path, {rounds} sequential rounds (no eval)")
     launches.update(train_quant(run, server_for, loss_fn, bookkeeping,
                                 counters, groups, rounds))
     return launches
@@ -872,9 +901,10 @@ def train_quant(run, server_for, loss_fn, bookkeeping, counters, groups,
         print(f"[train] quant {storage} {effective}: scanned == sequential "
               f"bitwise: {same}")
     quant = packing.QuantSpec(storage="int8", block=512)
-    profile_rounds(lambda: run("fused", False, False, evaluate=False,
-                               quant=quant), rounds,
-                   label="quant int8 aggregate path")
+    trace_device(lambda: run("fused", False, False, evaluate=False,
+                             quant=quant),
+                 f"quant int8 aggregate path, {rounds} sequential rounds "
+                 "(no eval)")
     return launches
 
 
@@ -929,15 +959,13 @@ def mix_alone(loss_fn, init, batcher, spec, rounds, seed, counters):
     return counts["sparse_mix"]
 
 
-def profile_rounds(fn, rounds: int, top: int = 12,
-                   label: str = "aggregate path"):
-    """Trace ``fn()`` (a sequential run of the ``label`` path) with
-    ``torch.profiler``, device activity only, and print the device events
-    (kernels, copies, sets) by total time and the device's busy share of
-    the traced wall time.  Events are read from the exported trace and
-    kept once per correlation id (one per launch); the busy time is the
-    union of their intervals, so events overlapping on several streams
-    count once."""
+def trace_device(fn, what: str, top: int = 12):
+    """Trace ``fn()`` (``what``) with ``torch.profiler``, device activity
+    only, after one untraced call, and print the device events (kernels,
+    copies, sets) by total time and the device's busy share of the traced
+    wall time.  Events are read from the exported trace and kept once per
+    correlation id (one per launch); the busy time is the union of their
+    intervals, so events overlapping on several streams count once."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -974,8 +1002,8 @@ def profile_rounds(fn, rounds: int, top: int = 12,
         per_stream[sid] = (count + 1, us + e["dur"])
     total = sum(us for _, us in per_name.values()) / 1e3
     busy = busy_us / 1e3
-    print(f"[profile] {label}, {rounds} sequential rounds (no "
-          f"eval), device activity traced: wall {wall_ms:.1f} ms, device "
+    print(f"[profile] {what}, device activity traced: wall "
+          f"{wall_ms:.1f} ms, device "
           f"busy {busy:.1f} ms ({busy / wall_ms:.1%}, idle "
           f"{1 - busy / wall_ms:.1%}); {len(raw)} device events in the "
           f"trace, {len(events)} after one per correlation id, summing to "
@@ -1062,6 +1090,247 @@ def phase_scale(seed: int):
           f"{worst:.3e}")
 
 
+# -- phase 5: the LM slice ----------------------------------------------------
+
+# qwen2-7b's attention at the prefill shape the [lm] phase drives
+LM_ARCH, LM_BATCH, LM_SEQ, LM_NEW = "qwen2-7b", 2, 2048, 16
+
+
+def phase_flash(seed: int):
+    """The flash-attention kernel against its plain version
+    (``flash_attention_ref``) at qwen2-7b's prefill shape and at ragged,
+    windowed, non-causal, kv-tail and fp32 shapes (tolerances the
+    reference's own: 2e-5 fp32, 2e-2 bf16); then its time at qwen2-7b's
+    shape beside the plain version's, the bound and
+    ``scaled_dot_product_attention`` as the yardstick.  Returns the
+    report row (launch count filled in by the [lm] phase)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.fl.engine import set_fp32_policy
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref
+
+    set_fp32_policy()          # the plain version's fp32 matmuls: no TF32
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    bf, f32 = torch.bfloat16, torch.float32
+    tol = {f32: 2e-5, bf: 2e-2}
+    # (label, B, Hq, Hkv, S, hd, dtype, causal, window, true_seq_k)
+    cases = [
+        ("qwen2-7b prefill", LM_BATCH, 28, 4, LM_SEQ, 128, bf, True, None,
+         None),
+        ("ragged S", 1, 28, 4, 1000, 128, bf, True, None, None),
+        ("window 16", 1, 28, 4, 1000, 128, bf, True, 16, None),
+        ("window 100", 2, 8, 2, 777, 128, bf, True, 100, None),
+        ("window 256", 1, 28, 4, 2048, 128, bf, True, 256, None),
+        ("non-causal", 2, 8, 2, 333, 128, bf, False, None, None),
+        ("non-causal f32", 2, 4, 4, 200, 64, f32, False, None, None),
+        ("f32 hd 32, group 1", 2, 4, 4, 515, 32, f32, True, None, None),
+        ("f32 hd 32, group 8, window 100", 1, 8, 1, 400, 32, f32, True, 100,
+         None),
+        ("f32 hd 64, group 3", 1, 6, 2, 777, 64, f32, True, None, None),
+        ("f32 hd 128, group 7", 1, 7, 1, 130, 128, f32, True, None, None),
+        ("kv tail: 900 of 1024 keys", 1, 4, 2, 1024, 64, f32, True, None,
+         900),
+        ("kv tail, non-causal, 1 of 64 keys", 1, 2, 1, 64, 32, f32, False,
+         None, 1),
+    ]
+    main_err = None
+    for label, B, Hq, Hkv, S, hd, dt, causal, window, tsk in cases:
+        q = torch.randn(B, Hq, S, hd, generator=g, device=dev).to(dt)
+        k = torch.randn(B, Hkv, S, hd, generator=g, device=dev).to(dt)
+        v = torch.randn(B, Hkv, S, hd, generator=g, device=dev).to(dt)
+        kw = dict(causal=causal, window=window, true_seq_k=tsk)
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        e = float((got.float() - want.float()).abs().max())
+        ok = got.dtype == dt and torch.allclose(
+            got.float(), want.float(), rtol=tol[dt], atol=tol[dt])
+        print(f"[flash] {label}: ({B}, {Hq}/{Hkv}, {S}, {hd}) {dt} "
+              f"causal={causal} window={window} true_seq_k={tsk}: max|err| "
+              f"{e:.3e} (rtol = atol = {tol[dt]:.0e})")
+        if not ok:
+            raise AssertionError(f"flash_attention {label} disagrees with "
+                                 "its plain version")
+        if main_err is None:
+            main_err = e
+        del q, k, v, got, want
+
+    B, Hq, Hkv, S, hd = LM_BATCH, 28, 4, LM_SEQ, 128
+    q = torch.randn(B, Hq, S, hd, generator=g, device=dev).to(bf)
+    k = torch.randn(B, Hkv, S, hd, generator=g, device=dev).to(bf)
+    v = torch.randn(B, Hkv, S, hd, generator=g, device=dev).to(bf)
+    ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
+    plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True),
+                       iters=5)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), iters=10)
+    pairs = S * (S + 1) // 2                 # visible (query, key) pairs
+    flops = 4 * B * Hq * hd * pairs          # QK and PV, 2 flops a MAC
+    nbytes = 2 * (2 * B * Hq * S * hd + 2 * B * Hkv * S * hd)
+    b_ms, b_by = bound(nbytes, flops, BF16_TC_FLOPS_PER_S)
+    f32_ms, _ = bound(nbytes, flops)
+    print(f"[flash] flash_attention @ qwen2-7b prefill ({B}, {Hq}/{Hkv}, "
+          f"{S}, {hd}) bf16 causal: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms; bound {b_ms:.4f} "
+          f"ms by {b_by} at the bf16 tensor-core peak: {b_ms / ms:.1%} of "
+          f"it; {f32_ms:.4f} ms at the fp32 CUDA-core peak the kernel "
+          f"computes on: {f32_ms / ms:.1%}); {flops / 1e9:.1f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB, {flops / ms / 1e9:.1f} TFLOP/s")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:104",
+            "launches": 0, "max_abs_err": main_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
+
+
+def phase_lm(seed: int, counters) -> int:
+    """The port's ``Model`` on the card.  (a) qwen2-7b at full width and
+    depth in bf16 from random weights: a forward with attn_impl='flash'
+    on LM_BATCH x LM_SEQ tokens (the flash kernel's path, with every
+    kernel's launch count reset just before it and read just after), the
+    same forward with attn_impl='ref', and ``generate`` (prefill, then
+    LM_NEW greedy decode steps); the gate is finite logits.  (b) The
+    reference's tight gates at qwen2-7b's widths in fp32 with the depth
+    cut to 4 layers: flash forward vs ref forward within 1e-4, prefill of
+    K - 1 tokens and decode of token K vs the forward's logits within
+    2e-3.  Returns the flash kernel's launches in (a)'s forward."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models.model import Model
+
+    dev = torch.device("cuda")
+    full = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
+    model = Model(full)                       # cuda: sets the fp32 policy
+    model_ref = Model(dataclasses.replace(full, attn_impl="ref"))
+    policy = {"cuda.matmul.allow_tf32":
+              torch.backends.cuda.matmul.allow_tf32,
+              "cuda.matmul.allow_bf16_reduced_precision_reduction":
+              torch.backends.cuda.matmul
+              .allow_bf16_reduced_precision_reduction}
+    print(f"[lm] precision policy as the port's Model set it: {policy}")
+    if any(policy.values()):
+        raise AssertionError("the Model did not set its precision policy")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(g)
+    torch.cuda.synchronize()
+    n_params = model.param_count(params)
+    print(f"[lm] {full.name}: {full.n_layers} layers, d_model "
+          f"{full.d_model}, {full.n_heads}/{full.n_kv_heads} heads of "
+          f"{full.resolved_head_dim}, d_ff {full.d_ff}, vocab "
+          f"{full.vocab_size}, {full.dtype}: {n_params:,} params "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB), random init on "
+          f"the card in {time.perf_counter() - t0:.2f} s")
+    B, S = LM_BATCH, LM_SEQ
+    tokens = torch.randint(0, full.vocab_size, (B, S), generator=g,
+                           device=dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    timed(lambda: model.forward(params, tokens))          # warm-up
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    (logits, _), fwd_ms = timed(lambda: model.forward(params, tokens))
+    counts = {name: f.launches for name, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts["flash_attention"]
+    if launches != full.n_layers or sum(counts.values()) != launches:
+        raise AssertionError(f"the flash forward launched {counts}, not "
+                             f"{full.n_layers} flash_attention")
+    if logits.shape != (B, S, full.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError("the flash forward's logits are not finite")
+    (logits_r, _), ref_ms = timed(lambda: model_ref.forward(params, tokens))
+    if not bool(torch.isfinite(logits_r).all()):
+        raise AssertionError("the ref forward's logits are not finite")
+    d = float((logits - logits_r).abs().max())
+    top1 = float((logits.argmax(-1) == logits_r.argmax(-1)).float().mean())
+    print(f"[lm] forward {B}x{S} tokens, attn_impl='flash': {fwd_ms:.1f} ms "
+          f"(host clock, second call), {launches} flash_attention launches "
+          f"(one a layer), peak {peak / 1e9:.2f} GB; attn_impl='ref': "
+          f"{ref_ms:.1f} ms; bf16 flash vs ref: max|dlogits| {d:.3e}, "
+          f"top-1 agreement {top1:.4%} (not gated at bf16)")
+    del logits, logits_r
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    out, gen_ms = timed(lambda: model.generate(params, tokens, LM_NEW + 1))
+    if out.shape != (B, LM_NEW + 1) or int(out.min()) < 0 or \
+            int(out.max()) >= full.vocab_size:
+        raise AssertionError(f"generate gave {tuple(out.shape)} tokens in "
+                             f"[{int(out.min())}, {int(out.max())}]")
+    (_, cache), pre_ms = timed(lambda: model.prefill(params, tokens,
+                                                     max_len=S + LM_NEW + 1))
+    tok = out[:, 0]
+
+    def steps():
+        t = tok
+        for i in range(LM_NEW):
+            lg, _ = model.decode(params, cache, t, S + i)
+            t = lg.argmax(-1)
+        return t
+
+    _, dec_ms = timed(steps)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[lm] generate: prefill {B}x{S} + {LM_NEW} greedy decode steps "
+          f"in {gen_ms:.1f} ms; prefill alone {pre_ms:.1f} ms, {LM_NEW} "
+          f"decode steps {dec_ms:.1f} ms ({dec_ms / LM_NEW:.2f} ms a step, "
+          f"{B * LM_NEW / dec_ms * 1e3:.1f} tok/s at batch {B}); peak "
+          f"{peak / 1e9:.2f} GB; tokens of seq 0: {out[0].tolist()}")
+    del out
+    trace_device(lambda: model.forward(params, tokens),
+                 f"{full.name} forward {B}x{S} tokens, attn_impl='flash'")
+    trace_device(steps, f"{full.name} {LM_NEW} greedy decode steps at "
+                        f"batch {B} after a {S}-token prefill")
+    del params, cache
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(full, n_layers=4, dtype="float32")
+    model = Model(small)
+    model_ref = Model(dataclasses.replace(small, attn_impl="ref"))
+    params = model.init(g)
+    print(f"[lm] tight gates: {small.name} widths, {small.n_layers} layers, "
+          f"fp32: {model.param_count(params):,} params")
+    fa.flash_attention_cuda.launches = 0
+    logits, _ = model.forward(params, tokens)
+    logits_r, _ = model_ref.forward(params, tokens)
+    d = float((logits - logits_r).abs().max())
+    ok = torch.allclose(logits, logits_r, rtol=1e-4, atol=1e-4)
+    print(f"[lm]   flash vs ref forward: max|dlogits| {d:.3e} (rtol = atol "
+          f"= 1e-4), {fa.flash_attention_cuda.launches} flash launches")
+    if not ok:
+        raise AssertionError("fp32 flash forward differs from ref")
+    del logits_r
+    K = S
+    pre, cache = model.prefill(params, tokens[:, :K - 1], max_len=K + 4)
+    dec, _ = model.decode(params, cache, tokens[:, K - 1], K - 1)
+    for name, got, want in (("prefill", pre, logits[:, K - 2]),
+                            ("decode", dec, logits[:, K - 1])):
+        e = float((got - want).abs().max())
+        print(f"[lm]   {name} vs forward logits: max|d| {e:.3e} (rtol = "
+              f"atol = 2e-3)")
+        if not torch.allclose(got, want, rtol=2e-3, atol=2e-3):
+            raise AssertionError(f"fp32 {name} differs from the forward")
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         return _fail(f"no src/repro_torch beside {Path(__file__).name}: run "
@@ -1080,8 +1349,10 @@ def main() -> int:
     rows = phase_kernels(70, 1_663_488)
     rows += phase_sparse_kernels(SEED)
     rows += phase_quant_kernels(SEED)
+    rows.append(phase_flash(SEED))
     launches = phase_train(ROUNDS, SEED)
     phase_scale(SEED)
+    launches["flash_attention"] = phase_lm(SEED, kernel_counters())
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] <= 0:

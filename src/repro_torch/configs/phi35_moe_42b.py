@@ -1,0 +1,24 @@
+"""phi3.5-moe-42b-a6.6b [moe]: 32L d_model=4096 32H (GQA kv=8) d_ff=6400
+vocab=32064, MoE 16 experts top-2.  [hf:microsoft/Phi-3.5-MoE-instruct]"""
+
+from repro_torch.models.config import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="phi3.5-moe-42b-a6.6b",
+        family="moe",
+        n_layers=32,
+        d_model=4096,
+        n_heads=32,
+        n_kv_heads=8,
+        head_dim=128,
+        d_ff=6400,
+        vocab_size=32064,
+        n_experts=16,
+        experts_per_token=2,
+        n_shared_experts=0,
+        moe_d_ff=6400,
+        first_dense_layers=0,
+        dtype="bfloat16",
+    )

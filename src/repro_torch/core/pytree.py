@@ -21,43 +21,47 @@ TreeDef = Any
 _END = object()
 
 
+def _walk(node, leaves: List[Any]) -> TreeDef:
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        keys = tuple(sorted(node))
+        return ("dict", keys, tuple(_walk(node[k], leaves) for k in keys))
+    if isinstance(node, (list, tuple)):
+        kind = "list" if isinstance(node, list) else "tuple"
+        return (kind, len(node), tuple(_walk(c, leaves) for c in node))
+    leaves.append(node)
+    return "*"
+
+
+def _build(d: TreeDef, it) -> PyTree:
+    if d is None:
+        return None
+    if d == "*":
+        return next(it)
+    kind, keys, children = d
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(keys, children)}
+    out = [_build(c, it) for c in children]
+    return out if kind == "list" else tuple(out)
+
+
+# The walkers are module-level functions: a recursive closure is a
+# reference cycle that would keep a flattened tree's leaves alive until the
+# garbage collector runs (gigabytes, for a model's parameter tree).
+
 def tree_flatten(tree: PyTree) -> Tuple[List[Any], TreeDef]:
     """``(leaves, treedef)``; dict keys visited in sorted order.  The
     treedef is a hashable nested tuple."""
     leaves: List[Any] = []
-
-    def walk(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            return ("dict", keys, tuple(walk(node[k]) for k in keys))
-        if isinstance(node, (list, tuple)):
-            kind = "list" if isinstance(node, list) else "tuple"
-            return (kind, len(node), tuple(walk(c) for c in node))
-        leaves.append(node)
-        return "*"
-
-    treedef = walk(tree)
+    treedef = _walk(tree, leaves)
     return leaves, treedef
 
 
 def tree_unflatten(treedef: TreeDef, leaves) -> PyTree:
     """Inverse of ``tree_flatten``."""
     it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return None
-        if d == "*":
-            return next(it)
-        kind, keys, children = d
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(keys, children)}
-        out = [build(c) for c in children]
-        return out if kind == "list" else tuple(out)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, _END) is not _END:
         raise ValueError("tree_unflatten: more leaves than the treedef has")
     return out

@@ -152,11 +152,14 @@ def resolve_device(device=None) -> torch.device:
 
 def set_fp32_policy() -> None:
     """Full fp32 on the card, as the reference computes: no TF32 in
-    matmuls or cuDNN convolutions (cuDNN's default is TF32), and
+    matmuls or cuDNN convolutions (cuDNN's default is TF32), bf16 matmuls
+    reduced in fp32 (cuBLAS may otherwise reduce split-K partial sums in
+    bf16; the reference accumulates bf16 products in fp32), and
     deterministic cuDNN algorithms, so a rerun and the scanned driver
     reproduce a run bitwise.  Process-wide; every CUDA ``LocalEngine``
-    sets it."""
+    and every CUDA ``models.model.Model`` sets it."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False

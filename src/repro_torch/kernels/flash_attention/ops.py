@@ -1,0 +1,54 @@
+"""The model stack's flash-attention entry point (port of
+``repro.kernels.flash_attention.ops``): the (B, S, H, hd) layout around
+the kernel's (B, H, S, hd) one.
+
+A CPU tensor runs the kernel's plain version
+(``ref.flash_attention_ref``), a CUDA tensor the kernel
+(``flash_attention.flash_attention_cuda``) or an error; there is no
+override and no fallback.  The reference's TPU knobs are gone: no
+padding of S to block multiples (the kernel masks a ragged S), no
+``bq``/``bk`` (the tiles are the kernel's own), no ``interpret``.
+
+The kernel is forward-only, as the Pallas one is (it has no
+``custom_vjp``), so a backward pass through ``flash_attention`` raises
+instead of differentiating the plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .flash_attention import check_shapes, flash_attention_cuda
+from .ref import flash_attention_ref
+
+__all__ = ["flash_attention"]
+
+
+class _FlashForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        def to_bhsd(x):
+            return x.transpose(1, 2).contiguous()
+
+        q, k, v = to_bhsd(q), to_bhsd(k), to_bhsd(v)
+        if q.is_cuda:
+            out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        else:
+            check_shapes(q, k, v, window, None)
+            out = flash_attention_ref(q, k, v, causal=causal, window=window)
+        return out.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        raise NotImplementedError(
+            "flash_attention is forward-only, as the reference's Pallas "
+            "kernel is: train with attn_impl='ref' or 'chunked'")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q (B,S,Hq,hd), k/v (B,S,Hkv,hd) -> (B,S,Hq,hd)."""
+    return _FlashForward.apply(q, k, v, causal, window)

@@ -1,2 +1,3 @@
-"""Models of the paper's experiments (``cnn``) and the JAX-pytree
-converter (``convert``)."""
+"""Models of the paper's experiments (``cnn``), the LM zoo's dense /
+audio / vlm stack (``config``, ``layers``, ``attention``, ``blocks``,
+``model``) and the JAX-pytree converter (``convert``)."""

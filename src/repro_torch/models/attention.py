@@ -1,0 +1,198 @@
+"""Grouped-query attention: full-sequence, prefill, and cached decode (port
+of ``repro.models.attention``).
+
+Supports the dense-family options: GQA (n_kv < n_heads), qk-norm
+(qwen3), qkv-bias (qwen1.5/qwen2/internvl2), partial rotary (stablelm-2),
+and sliding-window attention (the KV cache becomes a ring buffer of the
+window size, so memory is O(window), not O(context)).
+
+The full-sequence path can route through the hand-written CUDA
+flash-attention kernel (``cfg.attn_impl == 'flash'``); the plain path
+below is its oracle.  Decode writes the new token's K/V into the cache
+in place (the cache leaves are views of the stacked cache) and returns
+it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from .config import ModelConfig
+from .layers import apply_rope, dense_init, rms_norm, rope_angles
+
+PyTree = Any
+
+__all__ = ["attn_init", "attention_full", "attention_decode", "make_kv_cache",
+           "NEG_INF"]
+
+NEG_INF = -1e30
+
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> PyTree:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    p = {
+        "q": dense_init(gen, d, nq * hd, dtype, bias=cfg.qkv_bias),
+        "k": dense_init(gen, d, nkv * hd, dtype, bias=cfg.qkv_bias),
+        "v": dense_init(gen, d, nkv * hd, dtype, bias=cfg.qkv_bias),
+        "o": dense_init(gen, nq * hd, d, dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=gen.device)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=gen.device)
+    return p
+
+
+def _project_qkv(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
+                 positions: torch.Tensor):
+    """x (B,S,D), positions (S,) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd)."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+
+    def proj(pp, n):
+        y = x @ pp["w"]
+        if "b" in pp:
+            y = y + pp["b"]
+        return y.reshape(B, S, n, hd)
+
+    q = proj(p["q"], cfg.n_heads)
+    k = proj(p["k"], cfg.n_kv_heads)
+    v = proj(p["v"], cfg.n_kv_heads)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    rot = int(hd * cfg.rope_fraction) - (int(hd * cfg.rope_fraction) % 2)
+    if rot:
+        cos, sin = rope_angles(positions, rot, cfg.rope_theta)
+        q = apply_rope(q, cos, sin, cfg.rope_fraction)
+        k = apply_rope(k, cos, sin, cfg.rope_fraction)
+    return q, k, v
+
+
+def _causal_mask(S: int, window: Optional[int], device) -> torch.Tensor:
+    """(S, S) additive fp32 mask: 0 where visible, NEG_INF elsewhere."""
+    i = torch.arange(S, device=device)[:, None]
+    j = torch.arange(S, device=device)[None, :]
+    ok = j <= i
+    if window is not None:
+        ok = ok & ((i - j) < window)
+    return torch.where(ok, 0.0, NEG_INF)
+
+
+def _group(q: torch.Tensor, Hkv: int) -> torch.Tensor:
+    """q (B,S,Hq,hd) -> (B,Hkv,G,S,hd)."""
+    B, S, Hq, hd = q.shape
+    return q.reshape(B, S, Hkv, Hq // Hkv, hd).permute(0, 2, 3, 1, 4)
+
+
+def _attend(qg, k, v, mask, dtype):
+    """qg (B,Hkv,G,Sq,hd), k/v (B,Sk,Hkv,hd), mask broadcast to
+    (Sq, Sk) -> (B,Sq,Hq*hd): fp32 scores and softmax, weights cast to
+    ``dtype`` before the PV product (the reference's ``_sdpa``)."""
+    B, Hkv, G, Sq, hd = qg.shape
+    kt = k.permute(0, 2, 3, 1)[:, :, None].float()       # (B,Hkv,1,hd,Sk)
+    scores = (qg.float() @ kt) * (hd ** -0.5) + mask
+    w = torch.softmax(scores, dim=-1).to(dtype)
+    out = w @ v.permute(0, 2, 1, 3)[:, :, None]          # (B,Hkv,G,Sq,hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hkv * G * hd)
+
+
+def _sdpa(q, k, v, mask, cfg: ModelConfig):
+    """q (B,S,Hq,hd), k/v (B,S2,Hkv,hd), mask (S,S2) additive."""
+    return _attend(_group(q, k.shape[2]), k, v, mask, q.dtype)
+
+
+def _chunked_sdpa(q, k, v, window: Optional[int], cfg: ModelConfig):
+    """Query-chunked causal attention: O(S * chunk) score memory instead of
+    O(S^2).  Exact (full-row softmax per chunk).  The last chunk is cut at
+    S instead of padded (padded rows are sliced away in the reference)."""
+    B, S, Hq, hd = q.shape
+    C = min(cfg.attn_chunk, S)
+    j = torch.arange(S, device=q.device)[None, :]
+    qg = _group(q, k.shape[2])
+    outs = []
+    for i0 in range(0, S, C):
+        i = i0 + torch.arange(min(C, S - i0), device=q.device)[:, None]
+        ok = j <= i
+        if window is not None:
+            ok = ok & ((i - j) < window)
+        mask = torch.where(ok, 0.0, NEG_INF)
+        outs.append(_attend(qg[:, :, :, i0:i0 + C], k, v, mask, q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def attention_full(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
+                   positions: torch.Tensor,
+                   window: Optional[int] = "cfg") -> torch.Tensor:
+    """Full-sequence causal attention (training / scoring compute)."""
+    if window == "cfg":
+        window = cfg.sliding_window
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    if cfg.attn_impl == "flash":
+        out = flash_ops.flash_attention(q, k, v, causal=True, window=window)
+        out = out.reshape(x.shape[0], x.shape[1], -1)
+    elif cfg.attn_impl == "chunked":
+        out = _chunked_sdpa(q, k, v, window, cfg)
+    else:
+        mask = _causal_mask(x.shape[1], window, x.device)
+        out = _sdpa(q, k, v, mask, cfg)
+    return out @ p["o"]["w"]
+
+
+# ---------------------------------------------------------------------------
+# KV cache (ring buffer when window-limited)
+# ---------------------------------------------------------------------------
+
+def make_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  n_layers: int, dtype, device=None) -> PyTree:
+    """Cache leaves carry a leading layer axis.
+
+    ``max_len`` should be min(context, sliding_window) -- the ring buffer.
+    ``kpos`` tracks the absolute position stored in each slot (-1 = empty);
+    it is shared across batch (decode is lock-step).
+    """
+    hd = cfg.resolved_head_dim
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "kpos": torch.full((n_layers, max_len), -1, dtype=torch.int32,
+                           device=device),
+    }
+
+
+def attention_decode(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
+                     cache: PyTree, pos: int,
+                     window: Optional[int] = "cfg"
+                     ) -> Tuple[torch.Tensor, PyTree]:
+    """One decode step.  x (B,1,D); cache leaves per-layer (no layer axis
+    here -- the block loop slices it).  pos: the absolute position (an int
+    or a 0-d integer tensor).
+
+    Returns (y (B,1,D), the cache, updated in place)."""
+    if window == "cfg":
+        window = cfg.sliding_window
+    pos = int(pos)
+    B = x.shape[0]
+    at = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(cfg, p, x, at)
+    W = cache["k"].shape[1]
+    slot = pos % W
+    ck, cv, kpos = cache["k"], cache["v"], cache["kpos"]
+    ck[:, slot] = k[:, 0]
+    cv[:, slot] = v[:, 0]
+    kpos[slot] = pos
+
+    age = pos - kpos                                     # (W,)
+    ok = (kpos >= 0) & (age >= 0)
+    if window is not None:
+        ok = ok & (age < window)
+    mask = torch.where(ok, 0.0, NEG_INF)                 # (W,)
+    qg = q.reshape(B, 1, cfg.n_kv_heads, -1, q.shape[-1]
+                   ).permute(0, 2, 3, 1, 4)              # (B,Hkv,G,1,hd)
+    out = _attend(qg, ck, cv, mask, q.dtype)             # (B,1,Hq*hd)
+    y = out @ p["o"]["w"]
+    return y, cache

@@ -1,0 +1,237 @@
+"""Unified model API (port of ``repro.models.model``) for the transformer
+families the port runs (``dense``, ``audio``, ``vlm``).
+
+``Model`` holds no parameters: ``init`` builds the reference's parameter
+tree (stacked layer leaves, the same keys) on the model's device from an
+explicit ``torch.Generator``; ``forward``/``loss`` run full sequences
+(scoring; ``cfg.attn_impl == 'flash'`` runs the hand-written CUDA
+flash-attention kernel), ``prefill`` + ``decode`` cached inference and
+``generate`` greedy decoding.  The audio/VLM frontends are the
+reference's stub: precomputed frame/patch embeddings enter through a
+learned projector and occupy the first ``frontend_len`` positions.
+
+A model runs on ``cuda`` unless built with ``device='cpu'``.  On the card
+it sets the port's fp32 policy (``fl.engine.set_fp32_policy``): no TF32,
+and bf16 matmuls reduce in fp32, as the reference accumulates them.
+Training through the flash kernel is not a path (the kernel is
+forward-only); ``loss`` returns the value.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.core.pytree import tree_leaves
+from repro_torch.fl.engine import resolve_device, set_fp32_policy
+from . import attention as attn_mod
+from . import blocks
+from .config import ModelConfig
+from .layers import lecun_normal, norm
+
+PyTree = Any
+
+__all__ = ["Model"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def _dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig, device=None):
+        blocks.check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            set_fp32_policy()
+
+    # ------------------------------------------------------------------ init
+
+    def init(self, gen: torch.Generator) -> PyTree:
+        """Random parameters from ``gen``, a generator on the model's
+        device (its numbers differ from ``jax.random``'s)."""
+        cfg = self.cfg
+        dt = _dtype_of(cfg)
+        emb = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                          device=gen.device) * 0.02
+        params: PyTree = {
+            "embed": emb.to(dt),
+            "decoder": blocks.stack_init(gen, cfg, dt),
+            "final_norm": torch.ones((cfg.d_model,), dtype=dt,
+                                     device=gen.device),
+        }
+        del emb
+        if not cfg.tie_embeddings:
+            params["lm_head"] = lecun_normal(gen, (cfg.d_model,
+                                                   cfg.vocab_size), dt)
+        if cfg.frontend:
+            params["frontend_proj"] = lecun_normal(
+                gen, (cfg.frontend_dim, cfg.d_model), dt)
+        return params
+
+    # --------------------------------------------------------------- forward
+
+    def _embed_inputs(self, params: PyTree, tokens: torch.Tensor,
+                      prefix_emb: Optional[torch.Tensor]) -> torch.Tensor:
+        x = params["embed"][tokens.long()]
+        if self.cfg.frontend:
+            if prefix_emb is None:
+                raise ValueError(f"{self.cfg.name} requires prefix embeddings")
+            pe = prefix_emb.to(x.dtype) @ params["frontend_proj"]
+            x = torch.cat([pe, x], dim=1)
+        return x
+
+    def _head(self, params: PyTree) -> torch.Tensor:
+        return (params["embed"].T if self.cfg.tie_embeddings
+                else params["lm_head"])
+
+    def _logits(self, params: PyTree, x: torch.Tensor) -> torch.Tensor:
+        x = norm(x, params["final_norm"], self.cfg.norm_type,
+                 self.cfg.norm_eps)
+        return (x @ self._head(params)).float()
+
+    def forward(self, params: PyTree, tokens: torch.Tensor,
+                prefix_emb: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens (B, K) [, prefix (B, P, fdim)] -> (logits (B, P+K, V), aux)."""
+        x = self._embed_inputs(params, tokens, prefix_emb)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, aux = blocks.stack_forward(self.cfg, params["decoder"], x,
+                                      positions)
+        return self._logits(params, x), aux
+
+    def loss(self, params: PyTree, batch) -> torch.Tensor:
+        """batch = (tokens, targets[, prefix_emb]); targets (B, K) aligned so
+        targets[:, i] is the next token after tokens[:, i]."""
+        tokens, targets = batch[0], batch[1]
+        prefix = batch[2] if len(batch) > 2 else None
+        cfg = self.cfg
+        P = cfg.frontend_len if cfg.frontend else 0
+
+        def nll_of(logits, tgt):
+            lse = torch.logsumexp(logits, dim=-1)
+            correct = logits.gather(-1, tgt.long()[..., None])[..., 0]
+            return (lse - correct).sum()
+
+        C = cfg.loss_chunk
+        S = tokens.shape[1]
+        if not (C and S % C == 0 and S > C):
+            logits, aux = self.forward(params, tokens, prefix)
+            nll = nll_of(logits[:, P:], targets) / targets.numel()
+            return nll + cfg.router_aux_weight * aux
+
+        # seq-chunked head+loss: the fp32 logits exist only (B, C, V) at a
+        # time, never (B, S, V)
+        x = self._embed_inputs(params, tokens, prefix)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, aux = blocks.stack_forward(cfg, params["decoder"], x, positions)
+        x = norm(x[:, P:], params["final_norm"], cfg.norm_type, cfg.norm_eps)
+        head = self._head(params)
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i0 in range(0, S, C):
+            logits = (x[:, i0:i0 + C] @ head).float()
+            total = total + nll_of(logits, targets[:, i0:i0 + C])
+        return total / targets.numel() + cfg.router_aux_weight * aux
+
+    # ----------------------------------------------------------------- cache
+
+    def init_cache(self, batch: int, max_len: int) -> PyTree:
+        """Decode cache sized ``max_len`` (pass min(context, window))."""
+        return {"layers": attn_mod.make_kv_cache(
+            self.cfg, batch, max_len, self.cfg.n_layers,
+            _dtype_of(self.cfg), self.device)}
+
+    def _scatter_ring(self, full: torch.Tensor, W: int, axis_seq: int = 2
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """full (..., S, ...) per-position values -> ring buffer (..., W, ...)
+        plus kpos (W,).  Keeps the last min(S, W) positions, position
+        ``pos`` in slot ``pos % W``.
+
+        Two layouts: with S <= W the positions sit in slots 0..S-1
+        (identity, zero-padded to W); with S > W the last W positions
+        are a roll of the tail.  (The reference's third, scatter branch
+        needs fewer than W kept positions that do not start at a
+        multiple of W; fewer than W kept means S < W, which starts at 0,
+        so it is never taken.)"""
+        S = full.shape[axis_seq]
+        keep = min(S, W)
+        start = S - keep
+        tail = full.narrow(axis_seq, start, keep)
+        pos = torch.arange(start, S, dtype=torch.int32, device=full.device)
+        if start % W == 0:
+            if keep == W:
+                return tail, pos
+            pad = list(full.shape)
+            pad[axis_seq] = W - keep
+            buf = torch.cat([tail, full.new_zeros(pad)], dim=axis_seq)
+            kpos = torch.cat([pos, pos.new_full((W - keep,), -1)])
+            return buf, kpos
+        shift = start % W
+        return (torch.roll(tail, shift, dims=axis_seq),
+                torch.roll(pos, shift))
+
+    def prefill(self, params: PyTree, tokens: torch.Tensor,
+                prefix_emb: Optional[torch.Tensor] = None,
+                max_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, PyTree]:
+        """Run the prompt, build the decode cache.
+
+        Returns (last-position logits (B, V), cache).  ``max_len`` sets the
+        ring size (>= prompt length for exact full-context decode; window
+        size for sliding-window archs)."""
+        cfg = self.cfg
+        x = self._embed_inputs(params, tokens, prefix_emb)
+        S = x.shape[1]
+        if max_len is None:
+            max_len = S if cfg.sliding_window is None else cfg.sliding_window
+        positions = torch.arange(S, device=x.device)
+        x, entries = blocks.stack_prefill(cfg, params["decoder"], x,
+                                          positions)
+        logits = self._logits(params, x[:, -1:])[:, 0]
+        layers = {}
+        for name, full in entries["layers"].items():
+            layers[name], kpos = self._scatter_ring(full, max_len, axis_seq=2)
+        # a real (L, W) tensor: decode writes each layer's row in place
+        layers["kpos"] = kpos.expand(cfg.n_layers, max_len).contiguous()
+        return logits, {"layers": layers}
+
+    # ---------------------------------------------------------------- decode
+
+    def decode(self, params: PyTree, cache: PyTree, token: torch.Tensor,
+               pos) -> Tuple[torch.Tensor, PyTree]:
+        """One step: token (B,) ints, pos the absolute position of this
+        token (int or 0-d tensor).  Returns (logits (B, V), the cache,
+        updated in place)."""
+        x = params["embed"][token.long()[:, None]]
+        x, cache = blocks.stack_decode(self.cfg, params["decoder"], cache, x,
+                                       pos)
+        return self._logits(params, x)[:, 0], cache
+
+    # ------------------------------------------------------------- utilities
+
+    def generate(self, params: PyTree, tokens: torch.Tensor, n_new: int,
+                 prefix_emb: Optional[torch.Tensor] = None,
+                 max_len: Optional[int] = None) -> torch.Tensor:
+        """Greedy generation (host loop): (B, n_new) int64 tokens."""
+        cfg = self.cfg
+        K = tokens.shape[1]
+        P = cfg.frontend_len if cfg.frontend else 0
+        prompt_len = K + P
+        if max_len is None:
+            win = cfg.sliding_window
+            max_len = prompt_len + n_new if win is None else win
+        logits, cache = self.prefill(params, tokens, prefix_emb, max_len)
+        out = [torch.argmax(logits, -1)]
+        for i in range(n_new - 1):
+            logits, cache = self.decode(params, cache, out[-1],
+                                        prompt_len + i)
+            out.append(torch.argmax(logits, -1))
+        return torch.stack(out, dim=1)
+
+    def param_count(self, params: PyTree) -> int:
+        return int(sum(p.numel() for p in tree_leaves(params)))

@@ -18,7 +18,11 @@ must be bitwise its plain version's, the other outputs ``rtol=atol=1e-5``
 (fp32 FMA sums in another order); the quantizer itself must give on the
 card bitwise the containers and scales it gives on the CPU; and a small
 quantized run on every quant backend must launch its kernel, agree with
-the quantized 'einsum' oracle and replay bitwise when scanned.
+the quantized 'einsum' oracle and replay bitwise when scanned.  The
+flash-attention kernel is held against its plain version at fp32 and
+bf16, GQA, windows, non-causal and masked kv tails (the reference's
+tolerances, 2e-5 / 2e-2), and a reduced qwen2-7b on the card must launch
+it once a layer and agree with the 'ref' attention path.
 """
 
 from functools import partial
@@ -381,3 +385,77 @@ def test_server_runs_every_quant_backend_on_the_card(cuda):
         for a, b, c in zip(seq, scn, ref_leaves):
             assert torch.equal(a, b)
             torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,hd,dtype,causal,window,tail", [
+    (1, 4, 4, 64, 32, torch.float32, True, None, None),
+    (2, 6, 2, 130, 64, torch.float32, True, None, None),
+    (1, 8, 1, 200, 128, torch.float32, True, 16, None),
+    (2, 28, 4, 257, 128, torch.bfloat16, True, None, None),
+    (1, 7, 1, 333, 128, torch.bfloat16, True, 100, None),
+    (2, 4, 2, 100, 64, torch.bfloat16, False, None, None),
+    (1, 4, 2, 128, 32, torch.float32, True, None, 100),
+    (1, 2, 1, 64, 64, torch.float32, False, None, 0)])
+def test_flash_kernel_matches_its_plain_version(cuda, B, Hq, Hkv, S, hd,
+                                                dtype, causal, window, tail):
+    """The reference's tolerances (tests/test_kernels.py): 2e-5 in fp32,
+    2e-2 in bf16."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref
+
+    g = torch.Generator(device=cuda).manual_seed(S * hd + Hq)
+    q = torch.randn(B, Hq, S, hd, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, Hkv, S, hd, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, Hkv, S, hd, generator=g, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window, true_seq_k=tail)
+    before = fa.flash_attention_cuda.launches
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    assert fa.flash_attention_cuda.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.cuda.synchronize()
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    q = torch.randn(1, 2, 8, 32, device=cuda)
+    with pytest.raises(ValueError):                       # head dim 16
+        fa.flash_attention_cuda(q[..., :16].contiguous(),
+                                q[..., :16].contiguous(),
+                                q[..., :16].contiguous())
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):                       # mixed devices
+        fa.flash_attention_cuda(q, q.cpu(), q)
+    with pytest.raises(ValueError):                       # not contiguous
+        fa.flash_attention_cuda(q.transpose(2, 3).contiguous()
+                                .transpose(2, 3), q, q)
+
+
+def test_model_flash_path_runs_the_kernel_on_the_card(cuda):
+    """A reduced qwen2-7b on the card: attn_impl='flash' launches the
+    kernel once a layer and gives the 'ref' forward's logits (1e-4, the
+    reference's own); prefill + decode match the forward (2e-3)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config("qwen2-7b", reduced=True),
+                              attn_impl="flash")
+    model, model_ref = Model(cfg), Model(dataclasses.replace(
+        cfg, attn_impl="ref"))
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 96), device=cuda)
+    fa.flash_attention_cuda.launches = 0
+    logits, _ = model.forward(params, toks)
+    assert fa.flash_attention_cuda.launches == cfg.n_layers
+    want, _ = model_ref.forward(params, toks)
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+    pre, cache = model.prefill(params, toks[:, :95], max_len=100)
+    torch.testing.assert_close(pre, logits[:, 94], rtol=2e-3, atol=2e-3)
+    dec, _ = model.decode(params, cache, toks[:, 95], 95)
+    torch.testing.assert_close(dec, logits[:, 95], rtol=2e-3, atol=2e-3)

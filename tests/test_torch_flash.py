@@ -1,0 +1,162 @@
+"""The port's flash attention against the JAX package's.
+
+The same inputs, drawn from a numpy seed, go through the reference's
+``ops.flash_attention`` (the Pallas kernel in interpret mode) and
+``ref.attention_ref`` and through the port's ``ops.flash_attention`` (on
+the CPU: the kernel's plain version, ``ref.flash_attention_ref``),
+``ref.flash_attention_ref`` and ``ref.attention_ref``.  Tolerances are
+the reference's own (``tests/test_kernels.py``): 2e-5 in fp32 and 2e-2
+in bf16.  The CUDA kernel itself runs only on a card
+(``tests/test_torch_cuda.py``, marker ``cuda``).
+"""
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.flash_attention import \
+    flash_attention_pallas as j_pallas
+from repro.kernels.flash_attention.ops import flash_attention as j_flash
+from repro.kernels.flash_attention.ref import attention_ref as j_attention
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.flash_attention import ops, ref
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _qkv(seed, B, S, Hq, Hkv, hd, dtype, layout="bshd"):
+    """numpy draws -> (jax arrays, torch tensors) holding the same values
+    (bf16 rounded once, in numpy)."""
+    rng = np.random.default_rng(seed)
+    shapes = [(B, S, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)]
+    if layout == "bhsd":
+        shapes = [(s[0], s[2], s[1], s[3]) for s in shapes]
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    if dtype == "bfloat16":
+        arrs = [a.astype(ml_dtypes.bfloat16).astype(np.float32) for a in arrs]
+    js = [jnp.asarray(a, JNP[dtype]) for a in arrs]
+    ts = [torch.as_tensor(a).to(TORCH[dtype]) for a in arrs]
+    return js, ts
+
+
+def _close(got, want, dtype):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else \
+        np.asarray(got, np.float32)
+    want = want.float().numpy() if isinstance(want, torch.Tensor) else \
+        np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def _both_ways(js, ts, dtype, **kw):
+    """The port's entry point and oracle against the reference's kernel
+    and oracle (all four pairs that matter)."""
+    want_kernel = j_flash(*js, bq=64, bk=64, **kw)
+    want_oracle = j_attention(*js, **kw)
+    got = ops.flash_attention(*ts, **kw)
+    assert got.dtype == ts[0].dtype and got.shape == ts[0].shape
+    _close(got, want_kernel, dtype)
+    _close(got, want_oracle, dtype)
+    _close(ref.attention_ref(*ts, **kw), want_oracle, dtype)
+    bhsd = [t.transpose(1, 2).contiguous() for t in ts]
+    plain = ref.flash_attention_ref(*bhsd, **kw).transpose(1, 2)
+    torch.testing.assert_close(plain, got, rtol=0, atol=0)
+
+
+# the reference's shapes (test_kernels.py:75-78: ragged S 130 and 200,
+# GQA groups 1-4 and 8) plus hd 128 with a ragged S and group 3
+SHAPES = [(1, 128, 4, 4, 64), (2, 256, 4, 2, 32), (1, 130, 8, 1, 64),
+          (1, 64, 2, 2, 128), (2, 200, 6, 3, 32), (1, 130, 6, 2, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_flash_matches_reference_causal(shape, dtype):
+    js, ts = _qkv(sum(shape), *shape, dtype)
+    _both_ways(js, ts, dtype, causal=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [16, 64, 100])
+def test_flash_matches_reference_sliding_window(window, dtype):
+    js, ts = _qkv(7, 1, 192, 4, 2, 64, dtype)
+    _both_ways(js, ts, dtype, causal=True, window=window)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_matches_reference_noncausal(dtype):
+    js, ts = _qkv(8, 2, 128, 2, 2, 32, dtype)
+    _both_ways(js, ts, dtype, causal=False)
+
+
+@pytest.mark.parametrize("causal,window,seq_k", [
+    (True, None, 100), (False, None, 70), (True, 32, 90),
+    (False, None, 0)])                     # 0 keys: every row dead -> 0
+def test_kernel_plain_version_matches_pallas_kv_tail(causal, window, seq_k):
+    """The kernel's own layout and tail mask: ``flash_attention_ref``
+    against ``flash_attention_pallas`` on (B, H, S, hd) inputs with
+    ``true_seq_k`` (dead rows come out 0 in both)."""
+    js, ts = _qkv(9, 1, 128, 4, 2, 32, "float32", layout="bhsd")
+    want = j_pallas(*js, causal=causal, window=window, true_seq_k=seq_k,
+                    bq=64, bk=64, interpret=True)
+    got = ref.flash_attention_ref(*ts, causal=causal, window=window,
+                                  true_seq_k=seq_k)
+    _close(got, want, "float32")
+    if seq_k == 0:
+        assert not got.any()
+
+
+def test_entry_point_runs_the_plain_version_on_the_cpu():
+    _, ts = _qkv(10, 1, 70, 4, 2, 32, "float32")
+    before = fa.flash_attention_cuda.launches
+    got = ops.flash_attention(*ts, causal=True, window=20)
+    assert fa.flash_attention_cuda.launches == before
+    bhsd = [t.transpose(1, 2).contiguous() for t in ts]
+    want = ref.flash_attention_ref(*bhsd, causal=True, window=20)
+    torch.testing.assert_close(got, want.transpose(1, 2), rtol=0, atol=0)
+
+
+def test_cuda_wrapper_raises_on_cpu_tensors():
+    _, ts = _qkv(11, 1, 64, 2, 1, 32, "float32", layout="bhsd")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_cuda(*ts)
+
+
+@pytest.mark.parametrize("kw,shapes", [
+    (dict(window=0), None),
+    (dict(window=-3), None),
+    ({}, [(1, 4, 8, 32), (1, 3, 8, 32), (1, 3, 8, 32)]),    # Hq % Hkv
+    ({}, [(1, 4, 8, 32), (1, 2, 8, 16), (1, 2, 8, 16)]),    # head dims
+    ({}, [(1, 4, 8, 32), (1, 2, 8, 32), (1, 2, 9, 32)]),    # k vs v
+])
+def test_invalid_arguments_raise_on_any_device(kw, shapes):
+    shapes = shapes or [(1, 4, 8, 32), (1, 2, 8, 32), (1, 2, 8, 32)]
+    q, k, v = (torch.zeros(s) for s in shapes)
+    with pytest.raises(ValueError):
+        fa.check_shapes(q, k, v, kw.get("window"), None)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), **kw)
+
+
+def test_backward_raises_instead_of_differentiating_the_plain_version():
+    _, ts = _qkv(12, 1, 16, 2, 1, 32, "float32")
+    q = ts[0].requires_grad_(True)
+    out = ops.flash_attention(q, ts[1], ts[2])
+    assert out.requires_grad
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        out.sum().backward()
+
+
+def test_plain_versions_differ_at_bf16_only_by_the_weights_rounding():
+    """``attention_ref`` rounds the softmax weights to bf16 before the PV
+    product, the kernel's plain version keeps them fp32: at fp32 the two
+    agree to rounding, at bf16 within the reference's bf16 tolerance."""
+    for dtype in ("float32", "bfloat16"):
+        _, ts = _qkv(13, 2, 96, 4, 2, 64, dtype)
+        bhsd = [t.transpose(1, 2).contiguous() for t in ts]
+        got = ref.flash_attention_ref(*bhsd).transpose(1, 2)
+        _close(got, ref.attention_ref(*ts), dtype)

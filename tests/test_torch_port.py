@@ -55,6 +55,8 @@ def test_entry_points_raise_without_gpu(monkeypatch):
 def test_cuda_engine_sets_the_fp32_policy(monkeypatch, device, fp32):
     # building a CUDA engine touches no card, only the process-wide flags
     flags = [(torch.backends.cuda.matmul, "allow_tf32", True),
+             (torch.backends.cuda.matmul,
+              "allow_bf16_reduced_precision_reduction", True),
              (torch.backends.cudnn, "allow_tf32", True),
              (torch.backends.cudnn, "deterministic", False),
              (torch.backends.cudnn, "benchmark", True)]
