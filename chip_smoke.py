@@ -41,15 +41,18 @@ Phases (each raises on failure; nothing is caught):
               torch.matmul / torch.sparse.mm pair is printed as a
               two-call yardstick.
    flash   -- the flash-attention kernel against its plain version
-              (``flash_attention_ref``) at qwen2-7b's prefill shape (B 2,
-              S 2048, 28 / 4 heads of 128, bf16, causal), a ragged S,
-              sliding windows 16 / 100 / 256, non-causal, a masked kv
-              tail, and fp32 at head dims 32 / 64 / 128 with GQA groups 1
-              to 8 (the reference's tolerances: 2e-5 fp32, 2e-2 bf16);
-              its time at qwen2-7b's shape beside the plain version's, its
-              bound (at the bf16 tensor-core peak, the fp32 CUDA-core one
-              beside it) and ``scaled_dot_product_attention``'s as the
-              yardstick.
+              (``flash_attention_ref``): bf16, the tensor-core route, at
+              qwen2-7b's prefill shape (B 2, S 2048, 28 / 4 heads of 128,
+              causal) in the model's strided layout and contiguous, head
+              dims 32 / 64 / 128, S of 1 and 17 (under one tile) and
+              ragged, GQA groups 1 / 3 / 7 / 8, sliding windows 1 / 16 /
+              100 / 256, non-causal, masked kv tails (900 and 0 of 1024
+              keys) and Sq != Sk; fp32, the CUDA-core route, at head dims
+              32 / 64 / 128 with GQA groups 1 to 8 (the reference's
+              tolerances: 2e-5 fp32, 2e-2 bf16), each case with the route
+              the library reports; its time at qwen2-7b's shape beside the
+              plain version's, its bound (at the bf16 tensor-core peak)
+              and ``scaled_dot_product_attention``'s as the yardstick.
 3. train   -- Algorithm 1 end to end at full width through
               ``FederatedServer``: n = 70 clients in c = 7 clusters,
               ``k_regular`` k in [6, 9] with p_fail = 0.1, the McMahan
@@ -90,11 +93,11 @@ Phases (each raises on failure; nothing is caught):
 5. lm      -- the port's ``Model`` (``repro_torch.models``): qwen2-7b at
               full width and depth in bf16 from random weights, a forward
               on 2 x 2048 tokens with attn_impl='flash' (-> 28 flash
-              launches, counted) and with 'ref', ``generate`` (prefill,
-              then 16 greedy decode steps), both traced with
-              ``torch.profiler``; then qwen2-7b's widths in fp32 at 4
-              layers: flash vs ref logits within 1e-4, prefill + decode vs
-              the forward within 2e-3.
+              launches, counted, all on the tensor-core route) and with
+              'ref', ``generate`` (prefill, then 16 greedy decode steps),
+              both traced with ``torch.profiler``; then qwen2-7b's widths
+              in fp32 at 4 layers: flash vs ref logits within 1e-4,
+              prefill + decode vs the forward within 2e-3.
 6. report  -- a ``{"kernels": [...]}`` JSON line (nine kernels), the
               card's name and power limit (nvidia-smi), and the final
               ``{"ok": true, "device": {...}}`` line.
@@ -1098,12 +1101,17 @@ LM_ARCH, LM_BATCH, LM_SEQ, LM_NEW = "qwen2-7b", 2, 2048, 16
 
 def phase_flash(seed: int):
     """The flash-attention kernel against its plain version
-    (``flash_attention_ref``) at qwen2-7b's prefill shape and at ragged,
-    windowed, non-causal, kv-tail and fp32 shapes (tolerances the
-    reference's own: 2e-5 fp32, 2e-2 bf16); then its time at qwen2-7b's
-    shape beside the plain version's, the bound and
-    ``scaled_dot_product_attention`` as the yardstick.  Returns the
-    report row (launch count filled in by the [lm] phase)."""
+    (``flash_attention_ref``): bf16 (the tensor-core route) at qwen2-7b's
+    prefill shape in the model's layout (strided (B, H, S, hd) views of
+    (B, S, H, hd) tensors) and contiguous, at head dims 32 / 64 / 128, S
+    under one tile and ragged, GQA groups 1 / 3 / 7 / 8, windows 1 / 16 /
+    100 / 256, non-causal, kv tails and Sq != Sk; fp32 (the CUDA-core
+    route) at head dims 32 / 64 / 128 (tolerances the reference's own:
+    2e-5 fp32, 2e-2 bf16).  Each case prints the route the library
+    reports it launched.  Then the kernel's time at qwen2-7b's shape
+    beside the plain version's, the bound and
+    ``scaled_dot_product_attention`` as the yardstick.  Returns the report
+    row (launch count filled in by the [lm] phase)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.fl.engine import set_fp32_policy
@@ -1115,70 +1123,124 @@ def phase_flash(seed: int):
     g = torch.Generator(device=dev).manual_seed(seed + 3)
     bf, f32 = torch.bfloat16, torch.float32
     tol = {f32: 2e-5, bf: 2e-2}
-    # (label, B, Hq, Hkv, S, hd, dtype, causal, window, true_seq_k)
+    route_of = {bf: "tensor_cores", f32: "cuda_cores"}
+    # (label, B, Hq, Hkv, Sq, Sk, hd, dtype, causal, window, true_seq_k,
+    #  layout); Sk None = Sq; 'bshd' passes (B, S, H, hd) tensors as their
+    # transposed views, as the model does
     cases = [
-        ("qwen2-7b prefill", LM_BATCH, 28, 4, LM_SEQ, 128, bf, True, None,
-         None),
-        ("ragged S", 1, 28, 4, 1000, 128, bf, True, None, None),
-        ("window 16", 1, 28, 4, 1000, 128, bf, True, 16, None),
-        ("window 100", 2, 8, 2, 777, 128, bf, True, 100, None),
-        ("window 256", 1, 28, 4, 2048, 128, bf, True, 256, None),
-        ("non-causal", 2, 8, 2, 333, 128, bf, False, None, None),
-        ("non-causal f32", 2, 4, 4, 200, 64, f32, False, None, None),
-        ("f32 hd 32, group 1", 2, 4, 4, 515, 32, f32, True, None, None),
-        ("f32 hd 32, group 8, window 100", 1, 8, 1, 400, 32, f32, True, 100,
-         None),
-        ("f32 hd 64, group 3", 1, 6, 2, 777, 64, f32, True, None, None),
-        ("f32 hd 128, group 7", 1, 7, 1, 130, 128, f32, True, None, None),
-        ("kv tail: 900 of 1024 keys", 1, 4, 2, 1024, 64, f32, True, None,
-         900),
-        ("kv tail, non-causal, 1 of 64 keys", 1, 2, 1, 64, 32, f32, False,
-         None, 1),
+        ("qwen2-7b prefill, model layout", LM_BATCH, 28, 4, LM_SEQ, None,
+         128, bf, True, None, None, "bshd"),
+        ("qwen2-7b prefill, contiguous", LM_BATCH, 28, 4, LM_SEQ, None, 128,
+         bf, True, None, None, "bhsd"),
+        ("ragged S", 1, 28, 4, 1000, None, 128, bf, True, None, None,
+         "bshd"),
+        ("S 1, hd 32, group 8", 2, 8, 1, 1, None, 32, bf, True, None, None,
+         "bhsd"),
+        ("S 17, hd 64, group 3", 1, 6, 2, 17, None, 64, bf, True, None,
+         None, "bhsd"),
+        ("S 257, hd 64, group 7, window 1", 2, 7, 1, 257, None, 64, bf,
+         True, 1, None, "bhsd"),
+        ("hd 32, group 8", 1, 8, 1, 1000, None, 32, bf, True, None, None,
+         "bshd"),
+        ("hd 64, group 1", 2, 4, 4, 777, None, 64, bf, True, None, None,
+         "bshd"),
+        ("window 16, group 8", 1, 8, 1, 1000, None, 128, bf, True, 16, None,
+         "bshd"),
+        ("window 100", 2, 8, 2, 777, None, 128, bf, True, 100, None,
+         "bhsd"),
+        ("window 256", 1, 28, 4, 2048, None, 128, bf, True, 256, None,
+         "bshd"),
+        ("non-causal", 2, 8, 2, 333, None, 128, bf, False, None, None,
+         "bshd"),
+        ("kv tail: 900 of 1024 keys", 1, 4, 2, 1024, None, 64, bf, True,
+         None, 900, "bhsd"),
+        ("kv tail: 0 of 1024 keys", 1, 4, 2, 1024, None, 128, bf, False,
+         None, 0, "bhsd"),
+        ("Sq 300 < Sk 517, non-causal", 1, 6, 2, 300, 517, 64, bf, False,
+         None, None, "bshd"),
+        ("Sq 517 > Sk 300, causal", 1, 4, 1, 517, 300, 128, bf, True, None,
+         None, "bhsd"),
+        ("non-causal f32", 2, 4, 4, 200, None, 64, f32, False, None, None,
+         "bhsd"),
+        ("f32 hd 32, group 1", 2, 4, 4, 515, None, 32, f32, True, None, None,
+         "bshd"),
+        ("f32 hd 32, group 8, window 100", 1, 8, 1, 400, None, 32, f32, True,
+         100, None, "bhsd"),
+        ("f32 hd 64, group 3", 1, 6, 2, 777, None, 64, f32, True, None, None,
+         "bhsd"),
+        ("f32 hd 128, group 7", 1, 7, 1, 130, None, 128, f32, True, None,
+         None, "bhsd"),
+        ("f32 kv tail: 900 of 1024 keys", 1, 4, 2, 1024, None, 64, f32,
+         True, None, 900, "bhsd"),
+        ("f32 kv tail, non-causal, 1 of 64 keys", 1, 2, 1, 64, None, 32, f32,
+         False, None, 1, "bhsd"),
     ]
+
+    def draw(B, H, S, hd, dt, layout):
+        if layout == "bshd":
+            return torch.randn(B, S, H, hd, generator=g,
+                               device=dev).to(dt).transpose(1, 2)
+        return torch.randn(B, H, S, hd, generator=g, device=dev).to(dt)
+
     main_err = None
-    for label, B, Hq, Hkv, S, hd, dt, causal, window, tsk in cases:
-        q = torch.randn(B, Hq, S, hd, generator=g, device=dev).to(dt)
-        k = torch.randn(B, Hkv, S, hd, generator=g, device=dev).to(dt)
-        v = torch.randn(B, Hkv, S, hd, generator=g, device=dev).to(dt)
+    for (label, B, Hq, Hkv, Sq, Sk, hd, dt, causal, window, tsk,
+         layout) in cases:
+        Sk = Sq if Sk is None else Sk
+        q = draw(B, Hq, Sq, hd, dt, layout)
+        k = draw(B, Hkv, Sk, hd, dt, layout)
+        v = draw(B, Hkv, Sk, hd, dt, layout)
         kw = dict(causal=causal, window=window, true_seq_k=tsk)
+        routes = dict(fa.flash_attention_cuda.routes)
         got = fa.flash_attention_cuda(q, k, v, **kw)
+        route = [r for r in routes
+                 if fa.flash_attention_cuda.routes[r] != routes[r]]
         want = ref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         e = float((got.float() - want.float()).abs().max())
-        ok = got.dtype == dt and torch.allclose(
-            got.float(), want.float(), rtol=tol[dt], atol=tol[dt])
-        print(f"[flash] {label}: ({B}, {Hq}/{Hkv}, {S}, {hd}) {dt} "
-              f"causal={causal} window={window} true_seq_k={tsk}: max|err| "
-              f"{e:.3e} (rtol = atol = {tol[dt]:.0e})")
+        ok = got.dtype == dt and route == [route_of[dt]] and \
+            got.transpose(1, 2).is_contiguous() and torch.allclose(
+                got.float(), want.float(), rtol=tol[dt], atol=tol[dt])
+        print(f"[flash] {label}: ({B}, {Hq}/{Hkv}, {Sq}/{Sk}, {hd}) {dt} "
+              f"{layout} causal={causal} window={window} true_seq_k={tsk}: "
+              f"route {route}, max|err| {e:.3e} (rtol = atol = "
+              f"{tol[dt]:.0e})")
         if not ok:
             raise AssertionError(f"flash_attention {label} disagrees with "
-                                 "its plain version")
+                                 "its plain version or took another route")
         if main_err is None:
             main_err = e
+            print(f"[flash]   qwen2-7b prefill max|err| {e:.3e} (the "
+                  "CUDA-core kernel it replaces: 9.8e-4 to 2.0e-3)")
         del q, k, v, got, want
 
     B, Hq, Hkv, S, hd = LM_BATCH, 28, 4, LM_SEQ, 128
-    q = torch.randn(B, Hq, S, hd, generator=g, device=dev).to(bf)
-    k = torch.randn(B, Hkv, S, hd, generator=g, device=dev).to(bf)
-    v = torch.randn(B, Hkv, S, hd, generator=g, device=dev).to(bf)
+    q = draw(B, Hq, S, hd, bf, "bshd")          # the model's layout
+    k = draw(B, Hkv, S, hd, bf, "bshd")
+    v = draw(B, Hkv, S, hd, bf, "bshd")
     ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
     plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True),
                        iters=5)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), iters=10)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    lib_c_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=True, enable_gqa=True), iters=10)
     pairs = S * (S + 1) // 2                 # visible (query, key) pairs
     flops = 4 * B * Hq * hd * pairs          # QK and PV, 2 flops a MAC
     nbytes = 2 * (2 * B * Hq * S * hd + 2 * B * Hkv * S * hd)
     b_ms, b_by = bound(nbytes, flops, BF16_TC_FLOPS_PER_S)
-    f32_ms, _ = bound(nbytes, flops)
+    issued = 3 * flops // 2                  # PV twice: p_hi and p_lo
     print(f"[flash] flash_attention @ qwen2-7b prefill ({B}, {Hq}/{Hkv}, "
-          f"{S}, {hd}) bf16 causal: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-          f"scaled_dot_product_attention {lib_ms:.4f} ms; bound {b_ms:.4f} "
-          f"ms by {b_by} at the bf16 tensor-core peak: {b_ms / ms:.1%} of "
-          f"it; {f32_ms:.4f} ms at the fp32 CUDA-core peak the kernel "
-          f"computes on: {f32_ms / ms:.1%}); {flops / 1e9:.1f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB, {flops / ms / 1e9:.1f} TFLOP/s")
-    del q, k, v
+          f"{S}, {hd}) bf16 causal, model layout: {ms:.4f} ms (plain "
+          f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms "
+          f"on the same views, {lib_c_ms:.4f} ms on contiguous copies; "
+          f"kernel / library {ms / lib_ms:.2f}x; bound {b_ms:.4f} ms by "
+          f"{b_by} at the bf16 tensor-core peak: {b_ms / ms:.1%} of it); "
+          f"{flops / 1e9:.1f} GFLOP of the function ({flops / ms / 1e9:.1f} "
+          f"TFLOP/s), {issued / 1e9:.1f} GFLOP issued to the tensor cores "
+          f"with the split PV ({issued / ms / 1e9:.1f} TFLOP/s), "
+          f"{nbytes / 1e6:.1f} MB")
+    del q, k, v, qc, kc, vc
     torch.cuda.empty_cache()
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1244,14 +1306,19 @@ def phase_lm(seed: int, counters) -> int:
     timed(lambda: model.forward(params, tokens))          # warm-up
     for f in counters.values():
         f.launches = 0
+    fa.flash_attention_cuda.routes = dict.fromkeys(fa.ROUTES, 0)
     torch.cuda.reset_peak_memory_stats()
     (logits, _), fwd_ms = timed(lambda: model.forward(params, tokens))
     counts = {name: f.launches for name, f in counters.items()}
+    routes = dict(fa.flash_attention_cuda.routes)
     peak = torch.cuda.max_memory_allocated()
     launches = counts["flash_attention"]
     if launches != full.n_layers or sum(counts.values()) != launches:
         raise AssertionError(f"the flash forward launched {counts}, not "
                              f"{full.n_layers} flash_attention")
+    if routes != {"cuda_cores": 0, "tensor_cores": full.n_layers}:
+        raise AssertionError(f"the bf16 flash forward's launches went to "
+                             f"{routes}, not all to the tensor-core kernel")
     if logits.shape != (B, S, full.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError("the flash forward's logits are not finite")
@@ -1262,7 +1329,8 @@ def phase_lm(seed: int, counters) -> int:
     top1 = float((logits.argmax(-1) == logits_r.argmax(-1)).float().mean())
     print(f"[lm] forward {B}x{S} tokens, attn_impl='flash': {fwd_ms:.1f} ms "
           f"(host clock, second call), {launches} flash_attention launches "
-          f"(one a layer), peak {peak / 1e9:.2f} GB; attn_impl='ref': "
+          f"(one a layer; routes {routes}), peak {peak / 1e9:.2f} GB; "
+          f"attn_impl='ref': "
           f"{ref_ms:.1f} ms; bf16 flash vs ref: max|dlogits| {d:.3e}, "
           f"top-1 agreement {top1:.4%} (not gated at bf16)")
     del logits, logits_r
@@ -1307,12 +1375,14 @@ def phase_lm(seed: int, counters) -> int:
     print(f"[lm] tight gates: {small.name} widths, {small.n_layers} layers, "
           f"fp32: {model.param_count(params):,} params")
     fa.flash_attention_cuda.launches = 0
+    fa.flash_attention_cuda.routes = dict.fromkeys(fa.ROUTES, 0)
     logits, _ = model.forward(params, tokens)
     logits_r, _ = model_ref.forward(params, tokens)
     d = float((logits - logits_r).abs().max())
     ok = torch.allclose(logits, logits_r, rtol=1e-4, atol=1e-4)
     print(f"[lm]   flash vs ref forward: max|dlogits| {d:.3e} (rtol = atol "
-          f"= 1e-4), {fa.flash_attention_cuda.launches} flash launches")
+          f"= 1e-4), {fa.flash_attention_cuda.launches} flash launches "
+          f"(routes {fa.flash_attention_cuda.routes})")
     if not ok:
         raise AssertionError("fp32 flash forward differs from ref")
     del logits_r

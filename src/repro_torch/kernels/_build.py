@@ -3,15 +3,18 @@
 Every ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface, ``build/repro_torch_kernels/
 lib<name>-<hash>.so`` under the repository root (``build/`` is
-git-ignored), at first use; the content hash of the source names the
-library, so an edited source never loads a stale build.  ``load`` opens
-it with ``ctypes``.  Nothing here runs at import time: a CPU-only process
+git-ignored), at first use; the library is named by a hash of
+everything that builds it -- the source, every ``csrc/*.cuh`` it
+includes (transitively) and the ``nvcc`` flags -- so an edited source,
+header or flag never loads a stale build.  ``load`` opens it with
+``ctypes``.  Nothing here runs at import time: a CPU-only process
 never looks for ``nvcc``.
 
 The C ABI and the exact ``nvcc`` line are documented at the top of each
-source (``csrc/mixing.cu``).  ``build_all`` starts one ``nvcc`` per
-source, all at once, and waits for them; ``chip_smoke.py`` calls it
-before anything else so the build counts as set-up.
+source (``csrc/mixing.cu``); every source builds with ``NVCC_FLAGS``.
+``build_all`` starts one ``nvcc`` per source, all at once, and waits
+for them; ``chip_smoke.py`` calls it before anything else so the build
+counts as set-up.
 """
 
 from __future__ import annotations
@@ -19,20 +22,22 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "library_path",
-           "build_all", "load", "check"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "includes",
+           "library_path", "build_all", "load", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -51,10 +56,29 @@ def nvcc_path() -> str:
     return found
 
 
+def includes(path: Path) -> List[Path]:
+    """The ``csrc/*.cuh`` headers ``path`` includes with ``#include
+    "..."``, transitively, in first-seen order."""
+    seen: List[Path] = []
+    todo = [path]
+    while todo:
+        for rel in _INCLUDE.findall(todo.pop().read_text()):
+            dep = CSRC / rel
+            if dep.suffix == ".cuh" and dep.is_file() and dep not in seen:
+                seen.append(dep)
+                todo.append(dep)
+    return seen
+
+
 def library_path(name: str) -> Path:
+    """``build/repro_torch_kernels/lib<name>-<hash>.so``: the hash covers
+    the source, the headers it includes and its flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1(src.read_bytes())
+    for dep in includes(src):
+        h.update(dep.name.encode() + b"\0" + dep.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

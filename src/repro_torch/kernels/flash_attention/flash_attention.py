@@ -2,15 +2,26 @@
 ``repro/kernels/flash_attention/flash_attention.py::flash_attention_pallas``.
 
 ``csrc/flash_attention.cu`` computes what ``_flash_kernel`` computes, on
-the (B, H, S, hd) layout: fp32 online softmax over the key tiles a block
-of 64 query rows can see (fully masked tiles beyond the causal diagonal
-or before the window are never visited), GQA by indexing (kv head = q
-head // group), the causal, sliding-window and kv-tail masks, rows that
-see no key set to 0.  Both products run as fp32 FMAs on the CUDA cores
-with ``p`` kept in fp32, as the reference keeps it; at qwen2-7b's
-prefill shape the work is bound by operations (see the source's header).
-There is no padding: the kernel masks a ragged S itself, and its 64 x 64
-tiles are its own choice, not the TPU's block sizes.
+(B, H, S, hd) views: fp32 online softmax over the key tiles a block of
+query rows can see (fully masked tiles beyond the causal diagonal or
+before the window are never visited), GQA by indexing (kv head = q head
+// group), the causal, sliding-window and kv-tail masks, rows that see no
+key set to 0.  The dtype picks the kernel (``ROUTES``):
+
+* bfloat16 -> ``"tensor_cores"``: Q K^T and P V on ``wgmma`` from a TMA
+  ring of K/V tiles, ``p`` split into bf16 hi + lo terms so that it keeps
+  ~16 mantissa bits through the PV product;
+* float32 -> ``"cuda_cores"``: both products as fp32 FMAs with ``p`` in
+  fp32, as the reference's fp32 tolerance needs.
+
+Operands are taken by strides: any view whose last axis is contiguous and
+whose base and other strides are 16-byte aligned (what TMA needs), such
+as the model's (B, S, H, hd) projections transposed to (B, H, S, hd).
+The output is written into a (B, S, H, hd) buffer and returned as its
+(B, H, S, hd) transposed view, so the model's layout needs no copy on
+either side.  There is no padding: the kernels mask a ragged S
+themselves, and their tiles are their own choice, not the TPU's block
+sizes.
 """
 
 from __future__ import annotations
@@ -22,10 +33,12 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["flash_attention_cuda", "check_shapes", "HEAD_DIMS"]
+__all__ = ["flash_attention_cuda", "check_shapes", "HEAD_DIMS", "ROUTES"]
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel the library reports it launched, by its route code
+ROUTES = ("cuda_cores", "tensor_cores")
 _LIB = None
 
 
@@ -35,14 +48,18 @@ def _lib() -> ctypes.CDLL:
         handle = _build.load("flash_attention")
         P, I = ctypes.c_void_p, ctypes.c_int
         handle.repro_flash_attention.argtypes = [
-            P, P, P, P, I, I, I, I, I, I, I, I, I, ctypes.c_float, I, I, P]
+            P, P, P, P, ctypes.POINTER(ctypes.c_longlong), I, I, I, I, I, I,
+            I, I, I, ctypes.c_float, I, I, P, ctypes.POINTER(I)]
         handle.repro_flash_attention.restype = I
         _LIB = handle
     return _LIB
 
 
 def check_shapes(q, k, v, window, true_seq_k) -> int:
-    """Shape checks on any device; returns the masked key length."""
+    """Shape, stride and alignment checks on any device; returns the
+    masked key length.  Each operand's last axis must be contiguous, its
+    base 16-byte aligned and its other strides multiples of 16 bytes
+    (TMA's rules; the fp32 kernel's float4 rows need the same)."""
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"q must be (B, Hq, Sq, hd) and k, v one (B, Hkv, "
                          f"Sk, hd); got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -54,6 +71,20 @@ def check_shapes(q, k, v, window, true_seq_k) -> int:
                          f"{tuple(q.shape)} (batch, head dim, Hq % Hkv)")
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.numel() == 0:
+            continue
+        if t.stride(3) != 1 and t.shape[3] > 1:
+            raise ValueError(f"{name}'s last axis must be contiguous, got "
+                             f"strides {t.stride()}")
+        nbytes = t.element_size()
+        if t.data_ptr() % 16 or any(
+                t.stride(d) * nbytes % 16 for d in range(3)
+                if t.shape[d] > 1):
+            raise ValueError(f"{name} must have a 16-byte aligned base and "
+                             f"(batch, head, row) strides of multiples of "
+                             f"16 bytes; got strides {t.stride()} of "
+                             f"{nbytes}-byte elements")
     Sk = k.shape[2]
     seq_k = Sk if true_seq_k is None else int(true_seq_k)
     if not 0 <= seq_k <= Sk:
@@ -61,18 +92,27 @@ def check_shapes(q, k, v, window, true_seq_k) -> int:
     return seq_k
 
 
+def _strides(t: torch.Tensor):
+    """(batch, head, row) strides in elements; a size-1 axis (never
+    stepped) gets hd, which keeps the kernels' alignment rules."""
+    return [t.stride(d) if t.shape[d] > 1 else t.shape[3] for d in range(3)]
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: Optional[int] = None,
                          true_seq_k: Optional[int] = None) -> torch.Tensor:
-    """q (B, Hq, Sq, hd), k/v (B, Hkv, Sk, hd), fp32 or bf16, contiguous
-    -> (B, Hq, Sq, hd) in q's dtype.  Keys at or past ``true_seq_k`` are
-    masked; rows and columns are absolute positions.
+    """q (B, Hq, Sq, hd), k/v (B, Hkv, Sk, hd), fp32 or bf16 strided views
+    (``check_shapes``) -> (B, Hq, Sq, hd) in q's dtype, the transposed
+    view of a (B, Sq, Hq, hd)-contiguous buffer.  Keys at or past
+    ``true_seq_k`` are masked; rows and columns are absolute positions.
 
-    Launches the kernel on the current stream or raises: on a CPU tensor
-    (``ops.flash_attention`` sends those to the plain version,
-    ``ref.flash_attention_ref``), a head dim other than 32 / 64 / 128,
-    another dtype, a non-contiguous or misaligned operand.
-    ``flash_attention_cuda.launches`` counts the launches."""
+    Launches the kernel of q's dtype (``ROUTES``) on the current stream or
+    raises: on a CPU tensor (``ops.flash_attention`` sends those to the
+    plain version, ``ref.flash_attention_ref``), a head dim other than
+    32 / 64 / 128, another dtype, a misaligned operand.
+    ``flash_attention_cuda.launches`` counts the launches and
+    ``flash_attention_cuda.routes`` counts them by the kernel the library
+    reports it launched."""
     seq_k = check_shapes(q, k, v, window, true_seq_k)
     if not q.is_cuda:
         raise ValueError("flash_attention_cuda takes CUDA tensors; "
@@ -87,26 +127,29 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if code is None:
         raise TypeError(f"the flash kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("k", k), ("v", v)):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype} on {t.device}; q is "
                              f"{q.dtype} on {q.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte "
-                             "aligned (a fresh tensor is)")
-    o = torch.empty_like(q)
+    o = torch.empty(B, Sq, Hq, hd, dtype=q.dtype,
+                    device=q.device).transpose(1, 2)
     if o.numel() == 0:
         return o
     lib = _lib()
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v, o) for s in _strides(t)))
+    route = ctypes.c_int(-1)
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     rc = lib.repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq, Hkv,
-        Sq, Sk, hd, seq_k, int(bool(causal)),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides, B,
+        Hq, Hkv, Sq, Sk, hd, seq_k, int(bool(causal)),
         -1 if window is None else int(window), hd ** -0.5, code,
-        q.device.index, stream)
+        q.device.index, stream, ctypes.byref(route))
     _build.check(lib, rc, "flash_attention")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.routes[ROUTES[route.value]] += 1
     return o
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.routes = dict.fromkeys(ROUTES, 0)

@@ -2,6 +2,10 @@
 ``repro.kernels.flash_attention.ops``): the (B, S, H, hd) layout around
 the kernel's (B, H, S, hd) one.
 
+The kernel takes the model's tensors as strided (B, H, S, hd) views and
+writes its output into a (B, S, H, hd) buffer, so nothing is copied on
+either side of it and the result is (B, S, H, hd)-contiguous.
+
 A CPU tensor runs the kernel's plain version
 (``ref.flash_attention_ref``), a CUDA tensor the kernel
 (``flash_attention.flash_attention_cuda``) or an error; there is no
@@ -29,16 +33,14 @@ __all__ = ["flash_attention"]
 class _FlashForward(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        def to_bhsd(x):
-            return x.transpose(1, 2).contiguous()
-
-        q, k, v = to_bhsd(q), to_bhsd(k), to_bhsd(v)
+        q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         if q.is_cuda:
             out = flash_attention_cuda(q, k, v, causal=causal, window=window)
         else:
             check_shapes(q, k, v, window, None)
             out = flash_attention_ref(q, k, v, causal=causal, window=window)
-        return out.transpose(1, 2)
+        # the kernel's output is already (B, S, H, hd) in memory: no copy
+        return out.transpose(1, 2).contiguous()
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -50,5 +52,5 @@ class _FlashForward(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
-    """q (B,S,Hq,hd), k/v (B,S,Hkv,hd) -> (B,S,Hq,hd)."""
+    """q (B,S,Hq,hd), k/v (B,S,Hkv,hd) -> (B,S,Hq,hd), contiguous."""
     return _FlashForward.apply(q, k, v, causal, window)

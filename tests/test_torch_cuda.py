@@ -19,8 +19,9 @@ must be bitwise its plain version's, the other outputs ``rtol=atol=1e-5``
 card bitwise the containers and scales it gives on the CPU; and a small
 quantized run on every quant backend must launch its kernel, agree with
 the quantized 'einsum' oracle and replay bitwise when scanned.  The
-flash-attention kernel is held against its plain version at fp32 and
-bf16, GQA, windows, non-causal and masked kv tails (the reference's
+flash-attention kernel is held against its plain version at fp32 (the
+CUDA-core route) and bf16 (the tensor-core route), GQA, windows,
+non-causal, masked kv tails, Sq != Sk and strided views (the reference's
 tolerances, 2e-5 / 2e-2), and a reduced qwen2-7b on the card must launch
 it once a layer and agree with the 'ref' attention path.
 """
@@ -387,34 +388,72 @@ def test_server_runs_every_quant_backend_on_the_card(cuda):
             torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("B,Hq,Hkv,S,hd,dtype,causal,window,tail", [
-    (1, 4, 4, 64, 32, torch.float32, True, None, None),
-    (2, 6, 2, 130, 64, torch.float32, True, None, None),
-    (1, 8, 1, 200, 128, torch.float32, True, 16, None),
-    (2, 28, 4, 257, 128, torch.bfloat16, True, None, None),
-    (1, 7, 1, 333, 128, torch.bfloat16, True, 100, None),
-    (2, 4, 2, 100, 64, torch.bfloat16, False, None, None),
-    (1, 4, 2, 128, 32, torch.float32, True, None, 100),
-    (1, 2, 1, 64, 64, torch.float32, False, None, 0)])
-def test_flash_kernel_matches_its_plain_version(cuda, B, Hq, Hkv, S, hd,
-                                                dtype, causal, window, tail):
+BFLOAT, FLOAT = torch.bfloat16, torch.float32
+# (B, Hq, Hkv, Sq, Sk, hd, dtype, causal, window, tail, layout); Sk None
+# = Sq; layout 'bshd' passes (B, S, H, hd)-contiguous tensors as their
+# transposed (B, H, S, hd) views, as the model does
+FLASH_CASES = [
+    (1, 4, 4, 64, None, 32, FLOAT, True, None, None, "bhsd"),
+    (2, 6, 2, 130, None, 64, FLOAT, True, None, None, "bhsd"),
+    (1, 8, 1, 200, None, 128, FLOAT, True, 16, None, "bhsd"),
+    (2, 28, 4, 257, None, 128, BFLOAT, True, None, None, "bhsd"),
+    (1, 7, 1, 333, None, 128, BFLOAT, True, 100, None, "bhsd"),
+    (2, 4, 2, 100, None, 64, BFLOAT, False, None, None, "bhsd"),
+    (1, 4, 2, 128, None, 32, FLOAT, True, None, 100, "bhsd"),
+    (1, 2, 1, 64, None, 64, FLOAT, False, None, 0, "bhsd"),
+    # the tensor-core kernel: hd 32 / 64, S under one tile and ragged,
+    # GQA groups 1 / 3 / 7 / 8, windows 1 / 16 / 100, kv tails, non-causal,
+    # Sq != Sk, strided views
+    (2, 4, 4, 1, None, 32, BFLOAT, True, None, None, "bhsd"),
+    (1, 6, 2, 17, None, 64, BFLOAT, True, None, None, "bhsd"),
+    (1, 8, 1, 1000, None, 32, BFLOAT, True, None, None, "bshd"),
+    (2, 7, 1, 257, None, 64, BFLOAT, True, 1, None, "bhsd"),
+    (1, 8, 1, 1000, None, 128, BFLOAT, True, 16, None, "bshd"),
+    (1, 3, 1, 1000, None, 64, BFLOAT, True, 100, None, "bshd"),
+    (1, 4, 2, 1024, None, 64, BFLOAT, True, None, 900, "bhsd"),
+    (1, 4, 2, 1024, None, 128, BFLOAT, False, None, 0, "bhsd"),
+    (2, 8, 2, 333, None, 128, BFLOAT, False, None, None, "bshd"),
+    (1, 6, 2, 300, 517, 64, BFLOAT, False, None, None, "bshd"),
+    (1, 4, 1, 517, 300, 128, BFLOAT, True, None, None, "bhsd"),
+    (1, 4, 4, 200, 130, 32, FLOAT, False, None, None, "bshd"),
+]
+
+
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,Sq,Sk,hd,dtype,causal,window,tail,layout", FLASH_CASES)
+def test_flash_kernel_matches_its_plain_version(cuda, B, Hq, Hkv, Sq, Sk, hd,
+                                                dtype, causal, window, tail,
+                                                layout):
     """The reference's tolerances (tests/test_kernels.py): 2e-5 in fp32,
-    2e-2 in bf16."""
+    2e-2 in bf16.  bf16 launches the tensor-core kernel, fp32 the CUDA-core
+    one; the output is the transposed view of a (B, Sq, Hq, hd) buffer."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ref
 
-    g = torch.Generator(device=cuda).manual_seed(S * hd + Hq)
-    q = torch.randn(B, Hq, S, hd, generator=g, device=cuda).to(dtype)
-    k = torch.randn(B, Hkv, S, hd, generator=g, device=cuda).to(dtype)
-    v = torch.randn(B, Hkv, S, hd, generator=g, device=cuda).to(dtype)
+    Sk = Sq if Sk is None else Sk
+    g = torch.Generator(device=cuda).manual_seed(Sq * hd + Hq)
+
+    def draw(H, S):
+        if layout == "bshd":
+            return torch.randn(B, S, H, hd, generator=g,
+                               device=cuda).to(dtype).transpose(1, 2)
+        return torch.randn(B, H, S, hd, generator=g, device=cuda).to(dtype)
+
+    q, k, v = draw(Hq, Sq), draw(Hkv, Sk), draw(Hkv, Sk)
     kw = dict(causal=causal, window=window, true_seq_k=tail)
+    route = "tensor_cores" if dtype == BFLOAT else "cuda_cores"
     before = fa.flash_attention_cuda.launches
+    routes = dict(fa.flash_attention_cuda.routes)
     got = fa.flash_attention_cuda(q, k, v, **kw)
     assert fa.flash_attention_cuda.launches == before + 1
+    assert fa.flash_attention_cuda.routes[route] == routes[route] + 1
     want = ref.flash_attention_ref(q, k, v, **kw)
-    tol = 2e-5 if dtype == torch.float32 else 2e-2
-    assert got.dtype == dtype
+    tol = 2e-5 if dtype == FLOAT else 2e-2
+    assert got.dtype == dtype and got.shape == (B, Hq, Sq, hd)
+    assert got.transpose(1, 2).is_contiguous()
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if tail == 0:
+        assert not got.any()
     torch.cuda.synchronize()
 
 
@@ -433,6 +472,9 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):                       # not contiguous
         fa.flash_attention_cuda(q.transpose(2, 3).contiguous()
                                 .transpose(2, 3), q, q)
+    with pytest.raises(ValueError):                       # base misaligned
+        fa.flash_attention_cuda(
+            torch.randn(513, device=cuda)[1:].view(1, 2, 8, 32), q, q)
 
 
 def test_model_flash_path_runs_the_kernel_on_the_card(cuda):
@@ -459,3 +501,29 @@ def test_model_flash_path_runs_the_kernel_on_the_card(cuda):
     torch.testing.assert_close(pre, logits[:, 94], rtol=2e-3, atol=2e-3)
     dec, _ = model.decode(params, cache, toks[:, 95], 95)
     torch.testing.assert_close(dec, logits[:, 95], rtol=2e-3, atol=2e-3)
+
+
+def test_model_bf16_flash_path_takes_the_tensor_core_route(cuda):
+    """A reduced qwen2-7b in bf16: every one of its flash launches goes to
+    the tensor-core kernel, and its logits are finite and close to the
+    'ref' attention path's (the two differ by the rounding of the softmax
+    weights, which 'ref' casts to bf16 before the PV product)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config("qwen2-7b", reduced=True),
+                              attn_impl="flash", dtype="bfloat16")
+    model, model_ref = Model(cfg), Model(dataclasses.replace(
+        cfg, attn_impl="ref"))
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 300), device=cuda)
+    fa.flash_attention_cuda.routes = dict.fromkeys(fa.ROUTES, 0)
+    logits, _ = model.forward(params, toks)
+    assert fa.flash_attention_cuda.routes == {"cuda_cores": 0,
+                                              "tensor_cores": cfg.n_layers}
+    want, _ = model_ref.forward(params, toks)
+    assert bool(torch.isfinite(logits).all())
+    torch.testing.assert_close(logits.float(), want.float(), rtol=0.1,
+                               atol=0.1)

@@ -160,3 +160,73 @@ def test_plain_versions_differ_at_bf16_only_by_the_weights_rounding():
         bhsd = [t.transpose(1, 2).contiguous() for t in ts]
         got = ref.flash_attention_ref(*bhsd).transpose(1, 2)
         _close(got, ref.attention_ref(*ts), dtype)
+
+
+def _strided(t, pad):
+    """The same values as ``t`` (B, S, H, hd) in a view whose last axis is
+    contiguous but whose other strides are not t's: each hd-row sits in a
+    buffer ``pad`` elements wider."""
+    B, S, H, hd = t.shape
+    buf = torch.zeros(B, S, H, hd + pad, dtype=t.dtype)
+    buf[..., :hd] = t
+    return buf[..., :hd]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_strided_views_give_what_contiguous_inputs_give(dtype):
+    """The kernels take (B, H, S, hd) views by their strides: the model's
+    (B, S, H, hd) tensors transposed, or rows inside a wider buffer.  The
+    plain version and the entry point give on such views exactly what they
+    give on contiguous copies."""
+    _, ts = _qkv(14, 2, 70, 4, 2, 32, dtype)
+    views = [_strided(t, 8) for t in ts]           # 80 elements a row
+    assert not views[0].is_contiguous()
+    kw = dict(causal=True, window=24)
+    got = ops.flash_attention(*views, **kw)
+    want = ops.flash_attention(*ts, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    bhsd = [t.transpose(1, 2) for t in views]     # strided (B, H, S, hd)
+    plain = ref.flash_attention_ref(*bhsd, **kw)
+    copies = [t.contiguous() for t in bhsd]
+    torch.testing.assert_close(plain, ref.flash_attention_ref(*copies, **kw),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(got, plain.transpose(1, 2), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_entry_point_returns_the_model_layout_contiguous(dtype):
+    """``ops.flash_attention`` returns a (B, S, H, hd)-contiguous tensor,
+    so the model's reshape to (B, S, H * hd) copies nothing."""
+    _, ts = _qkv(15, 2, 40, 4, 2, 64, dtype)
+    out = ops.flash_attention(*ts)
+    assert out.shape == ts[0].shape and out.is_contiguous()
+
+
+def _misaligned(kind):
+    q = torch.zeros(1, 4, 8, 32)                  # (B, H, S, hd)
+    if kind == "last axis strided":
+        return q.transpose(2, 3).contiguous().transpose(2, 3)
+    if kind == "base":                            # 4 bytes past 16
+        return torch.zeros(1 + 4 * 8 * 32).narrow(0, 1, 4 * 8 * 32) \
+            .view(1, 4, 8, 32)
+    if kind == "row stride":                      # 33 floats = 132 bytes
+        return torch.zeros(1, 4, 8, 33)[..., :32]
+    raise AssertionError(kind)
+
+
+@pytest.mark.parametrize("kind", ["last axis strided", "base",
+                                  "row stride"])
+def test_misaligned_views_raise_on_any_device(kind):
+    """The stride and alignment rules (TMA's) are checked in
+    ``check_shapes``, so a CPU tensor that the kernel could not take
+    raises as a CUDA one would."""
+    q = _misaligned(kind)
+    k = v = torch.zeros(1, 2, 8, 32)
+    with pytest.raises(ValueError, match="contiguous|aligned"):
+        fa.check_shapes(q, k, v, None, None)
+    with pytest.raises(ValueError, match="contiguous|aligned"):
+        fa.check_shapes(k[:, :1].expand(1, 4, 8, 32).contiguous(), q[:, :2],
+                        v, None, None)
+    with pytest.raises(ValueError, match="contiguous|aligned"):
+        ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2))
