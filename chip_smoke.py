@@ -14,20 +14,28 @@ Phases (each raises on failure; nothing is caught):
               main path's shapes (70 clients x 1,663,488 packed fp32
               columns for aggregate and mix_aggregate; 70 x each CNN
               leaf's size for mix, which the 'pallas' path launches once
-              per leaf) and at ragged bf16 / fp32 shapes.  Print the
-              error against its tolerance, the kernel's time (for mix:
-              the eight per-leaf launches of one round together), the
-              plain version's time, its bound (bytes or fp32 operations
-              at the H100's published peaks) and the time of
-              ``torch.matmul`` computing the same function.
+              per leaf) and at ragged bf16 / fp32 shapes, among them the
+              staged route's n limit (128) and one past it.  Print the
+              error against its tolerance and, for mix_aggregate and
+              mix, the route each call took ('staged': the TMA slab
+              ring; 'generic': the first design), the kernel's time (for
+              mix: the eight per-leaf launches of one round together)
+              with its routes, the plain version's time, its bound
+              (bytes or fp32 operations at the H100's published peaks)
+              and the time of ``torch.matmul`` computing the same
+              function.
    sparse  -- the same for the ELL kernels (sparse_mix,
-              sparse_mix_aggregate) at four shapes: the ELL of a
+              sparse_mix_aggregate) at six shapes: the ELL of a
               ``k_regular`` plan of the paper's configuration (70 x
               1,663,488 f32, d_max <= 10), an n = 100,000 ``ring`` (12,500
               clusters of 8, d_max = 2, p = 2,048 f32), a ragged ``hub``
-              (37 x 1,000, f32 and bf16, d_max = 37) and FedAvg's identity
-              (d_max = 1).  Times beside ``torch.sparse.mm`` (CSR x dense)
-              as the library yardstick.
+              (37 x 1,000, f32 and bf16, d_max = 37), FedAvg's identity
+              (d_max = 1), and ``k_regular`` plans at the staged route's
+              n limit (128, f32 and bf16) and one past it (129).  The
+              mixed outputs must equal their plain versions' bitwise on
+              both routes, agg within 1e-5; each case prints its route.
+              Times, with the route, beside ``torch.sparse.mm`` (CSR x
+              dense) as the library yardstick.
    quant   -- the same for the dequant kernels (aggregate_dequant,
               mix_aggregate_dequant, sparse_mix_aggregate_dequant) on
               payloads the port's quantizer makes on the card (block 512),
@@ -63,11 +71,15 @@ Phases (each raises on failure; nothing is caught):
               the aggregate kernel) and 'sparse' with record_mixed (->
               sparse_mix_aggregate), each scanned and sequential, against
               the port's plain 'einsum' backend, under the fp32 policy
-              the port's engine sets (no TF32, deterministic cuDNN).
-              Then eq. 3 alone (``ops.sparse_mix``, -> sparse_mix) on the
-              first round's client deltas with the plan's ELL, against
-              the dense oracle.  Every kernel's launch count is reset
-              before its path and read after it.  Last, one more sequential 'fused' run
+              the port's engine sets (no TF32, deterministic cuDNN);
+              scanned must equal sequential bitwise.  Then eq. 3 alone
+              (``ops.sparse_mix``, -> sparse_mix) on the first round's
+              client deltas with the plan's ELL, against the dense
+              oracle.  Every kernel's launch count (and route count) is
+              reset before its path and read after it: every
+              mix_aggregate, sparse_mix_aggregate and sparse_mix launch
+              there must take the staged route, and so must every mix
+              launch but the 10-value leaf's.  Last, one more sequential 'fused' run
               without evaluation is traced with ``torch.profiler``
               (device activity only): the device events by time, one per
               correlation id, and the device's busy share of the traced
@@ -87,9 +99,9 @@ Phases (each raises on failure; nothing is caught):
 4. scale   -- an n = 100,000 ``ring`` plan built sparse (12,500
               clusters of 8), one round of the logreg model (7,850
               params, T = 1, batch 8 drawn from the seed) on 'sparse' and
-              on 'sparse' with record_mixed: d2d == n, the two agree, and
-              the peak device memory stays far below one (n, n) f32
-              array (40 GB).
+              on 'sparse' with record_mixed: d2d == n, the two agree, the
+              ELL kernel takes the generic route, and the peak device
+              memory stays far below one (n, n) f32 array (40 GB).
 5. lm      -- the port's ``Model`` (``repro_torch.models``): qwen2-7b at
               full width and depth in bf16 from random weights, a forward
               on 2 x 2048 tokens with attn_impl='flash' (-> 28 flash
@@ -98,9 +110,10 @@ Phases (each raises on failure; nothing is caught):
               both traced with ``torch.profiler``; then qwen2-7b's widths
               in fp32 at 4 layers: flash vs ref logits within 1e-4,
               prefill + decode vs the forward within 2e-3.
-6. report  -- a ``{"kernels": [...]}`` JSON line (nine kernels), the
-              card's name and power limit (nvidia-smi), and the final
-              ``{"ok": true, "device": {...}}`` line.
+6. report  -- a ``{"kernels": [...]}`` JSON line (nine kernels; the
+              four routed ones with the ``routes`` of their main-path
+              launches), the card's name and power limit (nvidia-smi),
+              and the final ``{"ok": true, "device": {...}}`` line.
 
 It imports only ``torch``, numpy and ``repro_torch`` (never JAX), and
 exits non-zero without a result when no CUDA card is present or when run
@@ -148,6 +161,18 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def routed(fn, *args):
+    """``fn(*args)`` through a wrapper that counts its launches by route
+    (``fn.routes``), and the route that one call's launch took."""
+    before = dict(fn.routes)
+    out = fn(*args)
+    moved = [r for r in fn.routes if fn.routes[r] != before[r]]
+    if len(moved) != 1:
+        raise AssertionError(f"{fn.__name__}: routes {before} -> "
+                             f"{fn.routes}")
+    return out, moved[0]
 
 
 def bound(nbytes: int, flops: int, flops_per_s: float = FP32_FLOPS_PER_S):
@@ -205,29 +230,35 @@ def phase_kernels(n: int, p: int):
     def err(a, b):
         return float((a.float() - b.float()).abs().max())
 
-    def check(name, got, want, t):
+    def check(name, got, want, t, route=None):
         ok = torch.allclose(got.float(), want.float(), **t)
         e = err(got, want)
         print(f"[kernels]   {name}: max|err| {e:.3e} "
-              f"(rtol {t['rtol']:.1e}, atol {t['atol']:.1e})")
+              f"(rtol {t['rtol']:.1e}, atol {t['atol']:.1e})"
+              + (f", route {route}" if route else ""))
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version")
         return e
 
+    # the staged route of mix_aggregate / mix takes n <= 128 (csrc/mixing.cu):
+    # a case at the limit and one past it, both with a ragged last tile
     shapes = [(n, p, torch.float32), (37, 100_003, torch.bfloat16),
-              (13, 1001, torch.float32), (9, 4096, torch.bfloat16)]
+              (13, 1001, torch.float32), (9, 4096, torch.bfloat16),
+              (128, 100_004, torch.float32), (129, 100_004, torch.float32),
+              (128, 50_008, torch.bfloat16), (129, 50_008, torch.bfloat16)]
     errs = {"aggregate": 0.0, "mix_aggregate": 0.0, "mix": 0.0}
     for n_, p_, dtype in shapes:
         print(f"[kernels] shape n={n_} p={p_} {dtype}")
         A, w, X = inputs(n_, p_, dtype)
         e = check("aggregate", fused.aggregate_cuda(w, X),
                   ref.aggregate_ref(w, X), agg_tol)
-        mixed, agg = fused.mix_aggregate_cuda(A, w, X)
+        (mixed, agg), route = routed(fused.mix_aggregate_cuda, A, w, X)
         mixed_r, agg_r = ref.mix_aggregate_ref(A, w, X)
-        e2 = max(check("mix_aggregate/mixed", mixed, mixed_r, tol[dtype]),
-                 check("mix_aggregate/agg", agg, agg_r, agg_tol))
-        e3 = check("mix", mixing.mix_cuda(A, X), ref.mix_ref(A, X),
-                   tol[dtype])
+        e2 = max(check("mix_aggregate/mixed", mixed, mixed_r, tol[dtype],
+                       route),
+                 check("mix_aggregate/agg", agg, agg_r, agg_tol, route))
+        mixed, route = routed(mixing.mix_cuda, A, X)
+        check("mix", mixed, ref.mix_ref(A, X), tol[dtype], route)
         if (n_, p_) == (n, p):       # report the main path's shape
             errs.update(aggregate=e, mix_aggregate=e2)
     # the 'pallas' path launches mix once per CNN leaf: (n, leaf size)
@@ -236,9 +267,11 @@ def phase_kernels(n: int, p: int):
     leaves = [torch.randn(n, pl, generator=g, device=dev) for pl in leaf_p]
     print(f"[kernels] mix at the {len(leaf_p)} per-leaf shapes n={n} "
           f"p={leaf_p} {torch.float32}")
-    errs["mix"] = max(check(f"mix (p={pl})", mixing.mix_cuda(A, x),
-                            ref.mix_ref(A, x), tol[torch.float32])
-                      for pl, x in zip(leaf_p, leaves))
+    for pl, x in zip(leaf_p, leaves):
+        mixed, route = routed(mixing.mix_cuda, A, x)
+        errs["mix"] = max(errs["mix"], check(
+            f"mix (p={pl})", mixed, ref.mix_ref(A, x), tol[torch.float32],
+            route))
     torch.cuda.synchronize()
 
     # timing at the main path's shapes (X is 466 MB: far past the 50 MB L2,
@@ -266,14 +299,23 @@ def phase_kernels(n: int, p: int):
          lambda: [torch.matmul(A, x) for x in leaves],
          leaf_bytes, leaf_flops),
     ]
+    wrappers = {"aggregate": fused.aggregate_cuda,
+                "mix_aggregate": fused.mix_aggregate_cuda,
+                "mix": mixing.mix_cuda}
     for name, replaces, kern, plain, lib, nbytes, flops in specs:
+        fn = wrappers[name]
+        before = dict(getattr(fn, "routes", {}))
         ms = cuda_ms(kern)
+        routes = {r: c - before[r] for r, c in getattr(fn, "routes",
+                                                       {}).items()}
         plain_ms = cuda_ms(plain)
         lib_ms = cuda_ms(lib)
         b_ms, b_by = bound(nbytes, flops)
         shape = (f"{len(leaf_p)} leaves ({n}, p_leaf)" if name == "mix"
                  else f"({n}, {p})")
-        print(f"[kernels] {name} @ {shape} f32: {ms:.4f} ms "
+        print(f"[kernels] {name} @ {shape} f32"
+              + (f", routes {routes}" if routes else "")
+              + f": {ms:.4f} ms "
               f"(plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms by {b_by}: {b_ms / ms:.1%} of it; "
               f"{nbytes / ms / 1e6:.0f} GB/s, {flops / ms / 1e6:.0f} "
@@ -286,7 +328,8 @@ def phase_kernels(n: int, p: int):
                      "bound_by": b_by, "library_ms": lib_ms})
     packed_ms = cuda_ms(lambda: mixing.mix_cuda(A, X))
     b_ms, _ = bound(2 * n * p * f4 + n * n * f4, 2 * n * n * p)
-    print(f"[kernels] mix @ ({n}, {p}) f32, the same bytes in one launch: "
+    print(f"[kernels] mix @ ({n}, {p}) f32, the same bytes in one launch, "
+          f"route {routed(mixing.mix_cuda, A, X)[1]}: "
           f"{packed_ms:.4f} ms (bound {b_ms:.4f} ms: {b_ms / packed_ms:.1%} "
           f"of it)")
     del A, w, X, B, leaves
@@ -323,11 +366,15 @@ def phase_sparse_kernels(seed: int):
            torch.bfloat16: dict(rtol=2 ** -7, atol=2 ** -7)}
     agg_tol = dict(rtol=1e-5, atol=1e-5)
 
-    def check(name, got, want, t):
+    def check(name, got, want, t, route):
+        """``t`` None: bitwise (the mixed outputs, on both routes)."""
         e = float((got.float() - want.float()).abs().max())
-        print(f"[sparse]   {name}: max|err| {e:.3e} (rtol {t['rtol']:.1e}, "
-              f"atol {t['atol']:.1e})")
-        if not torch.allclose(got.float(), want.float(), **t):
+        rule = ("bitwise" if t is None
+                else f"rtol {t['rtol']:.1e}, atol {t['atol']:.1e}")
+        print(f"[sparse]   {name}: max|err| {e:.3e} ({rule}), route {route}")
+        ok = (torch.equal(got, want) if t is None
+              else torch.allclose(got.float(), want.float(), **t))
+        if not ok:
             raise AssertionError(f"{name} disagrees with its plain version")
         return e
 
@@ -343,6 +390,20 @@ def phase_sparse_kernels(seed: int):
          torch.bfloat16, "connectivity_aware", {}),
         ("identity: FedAvg plan", "k_regular", 70, 7, 1_663_488,
          torch.float32, "fedavg", {}),
+        # the staged route takes n <= 128 (csrc/sparse_mixing.cu): at the
+        # limit and one past it, ragged last tiles
+        ("limit: k_regular, 16 clusters of 8", "k_regular", 128, 16,
+         100_004, torch.float32, "connectivity_aware",
+         dict(k_range=(6, 7), p_fail=0.1)),
+        ("limit: k_regular, 16 clusters of 8", "k_regular", 128, 16,
+         50_008, torch.bfloat16, "connectivity_aware",
+         dict(k_range=(6, 7), p_fail=0.1)),
+        ("past the limit: k_regular, 3 clusters of 43", "k_regular", 129, 3,
+         100_004, torch.float32, "connectivity_aware",
+         dict(k_range=(6, 9), p_fail=0.1)),
+        ("past the limit: k_regular, 3 clusters of 43", "k_regular", 129, 3,
+         50_008, torch.bfloat16, "connectivity_aware",
+         dict(k_range=(6, 9), p_fail=0.1)),
     ]
     rows, timed = [], {}
     for label, family, n, c, p, dtype, ctor, params in cases:
@@ -355,13 +416,16 @@ def phase_sparse_kernels(seed: int):
         X = torch.randn(n, p, generator=g, device=dev).to(dtype)
         print(f"[sparse] {label}: n={n} p={p} {dtype} d_max={idx.shape[1]} "
               f"nnz={A.nnz}")
-        e1 = check("sparse_mix", sparse.sparse_mix_cuda(idx, w, X),
-                   ref.sparse_mix_ref(idx, w, X), tol[dtype])
-        mixed, agg = sparse.sparse_mix_aggregate_cuda(idx, w, wrow, X)
+        got, route = routed(sparse.sparse_mix_cuda, idx, w, X)
+        e1 = check("sparse_mix", got, ref.sparse_mix_ref(idx, w, X), None,
+                   route)
+        (mixed, agg), route = routed(sparse.sparse_mix_aggregate_cuda, idx,
+                                     w, wrow, X)
         mixed_r, agg_r = ref.sparse_mix_aggregate_ref(idx, w, wrow, X)
-        e2 = max(check("sparse_mix_aggregate/mixed", mixed, mixed_r,
-                       tol[dtype]),
-                 check("sparse_mix_aggregate/agg", agg, agg_r, agg_tol))
+        e2 = max(check("sparse_mix_aggregate/mixed", mixed, mixed_r, None,
+                       route),
+                 check("sparse_mix_aggregate/agg", agg, agg_r, agg_tol,
+                       route))
         torch.cuda.synchronize()
         del mixed, agg, mixed_r, agg_r
         if label.startswith(("main", "scale", "identity")):
@@ -401,11 +465,16 @@ def phase_sparse_kernels(seed: int):
              2 * nnz * p + 2 * n * p),
         ]
         for name, replaces, e, kern, plain, lib, nbytes, flops in specs:
+            fn = getattr(sparse, f"{name}_cuda")
+            before = dict(fn.routes)
             ms = cuda_ms(kern)
+            route = "/".join(r for r in fn.routes
+                             if fn.routes[r] != before[r])
             plain_ms = cuda_ms(plain, iters=5)
             lib_ms = cuda_ms(lib, iters=10)
             b_ms, b_by = bound(nbytes, flops)
-            print(f"[sparse] {name} @ {which} ({n}, {p}) f32: {ms:.4f} ms "
+            print(f"[sparse] {name} @ {which} ({n}, {p}) f32, route "
+                  f"{route}: {ms:.4f} ms "
                   f"(plain {plain_ms:.4f} ms, torch.sparse.mm "
                   f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}: "
                   f"{b_ms / ms:.1%} of it; {nbytes / ms / 1e6:.0f} GB/s)")
@@ -626,9 +695,19 @@ def kernel_counters():
             "flash_attention": fa.flash_attention_cuda}
 
 
+def reset_counters(counters) -> None:
+    """Every wrapper's launch count, and route counts where it has them,
+    to 0."""
+    for f in counters.values():
+        f.launches = 0
+        if hasattr(f, "routes"):
+            f.routes = dict.fromkeys(f.routes, 0)
+
+
 def phase_train(rounds: int, seed: int):
     """Algorithm 1 at full width on every kernel backend; returns the
-    launch count of each kernel in the path that runs it."""
+    launch count of each kernel in the path that runs it, and the routes
+    of the routed kernels' launches there."""
     import numpy as np
     import torch
     from repro_torch import topology
@@ -683,11 +762,12 @@ def phase_train(rounds: int, seed: int):
             return out
 
         server = server_for(backend, record_mixed, scan, quant)
-        for f in counters.values():
-            f.launches = 0
+        reset_counters(counters)
         hist = server.run(eval_fn=eval_fn if evaluate else None)
         torch.cuda.synchronize()
         counts = {k: f.launches for k, f in counters.items()}
+        routes = {k: dict(f.routes) for k, f in counters.items()
+                  if hasattr(f, "routes")}
         if not evaluate:
             per_round = None
         elif scan:   # evals all run after the scanned trajectory
@@ -695,9 +775,9 @@ def phase_train(rounds: int, seed: int):
         else:
             per_round = [(stamps[t + 1] - exits[t]) * 1e3
                          for t in range(rounds)]
-        return server, hist, counts, per_round
+        return server, hist, counts, per_round, routes
 
-    ref_server, ref_hist, ref_counts, ref_ms = run("einsum", False, False)
+    ref_server, ref_hist, ref_counts, ref_ms, _ = run("einsum", False, False)
     policy = {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
               "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
               "cudnn.deterministic": torch.backends.cudnn.deterministic,
@@ -718,19 +798,29 @@ def phase_train(rounds: int, seed: int):
                  for r in h.records], h.ledger.total_cost)
 
     # launches a run must make: one a round per dtype group on the packed
-    # paths, one a round per leaf on the leaf-wise 'pallas' path
+    # paths, one a round per leaf on the leaf-wise 'pallas' path; the
+    # staged route takes every launch of the packed (70, 1,663,488) f32
+    # buffers and every leaf whose size fills whole 16-byte vectors
+    # (p % 4 == 0: all but the 10-value bias of the last layer), the
+    # generic route the rest (csrc/mixing.cu, csrc/sparse_mixing.cu)
     groups = pspec.n_groups
-    n_leaves = len(tree_flatten(init)[0])
-    paths = [("fused", False, "aggregate", "aggregate", groups),
-             ("fused", True, "fused", "mix_aggregate", groups),
-             ("pallas", True, "pallas", "mix", n_leaves),
-             ("sparse", False, "sparse_aggregate", "aggregate", groups),
-             ("sparse", True, "sparse", "sparse_mix_aggregate", groups)]
-    launches = {}
-    for backend, record_mixed, effective, kernel, per_round in paths:
+    leaf_p = [int(x.numel()) for x in tree_flatten(init)[0]]
+    n_leaves = len(leaf_p)
+    leaves_staged = sum(pl % 4 == 0 for pl in leaf_p)
+    paths = [("fused", False, "aggregate", "aggregate", groups, None),
+             ("fused", True, "fused", "mix_aggregate", groups, groups),
+             ("pallas", True, "pallas", "mix", n_leaves, leaves_staged),
+             ("sparse", False, "sparse_aggregate", "aggregate", groups,
+              None),
+             ("sparse", True, "sparse", "sparse_mix_aggregate", groups,
+              groups)]
+    launches, path_routes = {}, {}
+    for backend, record_mixed, effective, kernel, per_round, staged in \
+            paths:
         finals = {}
         for scan in (False, True):
-            server, hist, counts, ms = run(backend, record_mixed, scan)
+            server, hist, counts, ms, routes = run(backend, record_mixed,
+                                                   scan)
             if server.effective_backend != effective:
                 raise AssertionError(
                     f"{backend} record_mixed={record_mixed} dispatched "
@@ -744,6 +834,15 @@ def phase_train(rounds: int, seed: int):
                 raise AssertionError(f"path {effective} launched other "
                                      f"kernels: {counts}")
             launches[kernel] = launches.get(kernel, 0) + counts[kernel]
+            if staged is not None:
+                want = {"generic": (per_round - staged) * rounds,
+                        "staged": staged * rounds}
+                if routes[kernel] != want:
+                    raise AssertionError(f"{kernel} on {effective}: routes "
+                                         f"{routes[kernel]}, not {want}")
+                total = path_routes.setdefault(kernel, dict.fromkeys(want, 0))
+                for r in want:
+                    total[r] += routes[kernel][r]
             if bookkeeping(hist) != bookkeeping(ref_hist):
                 raise AssertionError(f"{effective} History bookkeeping "
                                      "differs from einsum")
@@ -761,22 +860,26 @@ def phase_train(rounds: int, seed: int):
             accs = [r.metrics["test_acc"] for r in hist.records]
             print(f"[train] {backend} record_mixed={record_mixed} -> "
                   f"{effective}, {'scanned' if scan else 'sequential'}: "
-                  f"{counts[kernel]} {kernel} launches, round ms "
+                  f"{counts[kernel]} {kernel} launches"
+                  + (f" (routes {routes[kernel]})" if staged is not None
+                     else "") + ", round ms "
                   f"{[round(x, 1) for x in ms]}, max|params - einsum| "
                   f"{worst:.3e}, test_acc {accs}")
         same = all(torch.equal(a, b) for a, b in zip(finals[False],
                                                      finals[True]))
         print(f"[train] {effective}: scanned == sequential bitwise: {same}")
+        if not same:
+            raise AssertionError(f"{effective}: scanned != sequential")
     print(f"[train] History bookkeeping equal across all backends; total "
           f"comm cost {ref_hist.ledger.total_cost:.1f} (D2S "
           f"{ref_hist.ledger.total_d2s}, D2D {ref_hist.ledger.total_d2d})")
-    launches["sparse_mix"] = mix_alone(loss_fn, init, batcher, spec, rounds,
-                                       seed, counters)
+    launches["sparse_mix"], path_routes["sparse_mix"] = mix_alone(
+        loss_fn, init, batcher, spec, rounds, seed, counters)
     trace_device(lambda: run("fused", False, False, evaluate=False),
                  f"aggregate path, {rounds} sequential rounds (no eval)")
     launches.update(train_quant(run, server_for, loss_fn, bookkeeping,
                                 counters, groups, rounds))
-    return launches
+    return launches, path_routes
 
 
 def train_quant(run, server_for, loss_fn, bookkeeping, counters, groups,
@@ -859,8 +962,8 @@ def train_quant(run, server_for, loss_fn, bookkeeping, counters, groups,
         hist_o, leaves_o, allow_o = oracles[storage]
         finals = {}
         for scan in (False, True):
-            server, hist, counts, ms = run(backend, record_mixed, scan,
-                                           quant=quant)
+            server, hist, counts, ms, _ = run(backend, record_mixed, scan,
+                                              quant=quant)
             if server.effective_backend != effective:
                 raise AssertionError(
                     f"quant {backend} record_mixed={record_mixed} "
@@ -916,7 +1019,8 @@ def mix_alone(loss_fn, init, batcher, spec, rounds, seed, counters):
     it: the first round's client deltas (the server's first batch, the
     plan's first step size) mixed by ``ops.sparse_mix`` with the ELL of
     the sparse plan's first round, against the dense oracle
-    ``rounds.mix_deltas``.  Returns the sparse_mix launches."""
+    ``rounds.mix_deltas``.  Returns the sparse_mix launches and their
+    routes (all staged)."""
     import numpy as np
     import torch
     from repro_torch.core import rounds as rounds_lib
@@ -939,14 +1043,16 @@ def mix_alone(loss_fn, init, batcher, spec, rounds, seed, counters):
     pspec = packing.pack_spec(deltas)
     bufs = packing.pack(deltas, pspec)
     torch.cuda.synchronize()
-    for f in counters.values():
-        f.launches = 0
+    reset_counters(counters)
     mixed = [ops.sparse_mix(idx, w, b) for b in bufs]
     torch.cuda.synchronize()
     counts = {k: f.launches for k, f in counters.items()}
+    routes = dict(counters["sparse_mix"].routes)
     if counts["sparse_mix"] != pspec.n_groups or \
-            sum(counts.values()) != counts["sparse_mix"]:
-        raise AssertionError(f"eq. 3 alone launched {counts}")
+            sum(counts.values()) != counts["sparse_mix"] or \
+            routes != {"generic": 0, "staged": pspec.n_groups}:
+        raise AssertionError(f"eq. 3 alone launched {counts}, routes "
+                             f"{routes}")
     A0 = torch.as_tensor(plan.A_t[0].dense(), device=dev)
     want = packing.pack(rounds_lib.mix_deltas(A0, deltas), pspec)
     worst = 0.0
@@ -957,9 +1063,9 @@ def mix_alone(loss_fn, init, batcher, spec, rounds, seed, counters):
         worst = max(worst, float((got - ref_buf).abs().max()))
     print(f"[train] eq. 3 alone: ops.sparse_mix on round 0's deltas "
           f"({idx.shape[0]} x {pspec.padded}, d_max {idx.shape[1]}): "
-          f"{counts['sparse_mix']} sparse_mix launch(es), max|mixed - "
-          f"dense oracle| {worst:.3e}")
-    return counts["sparse_mix"]
+          f"{counts['sparse_mix']} sparse_mix launch(es) (routes {routes}), "
+          f"max|mixed - dense oracle| {worst:.3e}")
+    return counts["sparse_mix"], routes
 
 
 def trace_device(fn, what: str, top: int = 12):
@@ -1063,7 +1169,7 @@ def phase_scale(seed: int):
                           loss_fn)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        counter.launches = 0
+        reset_counters({"counter": counter})
         t0 = time.perf_counter()
         final, hist = eng.execute(plan, init, [batch])
         torch.cuda.synchronize()
@@ -1073,6 +1179,10 @@ def phase_scale(seed: int):
             raise AssertionError(f"{eng.backend}: d2d "
                                  f"{hist.records[0].d2d}, "
                                  f"{counter.launches} launches")
+        routes = getattr(counter, "routes", None)
+        if routes is not None and routes["generic"] != 1:
+            raise AssertionError(f"n = {n} takes the generic route, not "
+                                 f"{routes}")
         if peak >= n * n * 4:
             raise AssertionError(f"peak {peak / 1e9:.1f} GB: an (n, n) "
                                  "array was allocated")
@@ -1083,7 +1193,8 @@ def phase_scale(seed: int):
         print(f"[scale] {eng.backend}: one round {round_ms:.1f} ms (first "
               f"call, host clock), peak device memory {peak / 1e9:.2f} GB, "
               f"d2d {hist.records[0].d2d}, {counter.launches} "
-              f"{counter.__name__} launch")
+              f"{counter.__name__} launch"
+              + (f" (routes {routes})" if routes is not None else ""))
     worst = max(float((a - b).abs().max())
                 for a, b in zip(finals[False], finals[True]))
     if not all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
@@ -1304,9 +1415,7 @@ def phase_lm(seed: int, counters) -> int:
         return out, (time.perf_counter() - t) * 1e3
 
     timed(lambda: model.forward(params, tokens))          # warm-up
-    for f in counters.values():
-        f.launches = 0
-    fa.flash_attention_cuda.routes = dict.fromkeys(fa.ROUTES, 0)
+    reset_counters(counters)
     torch.cuda.reset_peak_memory_stats()
     (logits, _), fwd_ms = timed(lambda: model.forward(params, tokens))
     counts = {name: f.launches for name, f in counters.items()}
@@ -1420,11 +1529,13 @@ def main() -> int:
     rows += phase_sparse_kernels(SEED)
     rows += phase_quant_kernels(SEED)
     rows.append(phase_flash(SEED))
-    launches = phase_train(ROUNDS, SEED)
+    launches, routes = phase_train(ROUNDS, SEED)
     phase_scale(SEED)
     launches["flash_attention"] = phase_lm(SEED, kernel_counters())
     for row in rows:
         row["launches"] = launches[row["name"]]
+        if row["name"] in routes:
+            row["routes"] = routes[row["name"]]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never launched")
     smi = subprocess.run(

@@ -33,10 +33,11 @@
 //                           void* mixed,       // (n, p) out, X's dtype
 //                           float* agg,        // (p,) f32 out, or NULL
 //                           int n, int R, long long p, int dtype,
-//                           int device, void* stream);
+//                           int device, void* stream,
+//                           int* route);       // out: 1 staged, 0 generic
 //
 //   R = n + 1 with agg != NULL (row n of B is the combine row w), or R = n
-//   with agg == NULL (the plain mix).
+//   with agg == NULL (the plain mix).  *route is set on success.
 //
 // Both kernels accumulate in fp32 with fmaf (no TF32, no tensor cores), and
 // mask the ragged p and n edges themselves: the caller pads nothing.
@@ -44,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "staged.cuh"
 
 namespace {
 
@@ -173,7 +176,37 @@ cudaError_t launch_aggregate(const float* w, const void* X, float* agg,
 // operations: 2 R n p fp32 flops (16.5 GFLOP: ~0.25 ms at the 67 TFLOP/s
 // non-tensor fp32 rate).  fp32 has no tensor-core path that keeps full
 // precision, so this is a CUDA-core product, and it must keep the FMA pipe
-// busy while X streams in.  Design: a register-blocked tiled product.
+// busy while X streams in.
+//
+// Two routes; the rule is static (no fallback between them: a launch that
+// fails raises):
+//
+//   staged   when n <= kStagedRows (128), p % E == 0 (E = 4 f32, 8 bf16:
+//            whole 16-byte vectors a row) and X, mixed and agg are 16-byte
+//            aligned;
+//   generic  otherwise (the 'pallas' path's odd leaves, misaligned views,
+//            larger n).
+//
+// Staged route (mix_staged_kernel; the ring of csrc/staged.cuh):
+//   * Persistent CTAs of 8 consumer warps and a producer warp walk column
+//     tiles of kStagedCols = 128 columns.  B is loaded into shared memory
+//     once per CTA (transposed, Bs[k][row], zero rows past R), not once a
+//     tile; the producer keeps two slabs of X (all n rows of a tile: the
+//     whole reduction, so a tile needs no K loop and no __syncthreads) in
+//     flight by 1-D TMA bulk copies, bf16 staying bf16 in shared memory.
+//     At n = 70 a CTA holds 99 KB, so two CTAs share an SM.
+//   * Consumer warp q owns rows q RM .. q RM + RM - 1 (RM = ceil(R / 8)
+//     <= 17, a template parameter) and lane l the 4 columns 4 l .. 4 l + 3:
+//     per reduction step one 16-byte (f32) or 8-byte (bf16) X load, RM / 4
+//     16-byte broadcast loads of B and 4 RM fmaf, in k order 0 .. n - 1 as
+//     the generic route (no TF32, no tensor cores), unrolled by 4.  acc
+//     is 4 RM <= 68 registers: nothing spills.
+//   * A warp releases the slab before its stores, which are 16-byte (f32)
+//     / 8-byte (bf16) streaming stores (__stcs) from registers; the next
+//     tile's slab is already in the ring, so the stores overlap its FMAs
+//     and the copies behind it.
+//
+// Generic route (mix_aggregate_kernel): a register-blocked tiled product.
 //   * A block owns kColTile = 128 columns and TR = 16 RM output rows (RM a
 //     template parameter chosen by the host so that one row tile covers
 //     R <= 128: at n = 70, RM = 5 covers all 71 rows and X is read from
@@ -394,6 +427,161 @@ mix_aggregate_kernel(const float* __restrict__ B, const T* __restrict__ X,
   }
 }
 
+// ---------------------------------------------------------------------------
+// mix_aggregate / mix, the staged route (see above).
+
+constexpr int kStagedRows = 128;                      // n limit
+constexpr int kStagedCols = 128;                      // columns a tile
+constexpr int kStagedRM = (kStagedRows + 1 + staged::kConsumerWarps - 1) /
+                          staged::kConsumerWarps;     // RM <= 17
+
+template <typename T>
+struct Staged;
+
+template <>
+struct Staged<float> {
+  // 4 columns of a slab row
+  __device__ __forceinline__ static void load4(const unsigned char* p,
+                                               float* v) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  }
+  __device__ __forceinline__ static void store4(float* dst, const float* v) {
+    __stcs(reinterpret_cast<float4*>(dst),
+           make_float4(v[0], v[1], v[2], v[3]));
+  }
+};
+
+template <>
+struct Staged<__nv_bfloat16> {
+  __device__ __forceinline__ static void load4(const unsigned char* p,
+                                               float* v) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 lo =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+  }
+  // round-to-nearest-even, like astype
+  __device__ __forceinline__ static void store4(__nv_bfloat16* dst,
+                                                const float* v) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    __stcs(reinterpret_cast<uint2*>(dst),
+           make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                      *reinterpret_cast<const uint32_t*>(&hi)));
+  }
+};
+
+template <typename T, int RM>
+__global__ void __launch_bounds__(staged::kThreads, 1)
+mix_staged_kernel(const float* __restrict__ B, const T* __restrict__ X,
+                  T* __restrict__ mixed, float* __restrict__ agg, int n,
+                  int R, long long p, long long tiles) {
+  constexpr int W = staged::kConsumerWarps;
+  constexpr int RMP = (RM + 3) / 4 * 4;          // rows padded for float4
+  constexpr int kRow = kStagedCols * sizeof(T);  // bytes of a slab row
+  extern __shared__ __align__(16) unsigned char smem[];
+  const staged::Ring ring(smem, n, kRow);
+  // Bs[k][q * RMP + r] = B[q * RM + r, k], zero for r >= RM or rows >= R
+  float* Bs =
+      reinterpret_cast<float*>(smem + ring.slab_offset(staged::kStages));
+
+  if (threadIdx.x == 0) ring.init();
+  for (int e = threadIdx.x; e < n * W * RMP; e += blockDim.x) {
+    const int k = e / (W * RMP), q = (e / RMP) % W, r = e % RMP;
+    const int row = q * RM + r;
+    Bs[e] = (r < RM && row < R) ? B[(long long)row * n + k] : 0.f;
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == W) {
+    ring.produce(reinterpret_cast<const unsigned char*>(X),
+                 p * (long long)sizeof(T), tiles);
+    return;
+  }
+  const float* bw = Bs + warp * RMP;
+  int j = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++j) {
+    ring.wait_full(j);
+    const unsigned char* xs =
+        smem + ring.slab_offset(j % staged::kStages) + lane * 4 * sizeof(T);
+    float acc[RM][4];
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < n; ++k) {
+      float x[4];
+      Staged<T>::load4(xs + k * kRow, x);
+      float b[RMP];
+#pragma unroll
+      for (int q = 0; q < RMP; q += 4) {
+        const float4 t =
+            *reinterpret_cast<const float4*>(bw + k * (W * RMP) + q);
+        b[q] = t.x; b[q + 1] = t.y; b[q + 2] = t.z; b[q + 3] = t.w;
+      }
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(b[r], x[c], acc[r][c]);
+    }
+    ring.release(j);
+    const long long col = tile * kStagedCols + lane * 4;
+    if (col >= p) continue;     // p % E == 0: all 4 columns or none
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const int row = warp * RM + r;
+      if (row < n)
+        Staged<T>::store4(mixed + (long long)row * p + col, acc[r]);
+      else if (row < R)
+        Staged<float>::store4(agg + col, acc[r]);
+    }
+  }
+}
+
+template <typename T, int RM>
+cudaError_t launch_staged_rm(const float* B, const void* X, void* mixed,
+                             float* agg, int n, int R, long long p,
+                             int device, cudaStream_t stream) {
+  constexpr int RMP = (RM + 3) / 4 * 4;
+  const long long tiles = (p + kStagedCols - 1) / kStagedCols;
+  const long long slab = (long long)n * kStagedCols * sizeof(T);
+  const long long resident =
+      (long long)n * staged::kConsumerWarps * RMP * sizeof(float);
+  const long long smem = staged::smem_for(slab, resident);
+  auto kernel = mix_staged_kernel<T, RM>;
+  unsigned grid = 0;
+  cudaError_t err = staged::grid_for(kernel, smem, tiles, device, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, staged::kThreads, smem, stream>>>(
+      B, static_cast<const T*>(X), static_cast<T*>(mixed), agg, n, R, p,
+      tiles);
+  return cudaGetLastError();
+}
+
+// RM = ceil(R / 8): the instance RM0, RM0 + 1, ... that matches
+template <typename T, int RM0 = 1>
+cudaError_t launch_staged(int rm, const float* B, const void* X,
+                          void* mixed, float* agg, int n, int R, long long p,
+                          int device, cudaStream_t stream) {
+  if constexpr (RM0 > kStagedRM) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (rm == RM0)
+      return launch_staged_rm<T, RM0>(B, X, mixed, agg, n, R, p, device,
+                                      stream);
+    return launch_staged<T, RM0 + 1>(rm, B, X, mixed, agg, n, R, p, device,
+                                     stream);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// mix_aggregate / mix, the generic route's launch.
+
 template <typename T, int RM>
 cudaError_t launch_mix_rm(const float* B, const void* X, void* mixed,
                           float* agg, int n, int R, long long p, bool vec,
@@ -460,23 +648,33 @@ int repro_aggregate(const float* w, const void* X, float* agg, int n,
 
 int repro_mix_aggregate(const float* B, const void* X, void* mixed,
                         float* agg, int n, int R, long long p, int dtype,
-                        int device, void* stream) {
+                        int device, void* stream, int* route) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (p <= 0 || R <= 0) return (int)cudaGetLastError();
   if (R != n + (agg != nullptr ? 1 : 0)) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // vector loads and stores need whole vectors per row and 16-byte bases
   const bool aligned = (reinterpret_cast<uintptr_t>(X) % 16 == 0) &&
                        (reinterpret_cast<uintptr_t>(mixed) % 16 == 0) &&
                        (reinterpret_cast<uintptr_t>(agg) % 16 == 0);
-  if (dtype == 0)
-    return (int)launch_mix_aggregate<float>(B, X, mixed, agg, n, R, p,
-                                            aligned && p % 4 == 0, s);
-  if (dtype == 1)
-    return (int)launch_mix_aggregate<__nv_bfloat16>(
-        B, X, mixed, agg, n, R, p, aligned && p % 8 == 0, s);
-  return (int)cudaErrorInvalidValue;
+  const bool vec = aligned && p % (dtype == 0 ? 4 : 8) == 0;
+  if (vec && n <= kStagedRows) {
+    const int rm = (R + staged::kConsumerWarps - 1) / staged::kConsumerWarps;
+    err = dtype == 0 ? launch_staged<float>(rm, B, X, mixed, agg, n, R, p,
+                                            device, s)
+                     : launch_staged<__nv_bfloat16>(rm, B, X, mixed, agg, n,
+                                                    R, p, device, s);
+    if (err == cudaSuccess) *route = 1;
+    return (int)err;
+  }
+  err = dtype == 0 ? launch_mix_aggregate<float>(B, X, mixed, agg, n, R, p,
+                                                 vec, s)
+                   : launch_mix_aggregate<__nv_bfloat16>(B, X, mixed, agg, n,
+                                                         R, p, vec, s);
+  if (err == cudaSuccess) *route = 0;
+  return (int)err;
 }
 
 }  // extern "C"

@@ -10,9 +10,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["lib", "sparse_lib", "quant_lib", "dtype_code", "launch_args",
-           "check_cuda_operand", "check_quant_operands",
-           "check_cuda_quant_operands"]
+__all__ = ["ROUTES", "lib", "sparse_lib", "quant_lib", "dtype_code",
+           "launch_args", "launch_routed", "check_cuda_operand",
+           "check_quant_operands", "check_cuda_quant_operands"]
 
 _LIB = None
 _SPARSE_LIB = None
@@ -23,6 +23,10 @@ _STORAGES = {"int8": (0, torch.int8, 8, 128),
              "fp8": (2, torch.float8_e4m3fn, 8, 128)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PI = ctypes.POINTER(ctypes.c_int)
+# the route repro_mix_aggregate / repro_sparse_mix_aggregate report they
+# took, by its code (the static rule is in the sources' headers)
+ROUTES = ("generic", "staged")
 
 
 def lib() -> ctypes.CDLL:
@@ -34,7 +38,7 @@ def lib() -> ctypes.CDLL:
         handle.repro_aggregate.argtypes = [_P, _P, _P, _I, _LL, _I, _I, _P]
         handle.repro_aggregate.restype = _I
         handle.repro_mix_aggregate.argtypes = [_P, _P, _P, _P, _I, _I, _LL,
-                                               _I, _I, _P]
+                                               _I, _I, _P, _PI]
         handle.repro_mix_aggregate.restype = _I
         _LIB = handle
     return _LIB
@@ -49,7 +53,7 @@ def sparse_lib() -> ctypes.CDLL:
         handle.repro_sparse_row_groups.argtypes = [_I, _LL, _I]
         handle.repro_sparse_row_groups.restype = _I
         handle.repro_sparse_mix_aggregate.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _P]
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _P, _PI]
         handle.repro_sparse_mix_aggregate.restype = _I
         _SPARSE_LIB = handle
     return _SPARSE_LIB
@@ -139,3 +143,14 @@ def launch_args(X: torch.Tensor):
     current stream of X's device."""
     return (X.device.index,
             ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream))
+
+
+def launch_routed(lib: ctypes.CDLL, entry, args, wrapper) -> None:
+    """Call a C entry point that reports its route through a trailing
+    ``int*``, raise on a CUDA error, and count the launch on ``wrapper``
+    (``.launches`` and ``.routes[ROUTES[code]]``)."""
+    route = ctypes.c_int(-1)
+    rc = entry(*args, ctypes.byref(route))
+    _build.check(lib, rc, wrapper.__name__)
+    wrapper.launches += 1
+    wrapper.routes[ROUTES[route.value]] += 1

@@ -16,8 +16,9 @@ dims), so with the precombined row ``w = (tau^T A) / m``
 ``mix_aggregate_cuda``
     one tiled product of the stacked ``[A; w]`` ((n+1) x n) with X: the
     mixed deltas in X's dtype and the f32 aggregate row from one read of
-    X (``csrc/mixing.cu::mix_aggregate_kernel``).  The 'fused' backend
-    with ``record_mixed=True``.
+    X (``csrc/mixing.cu``: ``mix_staged_kernel`` on the 'staged' route,
+    ``mix_aggregate_kernel`` on the 'generic' one; the rule is in the
+    source's header).  The 'fused' backend with ``record_mixed=True``.
 ``aggregate_dequant_cuda`` / ``mix_aggregate_dequant_cuda``
     the same two products over a quantized payload in its wire format
     (stored int8 / int4 / fp8 containers ``Xq`` and fp32 per-block scales
@@ -29,7 +30,8 @@ dims), so with the precombined row ``w = (tau^T A) / m``
 
 Each wrapper sends CPU tensors to its plain version (``ref.py``) and, for
 a CUDA payload, launches its kernel on the current stream or raises; its
-``launches`` attribute counts the launches.
+``launches`` attribute counts the launches, and ``mix_aggregate_cuda.
+routes`` counts its launches by the route the library reports.
 """
 
 from __future__ import annotations
@@ -95,15 +97,15 @@ def mix_aggregate_cuda(A: torch.Tensor, w: torch.Tensor, X: torch.Tensor
     B = torch.cat([A, w[None]])          # (n + 1, n): row n is w
     lib = _lib.lib()
     device, stream = _lib.launch_args(X)
-    rc = lib.repro_mix_aggregate(B.data_ptr(), X.data_ptr(),
-                                 mixed.data_ptr(), agg.data_ptr(), n, n + 1,
-                                 p, code, device, stream)
-    _build.check(lib, rc, "mix_aggregate")
-    mix_aggregate_cuda.launches += 1
+    _lib.launch_routed(lib, lib.repro_mix_aggregate,
+                       (B.data_ptr(), X.data_ptr(), mixed.data_ptr(),
+                        agg.data_ptr(), n, n + 1, p, code, device, stream),
+                       mix_aggregate_cuda)
     return mixed, agg
 
 
 mix_aggregate_cuda.launches = 0
+mix_aggregate_cuda.routes = dict.fromkeys(_lib.ROUTES, 0)
 
 
 def aggregate_dequant_cuda(w: torch.Tensor, Xq: torch.Tensor,

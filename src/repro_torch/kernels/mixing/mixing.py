@@ -6,15 +6,17 @@ one launch per leaf) when mixed deltas are recorded.  The kernel is
 ``repro_mix_aggregate`` of ``csrc/mixing.cu`` without its combine row: a
 shared-memory tiled fp32 product of the (n, n) ``A`` with X (n, p), output
 in X's dtype.  It is bound about evenly by bytes (X read once, the mixed
-deltas written once) and by fp32 CUDA-core operations (2 n^2 p); see the
-source's header for the tiling.
+deltas written once) and by fp32 CUDA-core operations (2 n^2 p).  It has
+two routes (``_lib.ROUTES``; the static rule and the tiling are in the
+source's header): 'staged' (n <= 128, whole 16-byte vectors a row,
+16-byte aligned operands: persistent CTAs fed a TMA ring of X slabs) and
+'generic' (anything else).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
 from . import _lib
 from .ref import mix_ref
 
@@ -27,7 +29,8 @@ def mix_cuda(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
 
     A CPU payload takes the plain version (``ref.mix_ref``); a CUDA
     payload launches the kernel on the current stream or raises.
-    ``mix_cuda.launches`` counts the launches."""
+    ``mix_cuda.launches`` counts the launches and ``mix_cuda.routes``
+    counts them by the route the library reports it took."""
     if not X.is_cuda:
         return mix_ref(A, X)
     n, p = X.shape
@@ -41,12 +44,11 @@ def mix_cuda(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
         return mixed
     lib = _lib.lib()
     device, stream = _lib.launch_args(X)
-    rc = lib.repro_mix_aggregate(A.data_ptr(), X.data_ptr(),
-                                 mixed.data_ptr(), None, n, n, p, code,
-                                 device, stream)
-    _build.check(lib, rc, "mix")
-    mix_cuda.launches += 1
+    _lib.launch_routed(lib, lib.repro_mix_aggregate,
+                       (A.data_ptr(), X.data_ptr(), mixed.data_ptr(), None,
+                        n, n, p, code, device, stream), mix_cuda)
     return mixed
 
 
 mix_cuda.launches = 0
+mix_cuda.routes = dict.fromkeys(_lib.ROUTES, 0)

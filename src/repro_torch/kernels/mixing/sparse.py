@@ -24,16 +24,24 @@ f32 weights, padding slots ``index 0, weight 0.0``.  Then
     ``record_mixed=True`` and a ``quant`` spec.  Both outputs are f32.
 
 Both launch ``repro_sparse_mix_aggregate`` of ``csrc/sparse_mixing.cu``
-(the mix-only call passes no combine row); it is bound by X's bytes (see
-the source's header).  The aggregate-only 'sparse_aggregate' backend needs
-no kernel here: its combine row feeds ``fused.aggregate_cuda`` (or
+(the mix-only call passes no combine row); it is bound by X's bytes.  It
+has two routes (``_lib.ROUTES``; the static rule is in the source's
+header): 'staged' (n <= 128, d_max <= 64, whole 16-byte vectors a row,
+16-byte aligned operands: persistent CTAs gather from a TMA ring of X
+slabs in shared memory) and 'generic' (anything else, such as the
+n = 100,000 ring: neighbour rows gathered from global memory).  The
+aggregate-only 'sparse_aggregate' backend needs no kernel here: its
+combine row feeds ``fused.aggregate_cuda`` (or
 ``fused.aggregate_dequant_cuda`` for a quantized payload).
 
 Each wrapper sends CPU tensors to its plain version (``ref.py``) and, for
 a CUDA payload, launches the kernel on the current stream or raises; its
-``launches`` attribute counts the launches.  ``idx`` values must lie in
-``[0, n)``: the kernel does not check them (the plan's CSR, from which
-the engine builds the ELL, guarantees it).
+``launches`` attribute counts the launches, and ``routes`` (the two
+non-quantized wrappers) counts them by the route the library reports.
+``idx`` values must lie in ``[0, n)``: the kernel does not check them
+(the plan's CSR, from which the engine builds the ELL, guarantees it;
+out of range, the staged route reads outside its slab in shared memory,
+the generic one outside X).
 """
 
 from __future__ import annotations
@@ -54,7 +62,9 @@ __all__ = ["sparse_mix_cuda", "sparse_mix_aggregate_cuda",
 def _launch(idx: torch.Tensor, w: torch.Tensor, wrow: Optional[torch.Tensor],
             X: torch.Tensor, wrapper):
     """Check the operands and launch the kernel for ``wrapper`` (whose
-    count it raises); ``(mixed, agg or None)``."""
+    counts it raises); ``(mixed, agg or None)``.  The (G, p) scratch is
+    sized by the generic route's rule; the staged route leaves it
+    untouched."""
     n, p = X.shape
     code = _lib.dtype_code(X)
     _lib.check_cuda_operand(X, "X", X.device, ndim=2)
@@ -84,12 +94,11 @@ def _launch(idx: torch.Tensor, w: torch.Tensor, wrow: Optional[torch.Tensor],
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    rc = lib.repro_sparse_mix_aggregate(
-        idx.data_ptr(), w.data_ptr(), ptr(wrow), X.data_ptr(),
-        mixed.data_ptr(), ptr(agg), ptr(partial), n, d_max, p, code, device,
-        stream)
-    _build.check(lib, rc, wrapper.__name__)
-    wrapper.launches += 1
+    _lib.launch_routed(lib, lib.repro_sparse_mix_aggregate,
+                       (idx.data_ptr(), w.data_ptr(), ptr(wrow),
+                        X.data_ptr(), mixed.data_ptr(), ptr(agg),
+                        ptr(partial), n, d_max, p, code, device, stream),
+                       wrapper)
     return mixed, agg
 
 
@@ -104,6 +113,7 @@ def sparse_mix_cuda(idx: torch.Tensor, w: torch.Tensor, X: torch.Tensor
 
 
 sparse_mix_cuda.launches = 0
+sparse_mix_cuda.routes = dict.fromkeys(_lib.ROUTES, 0)
 
 
 def sparse_mix_aggregate_cuda(idx: torch.Tensor, w: torch.Tensor,
@@ -118,6 +128,7 @@ def sparse_mix_aggregate_cuda(idx: torch.Tensor, w: torch.Tensor,
 
 
 sparse_mix_aggregate_cuda.launches = 0
+sparse_mix_aggregate_cuda.routes = dict.fromkeys(_lib.ROUTES, 0)
 
 
 def sparse_mix_aggregate_dequant_cuda(idx: torch.Tensor, w: torch.Tensor,

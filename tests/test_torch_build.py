@@ -50,3 +50,23 @@ def test_every_source_has_a_build_key():
     for name in names:
         assert _build.library_path(name).parent == _build.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_the_staged_header_builds_both_mixing_sources(tmp_path,
+                                                      monkeypatch):
+    """``csrc/staged.cuh`` (the TMA slab ring of the staged route) is
+    included by the dense and the ELL mixing sources, so an edit to it
+    renames both libraries and no stale build of either is loaded."""
+    for name in ("mixing", "sparse_mixing"):
+        assert _build.CSRC / "staged.cuh" in _build.includes(
+            _build.CSRC / f"{name}.cu")
+    for src in _build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    names = ("mixing", "sparse_mixing", "quant_mixing", "flash_attention")
+    before = {name: _build.library_path(name) for name in names}
+    with open(tmp_path / "staged.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {name: _build.library_path(name) for name in names}
+    assert [name for name in names if after[name] != before[name]] == \
+        ["mixing", "sparse_mixing"]

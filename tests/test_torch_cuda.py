@@ -34,6 +34,40 @@ import torch
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2 ** -7, atol=2 ** -7)
+BITWISE = dict(rtol=0, atol=0, equal_nan=True)
+# the staged route's limits (csrc/mixing.cu, csrc/sparse_mixing.cu): n rows
+# and, for the ELL, d_max slots; beside them whole 16-byte vectors a row
+# and 16-byte aligned operands
+STAGED_ROWS, STAGED_SLOTS = 128, 64
+
+
+def _route(X, n, d_max=0):
+    """The route the static rule gives an (n, p) payload X (the outputs
+    are fresh, so aligned)."""
+    vec = 16 // X.element_size()
+    staged = (n <= STAGED_ROWS and d_max <= STAGED_SLOTS
+              and X.shape[1] % vec == 0 and X.data_ptr() % 16 == 0)
+    return "staged" if staged else "generic"
+
+
+def _routed_call(fn, *args):
+    """``fn(*args)`` and the route its one launch was counted on."""
+    launches, routes = fn.launches, dict(fn.routes)
+    out = fn(*args)
+    moved = {r: fn.routes[r] - routes[r] for r in routes}
+    assert fn.launches == launches + 1
+    assert sorted(moved.values()) == [0, 1], moved
+    return out, max(moved, key=moved.get)
+
+
+def _misaligned(X):
+    """X's values in a contiguous view 2 or 4 bytes past a 16-byte
+    boundary (a storage offset of one element)."""
+    buf = torch.empty(X.numel() + 1, dtype=X.dtype, device=X.device)
+    out = buf[1:].view_as(X)
+    out.copy_(X)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
 
 pytestmark = pytest.mark.cuda
 
@@ -49,8 +83,14 @@ def cuda():
     (70, 4096, torch.float32), (13, 1001, torch.float32),
     (37, 10_003, torch.bfloat16), (130, 777, torch.float32),
     (1, 5, torch.bfloat16), (100, 256, torch.float32),
-    (127, 1024, torch.bfloat16), (200, 4100, torch.float32)])
+    (127, 1024, torch.bfloat16), (200, 4100, torch.float32),
+    # the staged route's n limit and one past it, ragged last tiles
+    (128, 4100, torch.float32), (129, 4100, torch.float32),
+    (128, 1000, torch.bfloat16), (129, 1000, torch.bfloat16),
+    (8, 4096, torch.float32)])
 def test_kernels_match_plain_versions(cuda, n, p, dtype):
+    """mix_aggregate and mix on the route the rule gives (counted there,
+    once a call), bitwise the same from call to call."""
     from repro_torch.kernels.mixing import fused, mixing, ref
 
     g = torch.Generator(device=cuda).manual_seed(n * p)
@@ -62,13 +102,55 @@ def test_kernels_match_plain_versions(cuda, n, p, dtype):
     torch.testing.assert_close(fused.aggregate_cuda(w, X),
                                ref.aggregate_ref(w, X), **F32)
     assert fused.aggregate_cuda.launches == before + 1
-    mixed, agg = fused.mix_aggregate_cuda(A, w, X)
+    (mixed, agg), route = _routed_call(fused.mix_aggregate_cuda, A, w, X)
+    assert route == _route(X, n)
     mixed_r, agg_r = ref.mix_aggregate_ref(A, w, X)
     assert mixed.dtype == dtype and agg.dtype == torch.float32
     torch.testing.assert_close(mixed.float(), mixed_r.float(), **tol)
     torch.testing.assert_close(agg, agg_r, **F32)
-    torch.testing.assert_close(mixing.mix_cuda(A, X).float(),
-                               ref.mix_ref(A, X).float(), **tol)
+    again = fused.mix_aggregate_cuda(A, w, X)
+    assert torch.equal(mixed, again[0]) and torch.equal(agg, again[1])
+    mixed, route = _routed_call(mixing.mix_cuda, A, X)
+    assert route == _route(X, n)
+    torch.testing.assert_close(mixed.float(), ref.mix_ref(A, X).float(),
+                               **tol)
+    assert torch.equal(mixed, mixing.mix_cuda(A, X))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_misaligned_payload_takes_the_generic_route(cuda, dtype):
+    """A payload whose base is off a 16-byte boundary is not fit for TMA:
+    all four routed kernels take the generic route and still agree with
+    their plain versions (the ELL mixed output bitwise)."""
+    from repro_torch.kernels.mixing import fused, mixing, ref, sparse
+
+    n, p = 70, 4096
+    g = torch.Generator(device=cuda).manual_seed(5)
+    A = torch.rand(n, n, generator=g, device=cuda)
+    w = torch.rand(n, generator=g, device=cuda)
+    X = _misaligned(torch.randn(n, p, generator=g, device=cuda).to(dtype))
+    idx, wl = _ell(n, 9, 5, cuda)
+    tol = F32 if dtype == torch.float32 else BF16
+    (mixed, agg), route = _routed_call(fused.mix_aggregate_cuda, A, w, X)
+    mixed_r, agg_r = ref.mix_aggregate_ref(A, w, X)
+    assert route == "generic"
+    torch.testing.assert_close(mixed.float(), mixed_r.float(), **tol)
+    torch.testing.assert_close(agg, agg_r, **F32)
+    mixed, route = _routed_call(mixing.mix_cuda, A, X)
+    assert route == "generic"
+    torch.testing.assert_close(mixed.float(), ref.mix_ref(A, X).float(),
+                               **tol)
+    mixed, route = _routed_call(sparse.sparse_mix_cuda, idx, wl, X)
+    assert route == "generic"
+    torch.testing.assert_close(mixed, ref.sparse_mix_ref(idx, wl, X),
+                               **BITWISE)
+    (mixed, agg), route = _routed_call(sparse.sparse_mix_aggregate_cuda,
+                                       idx, wl, w, X)
+    mixed_r, agg_r = ref.sparse_mix_aggregate_ref(idx, wl, w, X)
+    assert route == "generic"
+    torch.testing.assert_close(mixed, mixed_r, **BITWISE)
+    torch.testing.assert_close(agg, agg_r, **F32)
     torch.cuda.synchronize()
 
 
@@ -140,28 +222,65 @@ def _ell(n, d_max, seed, device):
     (37, 1000, 37, torch.float32), (37, 1000, 37, torch.bfloat16),
     (70, 4096, 10, torch.float32), (13, 1001, 3, torch.bfloat16),
     (9, 4096, 1, torch.float32), (3000, 100, 2, torch.float32),
-    (2000, 264, 5, torch.bfloat16), (1, 5, 1, torch.float32)])
+    (2000, 264, 5, torch.bfloat16), (1, 5, 1, torch.float32),
+    # the staged route's n limit and one past it at d_max 1, 2, 9, 16 and
+    # 37, its d_max limit and one past it, ragged last tiles
+    (128, 4100, 1, torch.float32), (129, 4100, 1, torch.float32),
+    (128, 2056, 2, torch.bfloat16), (129, 2056, 2, torch.bfloat16),
+    (128, 4100, 9, torch.float32), (129, 4100, 9, torch.float32),
+    (128, 1000, 16, torch.bfloat16), (129, 1000, 16, torch.bfloat16),
+    (128, 4100, 37, torch.float32), (129, 4100, 37, torch.bfloat16),
+    (128, 4100, 64, torch.float32), (128, 2056, 65, torch.bfloat16)])
 def test_sparse_kernels_match_plain_versions(cuda, n, p, d_max, dtype):
+    """Both ELL kernels on the route the rule gives (counted there, once a
+    call): mixed bitwise the plain version's, agg within fp32 tolerance,
+    both bitwise the same from call to call."""
     from repro_torch.kernels.mixing import ref, sparse
 
     idx, w = _ell(n, d_max, n * p + d_max, cuda)
     g = torch.Generator(device=cuda).manual_seed(n + p)
     X = torch.randn(n, p, generator=g, device=cuda).to(dtype)
     wrow = torch.rand(n, generator=g, device=cuda)
-    tol = F32 if dtype == torch.float32 else BF16
-    before = (sparse.sparse_mix_cuda.launches,
-              sparse.sparse_mix_aggregate_cuda.launches)
-    got = sparse.sparse_mix_cuda(idx, w, X)
-    assert got.dtype == dtype
-    torch.testing.assert_close(got.float(),
-                               ref.sparse_mix_ref(idx, w, X).float(), **tol)
-    mixed, agg = sparse.sparse_mix_aggregate_cuda(idx, w, wrow, X)
+    got, route = _routed_call(sparse.sparse_mix_cuda, idx, w, X)
+    assert got.dtype == dtype and route == _route(X, n, d_max)
+    torch.testing.assert_close(got, ref.sparse_mix_ref(idx, w, X), **BITWISE)
+    assert torch.equal(got, sparse.sparse_mix_cuda(idx, w, X))
+    (mixed, agg), route = _routed_call(sparse.sparse_mix_aggregate_cuda, idx,
+                                       w, wrow, X)
+    assert route == _route(X, n, d_max)
     mixed_r, agg_r = ref.sparse_mix_aggregate_ref(idx, w, wrow, X)
-    torch.testing.assert_close(mixed.float(), mixed_r.float(), **tol)
+    torch.testing.assert_close(mixed, mixed_r, **BITWISE)
     torch.testing.assert_close(agg, agg_r, **F32)
-    assert (sparse.sparse_mix_cuda.launches,
-            sparse.sparse_mix_aggregate_cuda.launches) == \
-        (before[0] + 1, before[1] + 1)
+    again = sparse.sparse_mix_aggregate_cuda(idx, w, wrow, X)
+    assert torch.equal(mixed, again[0]) and torch.equal(agg, again[1])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [STAGED_ROWS, STAGED_ROWS + 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_kernels_propagate_row_zero_non_finite(cuda, n, dtype):
+    """nan and +-inf in row 0 reach every row through its padding slots
+    (index 0, weight 0.0: 0 * inf = nan), as in the plain version, on the
+    staged route (n = 128) and the generic one (n = 129)."""
+    from repro_torch.kernels.mixing import ref, sparse
+
+    idx, w = _ell(n, 9, n, cuda)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    X = torch.randn(n, 2056, generator=g, device=cuda).to(dtype)
+    X[0, :7] = float("nan")
+    X[0, 7:300] = float("inf")
+    X[0, 300:301] = -float("inf")
+    wrow = torch.rand(n, generator=g, device=cuda)
+    got, route = _routed_call(sparse.sparse_mix_cuda, idx, w, X)
+    assert route == _route(X, n, 9)
+    want = ref.sparse_mix_ref(idx, w, X)
+    assert not torch.isfinite(want[1:, :301].float()).all()
+    torch.testing.assert_close(got, want, **BITWISE)
+    (mixed, agg), _ = _routed_call(sparse.sparse_mix_aggregate_cuda, idx, w,
+                                   wrow, X)
+    mixed_r, agg_r = ref.sparse_mix_aggregate_ref(idx, w, wrow, X)
+    torch.testing.assert_close(mixed, mixed_r, **BITWISE)
+    torch.testing.assert_close(agg, agg_r, **F32, equal_nan=True)
     torch.cuda.synchronize()
 
 

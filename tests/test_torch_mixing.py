@@ -224,3 +224,44 @@ def test_wrappers_use_plain_versions_on_cpu():
     # CPU tensors never count as kernel launches
     assert (mixing.mix_cuda.launches, fused.aggregate_cuda.launches,
             fused.mix_aggregate_cuda.launches) == before
+
+
+@pytest.mark.parametrize("name", ["mixing.mix_cuda", "fused.mix_aggregate_cuda",
+                                  "sparse.sparse_mix_cuda",
+                                  "sparse.sparse_mix_aggregate_cuda"])
+def test_routed_wrappers_count_nothing_on_cpu(name):
+    """The four wrappers of the kernels with a staged and a generic route
+    count launches by route in ``routes`` (keys ``_lib.ROUTES``); a CPU
+    call takes the plain version and moves neither count."""
+    from repro_torch.kernels.mixing import _lib, sparse
+
+    module, attr = name.split(".")
+    fn = getattr({"mixing": mixing, "fused": fused, "sparse": sparse}[module],
+                 attr)
+    assert _lib.ROUTES == ("generic", "staged")
+    assert set(fn.routes) == set(_lib.ROUTES)
+    assert all(isinstance(v, int) for v in fn.routes.values())
+    rng = np.random.default_rng(8)
+    n, p = 6, 40
+    X = torch.as_tensor(rng.standard_normal((n, p)).astype(np.float32))
+    A = torch.as_tensor(rng.random((n, n)).astype(np.float32))
+    w = torch.as_tensor(rng.random(n).astype(np.float32))
+    idx = torch.as_tensor(np.stack([np.arange(n), (np.arange(n) + 1) % n],
+                                   1).astype(np.int32))
+    wl = torch.as_tensor(rng.random((n, 2)).astype(np.float32))
+    calls = {"mix_cuda": (lambda: fn(A, X), lambda: ref.mix_ref(A, X)),
+             "mix_aggregate_cuda": (lambda: fn(A, w, X),
+                                    lambda: ref.mix_aggregate_ref(A, w, X)),
+             "sparse_mix_cuda": (lambda: fn(idx, wl, X),
+                                 lambda: ref.sparse_mix_ref(idx, wl, X)),
+             "sparse_mix_aggregate_cuda": (
+                 lambda: fn(idx, wl, w, X),
+                 lambda: ref.sparse_mix_aggregate_ref(idx, wl, w, X))}
+    run, plain = calls[attr]
+    launches, routes = fn.launches, dict(fn.routes)
+    got, want = run(), plain()
+    if isinstance(got, tuple):
+        assert all(torch.equal(g, h) for g, h in zip(got, want))
+    else:
+        assert torch.equal(got, want)
+    assert fn.launches == launches and fn.routes == routes
