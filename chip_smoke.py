@@ -7,7 +7,9 @@ Phases (each raises on failure; nothing is caught):
 
 1. build   -- compile every ``src/repro_torch/kernels/csrc/*.cu`` with
               ``nvcc`` (one process per source, in parallel) and print
-              each kernel's register / shared-memory use from ptxas.
+              each kernel's register / shared-memory use from ptxas, and
+              the conversion instructions in the SASS of the quantized
+              kernels on the paper's path (``cuobjdump``).
 2. kernels -- hold each dense hand-written kernel (aggregate,
               mix_aggregate, mix) against its plain PyTorch version on the
               card: at the
@@ -44,10 +46,14 @@ Phases (each raises on failure; nothing is caught):
               (the sparse kernel on the k_regular plan's ELL), ragged
               shapes (13 rows dense, a 37-row hub ELL), and the sparse
               kernel at n = 100,000 x 2,048 int8 ring.  The sparse mixed
-              output must be bitwise its plain version's.  No single
-              PyTorch call computes these functions; the dequantize +
-              torch.matmul / torch.sparse.mm pair is printed as a
-              two-call yardstick.
+              output must be bitwise its plain version's.  The dense and
+              ELL mixes print their routes and must take the rule's
+              (staged for n <= 128 and d_max <= 64: all but the ring);
+              on the staged route both outputs of each must equal the
+              fp32 staged kernel's on ``dequantize_group``'s payload,
+              bitwise.  No single PyTorch call computes these functions;
+              the dequantize + torch.matmul / torch.sparse.mm pair is
+              printed as a two-call yardstick.
    flash   -- the flash-attention kernel against its plain version
               (``flash_attention_ref``): bf16, the tensor-core route, at
               qwen2-7b's prefill shape (B 2, S 2048, 28 / 4 heads of 128,
@@ -94,8 +100,10 @@ Phases (each raises on failure; nothing is caught):
               (bookkeeping exactly equal; params within rtol 1e-4 / atol
               1e-5 or, where a rounding decision flipped, within one grid
               step times the combine weight, summed over the rounds;
-              scanned == sequential bitwise), with the time of the
-              plain-PyTorch quantizer in a round; and one traced int8 run.
+              scanned == sequential bitwise; every mix_aggregate_dequant
+              and sparse_mix_aggregate_dequant launch on the staged
+              route), with the time of the plain-PyTorch quantizer in a
+              round; and one traced int8 run.
 4. scale   -- an n = 100,000 ``ring`` plan built sparse (12,500
               clusters of 8), one round of the logreg model (7,850
               params, T = 1, batch 8 drawn from the seed) on 'sparse' and
@@ -111,7 +119,7 @@ Phases (each raises on failure; nothing is caught):
               in fp32 at 4 layers: flash vs ref logits within 1e-4,
               prefill + decode vs the forward within 2e-3.
 6. report  -- a ``{"kernels": [...]}`` JSON line (nine kernels; the
-              four routed ones with the ``routes`` of their main-path
+              six routed ones with the ``routes`` of their main-path
               launches), the card's name and power limit (nvidia-smi),
               and the final ``{"ok": true, "device": {...}}`` line.
 
@@ -123,6 +131,7 @@ outside a checkout of the repository.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -163,11 +172,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def routed(fn, *args):
-    """``fn(*args)`` through a wrapper that counts its launches by route
-    (``fn.routes``), and the route that one call's launch took."""
+def routed(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` through a wrapper that counts its launches
+    by route (``fn.routes``), and the route that one call's launch
+    took."""
     before = dict(fn.routes)
-    out = fn(*args)
+    out = fn(*args, **kwargs)
     moved = [r for r in fn.routes if fn.routes[r] != before[r]]
     if len(moved) != 1:
         raise AssertionError(f"{fn.__name__}: routes {before} -> "
@@ -199,6 +209,52 @@ def phase_build():
             for line in log.read_text().splitlines():
                 if "registers" in line or "Compiling entry" in line:
                     print(f"[build]   {line.strip()}")
+        if lib.name.startswith("libquant_mixing-"):
+            sass_conversions(lib)
+
+
+# the quantized kernels' instances on the paper's path (n = 70, d_max 9):
+# generic dense RM 5, staged dense RM 9, both ELL D 16, and aggregate; a
+# template's first argument is the storage (0 int8, 1 int4, 2 fp8)
+SASS_KERNELS = re.compile(
+    r"(mix_aggregate_dequant_kernelILi(\d)ELi5E|mix_dequant_staged_kernelILi"
+    r"(\d)ELi9E|sparse_mix_dequant_kernelILi(\d)ELi16E|"
+    r"sparse_dequant_staged_kernelILi(\d)ELi16E|"
+    r"aggregate_dequant_kernelILi(\d)EE)")
+SASS_OP = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def sass_conversions(lib) -> None:
+    """Print the conversion instructions (I2F*, F2F*, F2FP*, HADD2.F32)
+    of the quantized kernels in ``SASS_KERNELS``, counted in the SASS that
+    ``cuobjdump`` reads from the built library: where each decodes, and on
+    which pipe.  Static counts: the generic kernels' sit in the slot loop,
+    the staged kernels' in the decode pass once a tile."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    name, ops, total = None, {}, 0
+
+    def flush():
+        if name is not None:
+            print(f"[build]   sass {name}: {total} instructions, "
+                  f"conversions {dict(sorted(ops.items())) or 'none'}")
+
+    for line in sass.splitlines():
+        if "Function : " in line:
+            flush()
+            m = SASS_KERNELS.search(line)
+            name = m.group(1) if m else None
+            ops, total = {}, 0
+        elif name is not None:
+            m = SASS_OP.search(line)
+            if m:
+                total += 1
+                op = m.group(1)
+                if op.startswith(("I2F", "F2F")) or op == "HADD2.F32":
+                    ops[op] = ops.get(op, 0) + 1
+    flush()
 
 
 # -- phase 2 ----------------------------------------------------------------
@@ -498,8 +554,12 @@ def phase_quant_kernels(seed: int):
     ``k_regular`` plan of the paper's configuration), at ragged shapes (13
     rows dense, a 37-row ``hub`` ELL), and the sparse kernel at n = 100,000
     x 2,048 int8 ``ring``.  The CUDA quantizer must give the CPU's stored
-    containers and scales bitwise.  Returns the report rows (int8 at the
-    paper's shape; launch counts filled in by phase 3)."""
+    containers and scales bitwise.  mix_aggregate_dequant and
+    sparse_mix_aggregate_dequant must take the route the rule gives
+    (staged everywhere but the ring) and, on the staged route, equal the
+    fp32 staged kernels on the dequantized payload bitwise.  Returns the
+    report rows (int8 at the paper's shape; launch counts filled in by
+    phase 3)."""
     import torch
     from repro_torch.fl import packing
     from repro_torch.kernels.mixing import fused, ops, ref, sparse
@@ -534,7 +594,9 @@ def phase_quant_kernels(seed: int):
             size=(n + 1, n), check_invariants=True)
 
     def case(label, Xf, storage, dense, ell, timed):
-        """Quantize Xf, check the kernels, optionally time them."""
+        """Quantize Xf, check the kernels on the route the rule gives
+        (csrc/quant_mixing.cu: staged for n <= 128, the ELL also d_max
+        <= 64), optionally time them."""
         quant = packing.QuantSpec(storage=storage, block=block)
         n, p = Xf.shape
         Xq, S = packing.quantize_group(Xf, quant)
@@ -551,31 +613,64 @@ def phase_quant_kernels(seed: int):
               f"{Xq.numel() * Xq.element_size() / 1e6:.1f} MB + scales "
               f"{S.numel() * 4 / 1e6:.2f} MB; CUDA quantizer == CPU "
               f"quantizer bitwise)")
-        errs = {}
+        errs, routes = {}, {}
+
+        def on_route(name, route, want_route, got, staged_twin):
+            """The route must be the rule's; on the staged route both
+            outputs must equal the fp32 staged kernel's on the payload
+            dequantize_group gives, bitwise."""
+            print(f"[quant]   {name}: route {route}")
+            if route != want_route:
+                raise AssertionError(f"{name} at n = {n} took the {route} "
+                                     f"route, not {want_route}")
+            routes[name] = route
+            if route != "staged":
+                return
+            (twin, twin_route) = routed(
+                *staged_twin(packing.dequantize_group(Xq, S, quant)))
+            same = twin_route == "staged" and all(
+                torch.equal(a, b) for a, b in zip(got, twin))
+            print(f"[quant]   {name}: == the fp32 staged kernel on "
+                  f"dequantize_group's payload, bitwise: {same}")
+            if not same:
+                raise AssertionError(f"{name} differs from the fp32 staged "
+                                     "kernel on the dequantized payload")
+
         if dense is not None:
             A, w = dense
             errs["aggregate_dequant"] = check(
                 "aggregate_dequant", fused.aggregate_dequant_cuda(
                     w, Xq, S, **q),
                 ref.aggregate_dequant_ref(w, Xq, S, storage, block))
-            got = fused.mix_aggregate_dequant_cuda(A, w, Xq, S, **q)
+            got, route = routed(fused.mix_aggregate_dequant_cuda, A, w, Xq,
+                                S, **q)
             want = ref.mix_aggregate_dequant_ref(A, w, Xq, S, storage,
                                                  block)
             errs["mix_aggregate_dequant"] = max(
                 check("mix_aggregate_dequant/mixed", got[0], want[0]),
                 check("mix_aggregate_dequant/agg", got[1], want[1]))
-            del got, want
+            del want
+            on_route("mix_aggregate_dequant", route,
+                     "staged" if n <= 128 else "generic", got,
+                     lambda x: (fused.mix_aggregate_cuda, A, w, x))
+            del got
         if ell is not None:
             Asp, idx, wl, wrow = ell
-            got = sparse.sparse_mix_aggregate_dequant_cuda(idx, wl, wrow, Xq,
-                                                           S, **q)
+            got, route = routed(sparse.sparse_mix_aggregate_dequant_cuda,
+                                idx, wl, wrow, Xq, S, **q)
             want = ref.sparse_mix_aggregate_dequant_ref(idx, wl, wrow, Xq, S,
                                                         storage, block)
             errs["sparse_mix_aggregate_dequant"] = max(
                 check("sparse_mix_aggregate_dequant/mixed", got[0], want[0],
                       bitwise=True),
                 check("sparse_mix_aggregate_dequant/agg", got[1], want[1]))
-            del got, want
+            del want
+            on_route("sparse_mix_aggregate_dequant", route,
+                     "staged" if n <= 128 and idx.shape[1] <= 64
+                     else "generic", got,
+                     lambda x: (sparse.sparse_mix_aggregate_cuda, idx, wl,
+                                wrow, x))
+            del got
         torch.cuda.synchronize()
         if not timed:
             return {}
@@ -623,8 +718,9 @@ def phase_quant_kernels(seed: int):
             plain_ms = cuda_ms(plain, iters=5)
             yard_ms = cuda_ms(yard, iters=10)
             b_ms, b_by = bound(nbytes, flops)
-            print(f"[quant] {name} @ {label} ({n}, {p}) {storage}: "
-                  f"{ms:.4f} ms (plain {plain_ms:.4f} ms; yardstick, two "
+            print(f"[quant] {name} @ {label} ({n}, {p}) {storage}"
+                  + (f", route {routes[name]}" if name in routes else "")
+                  + f": {ms:.4f} ms (plain {plain_ms:.4f} ms; yardstick, two "
                   f"calls, {yard_name} {yard_ms:.4f} ms; bound {b_ms:.4f} "
                   f"ms by {b_by}: {b_ms / ms:.1%} of it; "
                   f"{nbytes / ms / 1e6:.0f} GB/s)")
@@ -877,8 +973,10 @@ def phase_train(rounds: int, seed: int):
         loss_fn, init, batcher, spec, rounds, seed, counters)
     trace_device(lambda: run("fused", False, False, evaluate=False),
                  f"aggregate path, {rounds} sequential rounds (no eval)")
-    launches.update(train_quant(run, server_for, loss_fn, bookkeeping,
-                                counters, groups, rounds))
+    quant_launches, quant_routes = train_quant(
+        run, server_for, loss_fn, bookkeeping, counters, groups, rounds)
+    launches.update(quant_launches)
+    path_routes.update(quant_routes)
     return launches, path_routes
 
 
@@ -890,7 +988,9 @@ def train_quant(run, server_for, loss_fn, bookkeeping, counters, groups,
     row and aggregate_dequant) and 'sparse' with record_mixed (->
     sparse_mix_aggregate_dequant), and int4 and fp8 on the default route,
     each scanned and sequential, against the quantized 'einsum' oracle of
-    its storage.  Returns the dequant kernels' launches."""
+    its storage.  Every mix_aggregate_dequant and
+    sparse_mix_aggregate_dequant launch must take the staged route.
+    Returns the dequant kernels' launches and the routed ones' routes."""
     import torch
     from repro_torch.core.pytree import tree_flatten
     from repro_torch.core.rounds import client_deltas, make_round_fn
@@ -908,7 +1008,7 @@ def train_quant(run, server_for, loss_fn, bookkeeping, counters, groups,
               "sparse_mix_aggregate_dequant"),
              ("int4", "fused", False, "aggregate", "aggregate_dequant"),
              ("fp8", "fused", False, "aggregate", "aggregate_dequant")]
-    oracles, launches = {}, {}
+    oracles, launches, path_routes = {}, {}, {}
     for storage in ("int8", "int4", "fp8"):
         quant = packing.QuantSpec(storage=storage, block=512)
         srv, hist_srv = run("einsum", False, False, quant=quant)[:2]
@@ -962,8 +1062,8 @@ def train_quant(run, server_for, loss_fn, bookkeeping, counters, groups,
         hist_o, leaves_o, allow_o = oracles[storage]
         finals = {}
         for scan in (False, True):
-            server, hist, counts, ms, _ = run(backend, record_mixed, scan,
-                                              quant=quant)
+            server, hist, counts, ms, routes = run(backend, record_mixed,
+                                                   scan, quant=quant)
             if server.effective_backend != effective:
                 raise AssertionError(
                     f"quant {backend} record_mixed={record_mixed} "
@@ -974,6 +1074,16 @@ def train_quant(run, server_for, loss_fn, bookkeeping, counters, groups,
                                      f"{counts}, expected {groups} "
                                      f"{kernel} a round")
             launches[kernel] = launches.get(kernel, 0) + counts[kernel]
+            if kernel in routes:          # n = 70: all staged
+                want = {"generic": 0, "staged": groups * rounds}
+                if routes[kernel] != want:
+                    raise AssertionError(f"quant {kernel} on {effective}: "
+                                         f"routes {routes[kernel]}, not "
+                                         f"{want}")
+                total = path_routes.setdefault(kernel,
+                                               dict.fromkeys(want, 0))
+                for r in want:
+                    total[r] += routes[kernel][r]
             if bookkeeping(hist) != bookkeeping(hist_o):
                 raise AssertionError(f"quant {effective}: History "
                                      "bookkeeping differs from einsum")
@@ -995,7 +1105,10 @@ def train_quant(run, server_for, loss_fn, bookkeeping, counters, groups,
             print(f"[train] quant {storage} {backend} "
                   f"record_mixed={record_mixed} -> {effective}, "
                   f"{'scanned' if scan else 'sequential'}: {counts[kernel]} "
-                  f"{kernel} launches, round ms {[round(x, 1) for x in ms]}, "
+                  f"{kernel} launches"
+                  + (f" (routes {routes[kernel]})" if kernel in routes
+                     else "")
+                  + f", round ms {[round(x, 1) for x in ms]}, "
                   f"max|params - einsum| {worst:.3e} ({flipped} past rtol "
                   f"1e-4 / atol 1e-5, all within the one-step allowance), "
                   f"test_acc {[r.metrics['test_acc'] for r in hist.records]}")
@@ -1011,7 +1124,7 @@ def train_quant(run, server_for, loss_fn, bookkeeping, counters, groups,
                              quant=quant),
                  f"quant int8 aggregate path, {rounds} sequential rounds "
                  "(no eval)")
-    return launches
+    return launches, path_routes
 
 
 def mix_alone(loss_fn, init, batcher, spec, rounds, seed, counters):

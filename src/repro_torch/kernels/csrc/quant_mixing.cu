@@ -15,7 +15,8 @@
 //                                agg = wrow @ x over x = deq(Xq, S)
 //
 // Build (one shared library per source, plain C ABI, loaded with ctypes by
-// repro_torch/kernels/_build.py):
+// repro_torch/kernels/_build.py; the source includes csrc/staged.cuh, whose
+// edits therefore rename this library too):
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -Xptxas -v -o libquant_mixing.so quant_mixing.cu
@@ -54,11 +55,14 @@
 //                                   float* mixed,    // (n, p) f32 out
 //                                   float* agg,      // (p,) f32 out
 //                                   int n, long long p, int block,
-//                                   int storage, int device, void* stream);
+//                                   int storage, int device, void* stream,
+//                                   int* route);  // out: 1 staged, 0 generic
 //
 //   int repro_sparse_dequant_row_groups(int n, long long p);
-//       the number G of row groups the sparse kernel splits the n rows
-//       into; the aggregate leg needs a (G, p) f32 scratch when G > 1.
+//       the number G of row groups the generic route of the sparse kernel
+//       splits the n rows into; its aggregate leg needs a (G, p) f32
+//       scratch when G > 1.  The staged route never splits (G = 1) and
+//       leaves the scratch untouched.
 //
 //   int repro_sparse_mix_aggregate_dequant(
 //       const int* idx,      // (n, d_max) int32 in-neighbours, in [0, n)
@@ -69,7 +73,8 @@
 //       float* agg,          // (p,) f32 out
 //       float* partial,      // (G, p) f32 scratch when G > 1
 //       int n, int d_max, long long p, int block, int storage,
-//       int device, void* stream);
+//       int device, void* stream,
+//       int* route);         // out: 1 staged, 0 generic (set on success)
 //
 // Arithmetic.  aggregate and mix_aggregate accumulate fmaf(w, deq, acc)
 // over the rows in order (fp32, no tensor cores).  The sparse kernel does,
@@ -78,10 +83,60 @@
 // rounded apart (__fmul_rn / __fadd_rn), as the reference's _gather_mix:
 // its mixed output is bitwise its plain version's
 // (ref.py::sparse_mix_aggregate_dequant_ref); its agg is an fp32 FMA sum.
+//
+// Routes of mix_aggregate_dequant and sparse_mix_aggregate_dequant; the
+// rule is static (no fallback between them: a launch that fails raises):
+//
+//   staged   when n <= kStagedRows (128), for the ELL also d_max <=
+//            kStagedSlots (64), and mixed and agg are 16-byte aligned
+//            (Xq always is and p % 128 == 0, so every container row and
+//            128-column tile meets TMA's 16-byte rules and no tile is
+//            ragged);
+//   generic  otherwise (n = 129 and up, the n = 100,000 ring, d_max > 64):
+//            the first kernels, mix_aggregate_dequant_kernel and
+//            sparse_mix_dequant_kernel below.
+//
+// Staged route (mix_dequant_staged_kernel, sparse_dequant_staged_kernel):
+//   * csrc/staged.cuh's persistent CTAs (8 consumer warps + a producer
+//     warp) walk 128-column tiles, and the producer keeps a two-stage ring
+//     of container slabs (all n rows of a tile: 128 bytes a row for int8 /
+//     fp8, 64 for int4) filled by 1-D TMA bulk copies, so HBM sees the
+//     payload once.  A tile lies inside one scale block, so it needs n
+//     scales.  TMA cannot move them (a row of S is p / block * 4 bytes,
+//     not a multiple of 16 at the paper's shape), so consumer thread t < n
+//     loads row t's scale of the next tile with __ldg while this tile
+//     computes and stores it to a shared row before the barrier that
+//     precedes the next decode, so the load's latency stays out of the
+//     decode pass (a dependent __ldg in each decode iteration left the
+//     dense kernel well behind its fp32 twin on the H100).
+//   * Once a tile, the 256 consumer threads decode the landed container
+//     slab into one fp32 slab (n x 512 bytes), each value once (Word::
+//     decode, __fmul_rn by its row's scale: bitwise dequantize_group), and
+//     release the container stage so the producer refills it early.  The
+//     decode is the generic kernels' (I2FP / I2F.S8, F2FP + HADD2.F32 for
+//     fp8); exact bit-trick decodes on the FP32 / INT pipes timed no
+//     faster here, since a tile decodes each value once.  A
+//     named barrier separates the decode from the compute; the dense kernel
+//     takes a second one before the decode (every warp done reading the
+//     previous tile's slab), the ELL kernel's agg barrier already is one.
+//     One fp32 slab, not two, keeps the paper's shape at two CTAs an SM
+//     (dense, ~81 KB) or three (ELL, ~63 KB); n = 128 fits one (~180 KB,
+//     ~169 KB at d_max 64).
+//   * The compute loops are the fp32 staged kernels' on the fp32 slab:
+//     dense, B = [A; w] resident as Bs[k][q * RMP + r], warp q rows q * RM
+//     .. q * RM + RM - 1, fmaf in k order; ELL, idx / w / wrow resident,
+//     warp q rows q, q + 8, ..., slots in order with __fmul_rn /
+//     __fadd_rn, padding slots included, the eight warps' agg partials
+//     added in warp order.  So on the same dequantized values both outputs
+//     of both kernels equal the fp32 staged kernels' bitwise
+//     (csrc/mixing.cu, csrc/sparse_mixing.cu), and the ELL mixed output
+//     its plain version's.
 
 #include <cuda_runtime.h>
 #include <cuda_fp8.h>
 #include <stdint.h>
+
+#include "staged.cuh"
 
 namespace {
 
@@ -612,6 +667,348 @@ cudaError_t launch_sparse(const int* idx, const float* w, const float* wrow,
 #undef REPRO_SPARSE_D
 }
 
+// ---------------------------------------------------------------------------
+// The staged route of mix_aggregate_dequant and
+// sparse_mix_aggregate_dequant (see the header): csrc/staged.cuh's ring on
+// the container bytes, one decode pass a tile into an fp32 slab, then the
+// compute loops of csrc/mixing.cu::mix_staged_kernel and
+// csrc/sparse_mixing.cu::sparse_mix_staged_kernel on that slab.
+
+constexpr int kStagedRows = 128;      // n limit
+constexpr int kStagedSlots = 64;      // d_max limit (the ELL)
+constexpr int kStagedCols = 128;      // columns a tile: one scale block's
+constexpr int kF32Row = kStagedCols * 4;   // bytes of a decoded slab row
+constexpr int kStagedRM = (kStagedRows + 1 + staged::kConsumerWarps - 1) /
+                          staged::kConsumerWarps;     // RM <= 17
+
+// bytes of a container slab row: the tile's columns in the wire format
+__host__ __device__ constexpr int container_row(int st) {
+  return st == kInt4 ? kStagedCols / 2 : kStagedCols;
+}
+
+// The decode pass of a tile.  `scale` is consumer thread t's scale of
+// tile `tile` (row t, t < n), which the kernels load one tile ahead into
+// the shared row sc; `run` turns the landed container slab of local tile j
+// into the fp32 slab xf (n rows of kStagedCols values), each value decoded
+// once and multiplied by its row's scale from sc (dequant_words: bitwise
+// packing.dequantize_group), then releases the container stage.  A
+// consumers_sync() must separate `run` from any read of xf and from the
+// writes of sc before it and after it.
+template <int ST>
+struct Decode {
+  static constexpr int kWords = container_row(ST) / 4;   // words a row
+
+  __device__ __forceinline__ static float scale(const float* __restrict__ S,
+                                                int n, long long nb,
+                                                int block, long long tile,
+                                                long long tiles) {
+    return (int)threadIdx.x < n && tile < tiles
+               ? __ldg(S + threadIdx.x * nb + tile * kStagedCols / block)
+               : 0.f;
+  }
+
+  __device__ __forceinline__ static void run(const staged::Ring& ring,
+                                             const unsigned char* smem,
+                                             int j, float* xf,
+                                             const float* sc, int n) {
+    constexpr int K = Word<ST>::kVals;                   // values a word
+    const uint32_t* q = reinterpret_cast<const uint32_t*>(
+        smem + ring.slab_offset(j % staged::kStages));
+    for (int e = threadIdx.x; e < n * kWords; e += staged::kConsumers) {
+      const int r = e / kWords;
+      const uint32_t u[1] = {q[e]};
+      float v[K];
+      dequant_words<ST, 1>(u, sc[r], v);
+      float* dst = xf + r * kStagedCols + (e % kWords) * K;
+#pragma unroll
+      for (int t = 0; t < K; t += 4)
+        *reinterpret_cast<float4*>(dst + t) =
+            make_float4(v[t], v[t + 1], v[t + 2], v[t + 3]);
+    }
+    ring.release(j);
+  }
+};
+
+// mix_aggregate_dequant, staged.  Dynamic shared memory: the ring of
+// container slabs, the fp32 slab xf, Bs[k][q * RMP + r] = B[q * RM + r, k]
+// (zero for r >= RM or rows > n), resident, and the scale row sc.  Warp q
+// computes rows q * RM .. q * RM + RM - 1, a lane 4 columns, with fmaf in
+// k order: the same sums as mix_staged_kernel on the dequantized payload.
+template <int ST, int RM>
+__global__ void __launch_bounds__(staged::kThreads, 1)
+mix_dequant_staged_kernel(const float* __restrict__ B,
+                          const uint8_t* __restrict__ Xq,
+                          const float* __restrict__ S,
+                          float* __restrict__ mixed, float* __restrict__ agg,
+                          int n, long long p, int block, long long tiles) {
+  constexpr int W = staged::kConsumerWarps;
+  constexpr int RMP = (RM + 3) / 4 * 4;          // rows padded for float4
+  extern __shared__ __align__(16) unsigned char smem[];
+  const staged::Ring ring(smem, n, container_row(ST));
+  float* xf = reinterpret_cast<float*>(smem + ring.slab_offset(staged::kStages));
+  float* Bs = xf + n * kStagedCols;
+  float* sc = Bs + n * W * RMP;
+  const int R = n + 1;
+  const long long nb = p / block;
+
+  if (threadIdx.x == 0) ring.init();
+  for (int e = threadIdx.x; e < n * W * RMP; e += blockDim.x) {
+    const int k = e / (W * RMP), q = (e / RMP) % W, r = e % RMP;
+    const int row = q * RM + r;
+    Bs[e] = (r < RM && row < R) ? B[(long long)row * n + k] : 0.f;
+  }
+  if ((int)threadIdx.x < n)
+    sc[threadIdx.x] = Decode<ST>::scale(S, n, nb, block, blockIdx.x, tiles);
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == W) {
+    ring.produce(Xq, p / kStagedCols * container_row(ST), tiles);
+    return;
+  }
+  const float* bw = Bs + warp * RMP;
+  const unsigned char* xs =
+      reinterpret_cast<const unsigned char*>(xf) + lane * 16;
+  int j = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++j) {
+    ring.wait_full(j);
+    staged::consumers_sync();      // xf read and sc written by every warp
+    Decode<ST>::run(ring, smem, j, xf, sc, n);
+    staged::consumers_sync();
+    // the next tile's scale, in flight while this tile computes
+    const float s_next =
+        Decode<ST>::scale(S, n, nb, block, tile + gridDim.x, tiles);
+    float acc[RM][4];
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < n; ++k) {
+      const float4 x4 = *reinterpret_cast<const float4*>(xs + k * kF32Row);
+      const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+      float b[RMP];
+#pragma unroll
+      for (int q = 0; q < RMP; q += 4) {
+        const float4 t =
+            *reinterpret_cast<const float4*>(bw + k * (W * RMP) + q);
+        b[q] = t.x; b[q + 1] = t.y; b[q + 2] = t.z; b[q + 3] = t.w;
+      }
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(b[r], x[c], acc[r][c]);
+    }
+    if ((int)threadIdx.x < n) sc[threadIdx.x] = s_next;
+    const long long col = tile * kStagedCols + lane * 4;   // p % 128 == 0
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const int row = warp * RM + r;
+      if (row > n) break;
+      float* out = row < n ? mixed + (long long)row * p + col : agg + col;
+      __stcs(reinterpret_cast<float4*>(out),
+             make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
+    }
+  }
+}
+
+// sparse_mix_aggregate_dequant, staged.  Dynamic shared memory: the ring
+// of container slabs, the fp32 slab xf, idx / w (n rows of dp = d_max
+// rounded up to 4 slots: a row's slots load 4 at a time as 16-byte
+// broadcasts) and wrow (n), one row of the consumer warps' agg partials,
+// and the scale row sc.  Warp q computes rows q, q + 8, ...; a lane owns 4
+// columns, so each gather is one 16-byte load from xf.  The sums are
+// sparse_mix_staged_kernel's.
+__host__ __device__ inline int padded_slots(int d_max) {
+  return (d_max + 3) / 4 * 4;
+}
+
+__host__ __device__ inline long long staged_lists_bytes(int n, int d_max) {
+  return ((long long)n * (2 * padded_slots(d_max) + 1) * 4 + 15) / 16 * 16;
+}
+
+template <int ST, int D>
+__global__ void __launch_bounds__(staged::kThreads, 1)
+sparse_dequant_staged_kernel(const int* __restrict__ idx,
+                             const float* __restrict__ w,
+                             const float* __restrict__ wrow,
+                             const uint8_t* __restrict__ Xq,
+                             const float* __restrict__ S,
+                             float* __restrict__ mixed,
+                             float* __restrict__ agg, int n, int d_max,
+                             long long p, int block, long long tiles) {
+  constexpr int W = staged::kConsumerWarps;
+  constexpr int TC = kStagedCols;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const staged::Ring ring(smem, n, container_row(ST));
+  float* xf = reinterpret_cast<float*>(smem + ring.slab_offset(staged::kStages));
+  unsigned char* lists = reinterpret_cast<unsigned char*>(xf + n * TC);
+  const int dp = padded_slots(d_max);
+  int* idx_s = reinterpret_cast<int*>(lists);
+  float* w_s = reinterpret_cast<float*>(idx_s + n * dp);
+  float* wrow_s = w_s + n * dp;
+  float* part = reinterpret_cast<float*>(lists + staged_lists_bytes(n, d_max));
+  float* sc = part + W * TC;
+  const long long nb = p / block;
+
+  if (threadIdx.x == 0) ring.init();
+  for (int e = threadIdx.x; e < n * dp; e += blockDim.x) {
+    const int i = e / dp, k = e % dp;
+    idx_s[e] = k < d_max ? idx[i * d_max + k] : 0;
+    w_s[e] = k < d_max ? w[i * d_max + k] : 0.f;
+  }
+  for (int e = threadIdx.x; e < n; e += blockDim.x) wrow_s[e] = wrow[e];
+  if ((int)threadIdx.x < n)
+    sc[threadIdx.x] = Decode<ST>::scale(S, n, nb, block, blockIdx.x, tiles);
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == W) {
+    ring.produce(Xq, p / kStagedCols * container_row(ST), tiles);
+    return;
+  }
+  const unsigned char* slab =
+      reinterpret_cast<const unsigned char*>(xf) + lane * 16;
+  int j = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++j) {
+    ring.wait_full(j);
+    // every warp read xf and part and wrote sc last before the previous
+    // tile's agg barrier
+    Decode<ST>::run(ring, smem, j, xf, sc, n);
+    staged::consumers_sync();
+    // the next tile's scale, in flight while this tile computes
+    const float s_next =
+        Decode<ST>::scale(S, n, nb, block, tile + gridDim.x, tiles);
+    const long long col = tile * TC + lane * 4;            // p % 128 == 0
+    float aacc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int i = warp; i < n; i += W) {
+      const int* ip = idx_s + i * dp;
+      const float* wp = w_s + i * dp;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      auto slot = [&](int id, float wk) {
+        const float4 v = *reinterpret_cast<const float4*>(slab + id * kF32Row);
+        acc[0] = __fadd_rn(acc[0], __fmul_rn(wk, v.x));
+        acc[1] = __fadd_rn(acc[1], __fmul_rn(wk, v.y));
+        acc[2] = __fadd_rn(acc[2], __fmul_rn(wk, v.z));
+        acc[3] = __fadd_rn(acc[3], __fmul_rn(wk, v.w));
+      };
+      // slots k4 .. k4 + 3, in order, those < d_max
+      auto slots4 = [&](int k4) {
+        const int4 id = *reinterpret_cast<const int4*>(ip + k4);
+        const float4 wk = *reinterpret_cast<const float4*>(wp + k4);
+        slot(id.x, wk.x);
+        if (k4 + 1 < d_max) slot(id.y, wk.y);
+        if (k4 + 2 < d_max) slot(id.z, wk.z);
+        if (k4 + 3 < d_max) slot(id.w, wk.w);
+      };
+      if constexpr (D > 0) {
+#pragma unroll
+        for (int k4 = 0; k4 < D; k4 += 4)
+          if (k4 < d_max) slots4(k4);
+      } else {
+        for (int k4 = 0; k4 < d_max; k4 += 4) slots4(k4);
+      }
+      const float4 v = *reinterpret_cast<const float4*>(slab + i * kF32Row);
+      const float wi = wrow_s[i];
+      aacc[0] = fmaf(wi, v.x, aacc[0]);
+      aacc[1] = fmaf(wi, v.y, aacc[1]);
+      aacc[2] = fmaf(wi, v.z, aacc[2]);
+      aacc[3] = fmaf(wi, v.w, aacc[3]);
+      __stcs(reinterpret_cast<float4*>(mixed + (long long)i * p + col),
+             make_float4(acc[0], acc[1], acc[2], acc[3]));
+    }
+    // the eight warps' partial rows, added in warp order
+    *reinterpret_cast<float4*>(part + warp * TC + lane * 4) =
+        make_float4(aacc[0], aacc[1], aacc[2], aacc[3]);
+    if ((int)threadIdx.x < n) sc[threadIdx.x] = s_next;
+    staged::consumers_sync();
+    for (int c = threadIdx.x; c < TC; c += staged::kConsumers) {
+      float t = part[c];
+#pragma unroll
+      for (int q = 1; q < W; ++q) t += part[q * TC + c];
+      agg[tile * TC + c] = t;
+    }
+  }
+}
+
+template <int ST, int RM>
+cudaError_t launch_mix_staged_rm(const float* B, const void* Xq,
+                                 const float* S, float* mixed, float* agg,
+                                 int n, long long p, int block, int device,
+                                 cudaStream_t stream) {
+  constexpr int RMP = (RM + 3) / 4 * 4;
+  const long long tiles = p / kStagedCols;
+  const long long slab = (long long)n * container_row(ST);
+  const long long resident =
+      (long long)n * kF32Row +
+      (long long)n * staged::kConsumerWarps * RMP * sizeof(float) + n * 4;
+  const long long smem = staged::smem_for(slab, resident);
+  auto kernel = mix_dequant_staged_kernel<ST, RM>;
+  unsigned grid = 0;
+  cudaError_t err = staged::grid_for(kernel, smem, tiles, device, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, staged::kThreads, smem, stream>>>(
+      B, static_cast<const uint8_t*>(Xq), S, mixed, agg, n, p, block, tiles);
+  return cudaGetLastError();
+}
+
+// RM = ceil((n + 1) / 8): the instance RM0, RM0 + 1, ... that matches
+template <int ST, int RM0 = 1>
+cudaError_t launch_mix_staged(int rm, const float* B, const void* Xq,
+                              const float* S, float* mixed, float* agg,
+                              int n, long long p, int block, int device,
+                              cudaStream_t stream) {
+  if constexpr (RM0 > kStagedRM) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (rm == RM0)
+      return launch_mix_staged_rm<ST, RM0>(B, Xq, S, mixed, agg, n, p, block,
+                                           device, stream);
+    return launch_mix_staged<ST, RM0 + 1>(rm, B, Xq, S, mixed, agg, n, p,
+                                          block, device, stream);
+  }
+}
+
+template <int ST, int D>
+cudaError_t launch_sparse_staged_d(const int* idx, const float* w,
+                                   const float* wrow, const void* Xq,
+                                   const float* S, float* mixed, float* agg,
+                                   int n, int d_max, long long p, int block,
+                                   int device, cudaStream_t stream) {
+  const long long tiles = p / kStagedCols;
+  const long long slab = (long long)n * container_row(ST);
+  const long long resident = (long long)n * kF32Row +
+                             staged_lists_bytes(n, d_max) +
+                             (long long)staged::kConsumerWarps * kF32Row +
+                             n * 4;
+  const long long smem = staged::smem_for(slab, resident);
+  auto kernel = sparse_dequant_staged_kernel<ST, D>;
+  unsigned grid = 0;
+  cudaError_t err = staged::grid_for(kernel, smem, tiles, device, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, staged::kThreads, smem, stream>>>(
+      idx, w, wrow, static_cast<const uint8_t*>(Xq), S, mixed, agg, n, d_max,
+      p, block, tiles);
+  return cudaGetLastError();
+}
+
+template <int ST>
+cudaError_t launch_sparse_staged(const int* idx, const float* w,
+                                 const float* wrow, const void* Xq,
+                                 const float* S, float* mixed, float* agg,
+                                 int n, int d_max, long long p, int block,
+                                 int device, cudaStream_t stream) {
+#define REPRO_STAGED_D(D)                                                    \
+  return launch_sparse_staged_d<ST, D>(idx, w, wrow, Xq, S, mixed, agg, n,   \
+                                       d_max, p, block, device, stream)
+  // slots go 4 at a time, so D = 4 also serves d_max <= 2
+  if (d_max <= 4) REPRO_STAGED_D(4);
+  if (d_max <= 8) REPRO_STAGED_D(8);
+  if (d_max <= 16) REPRO_STAGED_D(16);
+  REPRO_STAGED_D(0);
+#undef REPRO_STAGED_D
+}
+
 // The host-side checks every entry point shares: a valid storage code, a
 // block the storage allows, p a multiple of it, a 16-byte aligned Xq.
 bool valid_geometry(const void* Xq, long long p, int block, int storage) {
@@ -659,7 +1056,7 @@ int repro_aggregate_dequant(const float* w, const void* Xq, const float* S,
 int repro_mix_aggregate_dequant(const float* B, const void* Xq,
                                 const float* S, float* mixed, float* agg,
                                 int n, long long p, int block, int storage,
-                                int device, void* stream) {
+                                int device, void* stream, int* route) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!valid_geometry(Xq, p, block, storage) ||
@@ -668,11 +1065,29 @@ int repro_mix_aggregate_dequant(const float* B, const void* Xq,
     return (int)cudaErrorInvalidValue;
   if (p <= 0 || n <= 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= kStagedRows) {
+    const int rm = (n + 1 + staged::kConsumerWarps - 1) /
+                   staged::kConsumerWarps;
+    if (storage == kInt8)
+      err = launch_mix_staged<kInt8>(rm, B, Xq, S, mixed, agg, n, p, block,
+                                     device, s);
+    else if (storage == kInt4)
+      err = launch_mix_staged<kInt4>(rm, B, Xq, S, mixed, agg, n, p, block,
+                                     device, s);
+    else
+      err = launch_mix_staged<kFp8>(rm, B, Xq, S, mixed, agg, n, p, block,
+                                    device, s);
+    if (err == cudaSuccess) *route = 1;
+    return (int)err;
+  }
   if (storage == kInt8)
-    return (int)launch_mix<kInt8>(B, Xq, S, mixed, agg, n, p, block, s);
-  if (storage == kInt4)
-    return (int)launch_mix<kInt4>(B, Xq, S, mixed, agg, n, p, block, s);
-  return (int)launch_mix<kFp8>(B, Xq, S, mixed, agg, n, p, block, s);
+    err = launch_mix<kInt8>(B, Xq, S, mixed, agg, n, p, block, s);
+  else if (storage == kInt4)
+    err = launch_mix<kInt4>(B, Xq, S, mixed, agg, n, p, block, s);
+  else
+    err = launch_mix<kFp8>(B, Xq, S, mixed, agg, n, p, block, s);
+  if (err == cudaSuccess) *route = 0;
+  return (int)err;
 }
 
 int repro_sparse_dequant_row_groups(int n, long long p) {
@@ -687,19 +1102,34 @@ int repro_sparse_mix_aggregate_dequant(const int* idx, const float* w,
                                        float* agg, float* partial, int n,
                                        int d_max, long long p, int block,
                                        int storage, int device,
-                                       void* stream) {
+                                       void* stream, int* route) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!valid_geometry(Xq, p, block, storage) || d_max < 0)
     return (int)cudaErrorInvalidValue;
   if (n <= 0 || p <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= kStagedRows && d_max <= kStagedSlots &&
+      reinterpret_cast<uintptr_t>(mixed) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(agg) % 16 == 0) {
+    if (storage == kInt8)
+      err = launch_sparse_staged<kInt8>(idx, w, wrow, Xq, S, mixed, agg, n,
+                                        d_max, p, block, device, s);
+    else if (storage == kInt4)
+      err = launch_sparse_staged<kInt4>(idx, w, wrow, Xq, S, mixed, agg, n,
+                                        d_max, p, block, device, s);
+    else
+      err = launch_sparse_staged<kFp8>(idx, w, wrow, Xq, S, mixed, agg, n,
+                                       d_max, p, block, device, s);
+    if (err == cudaSuccess) *route = 1;
+    return (int)err;
+  }
   const int groups = repro_sparse_dequant_row_groups(n, p);
   if (groups > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
   float* agg_rows = groups > 1 ? partial : agg;
   if (reinterpret_cast<uintptr_t>(mixed) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(agg_rows) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (storage == kInt8)
     err = launch_sparse<kInt8>(idx, w, wrow, Xq, S, mixed, agg_rows, n,
                                d_max, p, block, s);
@@ -709,10 +1139,13 @@ int repro_sparse_mix_aggregate_dequant(const int* idx, const float* w,
   else
     err = launch_sparse<kFp8>(idx, w, wrow, Xq, S, mixed, agg_rows, n,
                               d_max, p, block, s);
-  if (err != cudaSuccess || groups == 1) return (int)err;
-  sum_groups_kernel<<<(unsigned)((p + 31) / 32), dim3(32, 8), 0, s>>>(
-      partial, agg, groups, p);
-  return (int)cudaGetLastError();
+  if (err == cudaSuccess && groups > 1) {
+    sum_groups_kernel<<<(unsigned)((p + 31) / 32), dim3(32, 8), 0, s>>>(
+        partial, agg, groups, p);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess) *route = 0;
+  return (int)err;
 }
 
 }  // extern "C"

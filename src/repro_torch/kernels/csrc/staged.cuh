@@ -1,9 +1,12 @@
-// The staged route shared by csrc/mixing.cu (the dense mix) and
-// csrc/sparse_mixing.cu (the ELL gather): persistent CTAs walk column
-// tiles of X, and a producer warp keeps a ring of X slabs (all n rows of
-// one column tile) in dynamic shared memory filled by TMA bulk copies,
-// while the consumer warps compute on the slab that has landed and store
-// its outputs.
+// The staged route shared by csrc/mixing.cu (the dense mix),
+// csrc/sparse_mixing.cu (the ELL gather) and csrc/quant_mixing.cu (both
+// over a quantized payload, whose slabs hold container bytes that the
+// consumers decode once a tile): persistent CTAs walk column tiles of X,
+// and a producer warp keeps a ring of X slabs (all n rows of one column
+// tile) in dynamic shared memory filled by TMA bulk copies, while the
+// consumer warps compute on the slab that has landed and store its
+// outputs.  Each of the three sources builds into its own library, so an
+// edit here renames all three (repro_torch/kernels/_build.py).
 //
 //   * A CTA is kConsumerWarps consumer warps and one producer warp.  CTA b
 //     takes the column tiles b, b + gridDim.x, b + 2 gridDim.x, ...; its
@@ -11,7 +14,8 @@
 //     does not depend on which CTA computes it, so the outputs are
 //     deterministic.
 //   * Two stages.  At the paper's n = 70 a CTA then holds 86-99 KB of
-//     shared memory, so two CTAs (16 consumer warps) share an SM, one
+//     shared memory (the quantized kernels 63-81 KB, with their fp32
+//     slab), so two CTAs (16 consumer warps) share an SM, one
 //     refilling its ring while the other computes.  One CTA an SM with
 //     four stages, or with 16 consumer warps, measured slower on the
 //     H100: the consumers' shared-memory latency wants the warps.

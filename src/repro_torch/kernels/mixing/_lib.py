@@ -24,8 +24,9 @@ _STORAGES = {"int8": (0, torch.int8, 8, 128),
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PI = ctypes.POINTER(ctypes.c_int)
-# the route repro_mix_aggregate / repro_sparse_mix_aggregate report they
-# took, by its code (the static rule is in the sources' headers)
+# the route repro_mix_aggregate, repro_sparse_mix_aggregate and their
+# dequant twins report they took, by its code (the static rule is in the
+# sources' headers)
 ROUTES = ("generic", "staged")
 
 
@@ -69,12 +70,12 @@ def quant_lib() -> ctypes.CDLL:
             _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P]
         handle.repro_aggregate_dequant.restype = _I
         handle.repro_mix_aggregate_dequant.argtypes = [
-            _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P]
+            _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P, _PI]
         handle.repro_mix_aggregate_dequant.restype = _I
         handle.repro_sparse_dequant_row_groups.argtypes = [_I, _LL]
         handle.repro_sparse_dequant_row_groups.restype = _I
         handle.repro_sparse_mix_aggregate_dequant.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P]
+            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P, _PI]
         handle.repro_sparse_mix_aggregate_dequant.restype = _I
         _QUANT_LIB = handle
     return _QUANT_LIB

@@ -26,12 +26,17 @@ dims), so with the precombined row ``w = (tau^T A) / m``
     kernels (``csrc/quant_mixing.cu``): the port of
     ``aggregate_dequant_pallas`` and ``mix_aggregate_dequant_pallas``.
     Both outputs are f32.  The 'aggregate' and 'fused' round backends
-    with a ``quant`` spec.
+    with a ``quant`` spec.  ``mix_aggregate_dequant_cuda`` has
+    ``mix_aggregate_cuda``'s two routes: 'staged' (n <= 128: the
+    container slabs staged by TMA, each value decoded once a tile into
+    an fp32 slab that ``mix_staged_kernel``'s loop reads) and 'generic'
+    (``mix_aggregate_dequant_kernel``).
 
 Each wrapper sends CPU tensors to its plain version (``ref.py``) and, for
 a CUDA payload, launches its kernel on the current stream or raises; its
-``launches`` attribute counts the launches, and ``mix_aggregate_cuda.
-routes`` counts its launches by the route the library reports.
+``launches`` attribute counts the launches, and the ``routes`` of
+``mix_aggregate_cuda`` and ``mix_aggregate_dequant_cuda`` count their
+launches by the route the library reports.
 """
 
 from __future__ import annotations
@@ -161,12 +166,13 @@ def mix_aggregate_dequant_cuda(A: torch.Tensor, w: torch.Tensor,
     B = torch.cat([A, w[None]])          # (n + 1, n): row n is w
     lib = _lib.quant_lib()
     device, stream = _lib.launch_args(Xq)
-    rc = lib.repro_mix_aggregate_dequant(
-        B.data_ptr(), Xq.data_ptr(), S.data_ptr(), mixed.data_ptr(),
-        agg.data_ptr(), n, p, block, code, device, stream)
-    _build.check(lib, rc, "mix_aggregate_dequant")
-    mix_aggregate_dequant_cuda.launches += 1
+    _lib.launch_routed(lib, lib.repro_mix_aggregate_dequant,
+                       (B.data_ptr(), Xq.data_ptr(), S.data_ptr(),
+                        mixed.data_ptr(), agg.data_ptr(), n, p, block, code,
+                        device, stream),
+                       mix_aggregate_dequant_cuda)
     return mixed, agg
 
 
 mix_aggregate_dequant_cuda.launches = 0
+mix_aggregate_dequant_cuda.routes = dict.fromkeys(_lib.ROUTES, 0)

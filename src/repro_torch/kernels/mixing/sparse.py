@@ -22,6 +22,11 @@ f32 weights, padding slots ``index 0, weight 0.0``.  Then
     (``csrc/quant_mixing.cu``; the port of
     ``sparse_mix_aggregate_dequant_pallas``): the 'sparse' backend with
     ``record_mixed=True`` and a ``quant`` spec.  Both outputs are f32.
+    It has the two routes below, by n and d_max alone (a quantized
+    payload is always aligned and whole): 'staged' decodes each value of
+    a TMA-staged container slab once a tile into an fp32 slab that the
+    gather reads, 'generic' (``sparse_mix_dequant_kernel``) decodes each
+    gathered value.
 
 Both launch ``repro_sparse_mix_aggregate`` of ``csrc/sparse_mixing.cu``
 (the mix-only call passes no combine row); it is bound by X's bytes.  It
@@ -36,8 +41,8 @@ combine row feeds ``fused.aggregate_cuda`` (or
 
 Each wrapper sends CPU tensors to its plain version (``ref.py``) and, for
 a CUDA payload, launches the kernel on the current stream or raises; its
-``launches`` attribute counts the launches, and ``routes`` (the two
-non-quantized wrappers) counts them by the route the library reports.
+``launches`` attribute counts the launches, and ``routes`` counts them by
+the route the library reports.
 ``idx`` values must lie in ``[0, n)``: the kernel does not check them
 (the plan's CSR, from which the engine builds the ELL, guarantees it;
 out of range, the staged route reads outside its slab in shared memory,
@@ -50,7 +55,6 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
 from . import _lib
 from .ref import (sparse_mix_aggregate_dequant_ref, sparse_mix_aggregate_ref,
                   sparse_mix_ref)
@@ -161,14 +165,15 @@ def sparse_mix_aggregate_dequant_cuda(idx: torch.Tensor, w: torch.Tensor,
     partial = (torch.empty(groups, p, dtype=torch.float32, device=Xq.device)
                if groups > 1 else None)
     device, stream = _lib.launch_args(Xq)
-    rc = lib.repro_sparse_mix_aggregate_dequant(
-        idx.data_ptr(), w.data_ptr(), wrow.data_ptr(), Xq.data_ptr(),
-        S.data_ptr(), mixed.data_ptr(), agg.data_ptr(),
-        None if partial is None else partial.data_ptr(), n, idx.shape[1],
-        p, block, code, device, stream)
-    _build.check(lib, rc, "sparse_mix_aggregate_dequant")
-    sparse_mix_aggregate_dequant_cuda.launches += 1
+    _lib.launch_routed(lib, lib.repro_sparse_mix_aggregate_dequant,
+                       (idx.data_ptr(), w.data_ptr(), wrow.data_ptr(),
+                        Xq.data_ptr(), S.data_ptr(), mixed.data_ptr(),
+                        agg.data_ptr(),
+                        None if partial is None else partial.data_ptr(), n,
+                        idx.shape[1], p, block, code, device, stream),
+                       sparse_mix_aggregate_dequant_cuda)
     return mixed, agg
 
 
 sparse_mix_aggregate_dequant_cuda.launches = 0
+sparse_mix_aggregate_dequant_cuda.routes = dict.fromkeys(_lib.ROUTES, 0)

@@ -52,12 +52,14 @@ def test_every_source_has_a_build_key():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
-def test_the_staged_header_builds_both_mixing_sources(tmp_path,
-                                                      monkeypatch):
+def test_the_staged_header_builds_all_three_mixing_sources(tmp_path,
+                                                           monkeypatch):
     """``csrc/staged.cuh`` (the TMA slab ring of the staged route) is
-    included by the dense and the ELL mixing sources, so an edit to it
-    renames both libraries and no stale build of either is loaded."""
-    for name in ("mixing", "sparse_mixing"):
+    included by the dense, the ELL and the quantized mixing sources, so an
+    edit to it renames all three libraries and no stale build of any is
+    loaded."""
+    mixing = ("mixing", "sparse_mixing", "quant_mixing")
+    for name in mixing:
         assert _build.CSRC / "staged.cuh" in _build.includes(
             _build.CSRC / f"{name}.cu")
     for src in _build.CSRC.iterdir():
@@ -69,4 +71,4 @@ def test_the_staged_header_builds_both_mixing_sources(tmp_path,
         f.write("// edited\n")
     after = {name: _build.library_path(name) for name in names}
     assert [name for name in names if after[name] != before[name]] == \
-        ["mixing", "sparse_mixing"]
+        list(mixing)

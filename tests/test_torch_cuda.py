@@ -15,8 +15,12 @@ two-pass sum), and the combine row they are fed must be bitwise the same
 from run to run.  The three dequant kernels run on int8, int4 and fp8
 payloads made by the port's quantizer: the sparse one's mixed output
 must be bitwise its plain version's, the other outputs ``rtol=atol=1e-5``
-(fp32 FMA sums in another order); the quantizer itself must give on the
-card bitwise the containers and scales it gives on the CPU; and a small
+(fp32 FMA sums in another order); the dense and ELL ones take the route
+the rule gives (at n = 128 / 129 and d_max = 64 / 65 too), equal the fp32
+staged kernels bitwise on the dequantized payload when staged, and
+decode every byte code exactly on both routes; the quantizer itself
+must give on the card bitwise the containers and scales it gives on the
+CPU; and a small
 quantized run on every quant backend must launch its kernel, agree with
 the quantized 'einsum' oracle and replay bitwise when scanned.  The
 flash-attention kernel is held against its plain version at fp32 (the
@@ -42,18 +46,21 @@ STAGED_ROWS, STAGED_SLOTS = 128, 64
 
 
 def _route(X, n, d_max=0):
-    """The route the static rule gives an (n, p) payload X (the outputs
-    are fresh, so aligned)."""
+    """The route the static rule gives an (n, p) payload X, or the (n,
+    cols) containers of a quantized one (the outputs are fresh, so
+    aligned; containers always fill whole 16-byte vectors and are
+    aligned, so for them the rule is the n and d_max limits alone)."""
     vec = 16 // X.element_size()
     staged = (n <= STAGED_ROWS and d_max <= STAGED_SLOTS
               and X.shape[1] % vec == 0 and X.data_ptr() % 16 == 0)
     return "staged" if staged else "generic"
 
 
-def _routed_call(fn, *args):
-    """``fn(*args)`` and the route its one launch was counted on."""
+def _routed_call(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` and the route its one launch was counted
+    on."""
     launches, routes = fn.launches, dict(fn.routes)
-    out = fn(*args)
+    out = fn(*args, **kwargs)
     moved = {r: fn.routes[r] - routes[r] for r in routes}
     assert fn.launches == launches + 1
     assert sorted(moved.values()) == [0, 1], moved
@@ -370,8 +377,14 @@ def _wire(n, p, storage, block, device, seed):
 
 @pytest.mark.parametrize("storage,block", STORAGES)
 @pytest.mark.parametrize("n,p", [(70, 4096), (13, 1024), (130, 2560),
-                                 (1, 512)])
+                                 (1, 512),
+                                 # the staged route's n limit, one past it
+                                 (STAGED_ROWS, 1024),
+                                 (STAGED_ROWS + 1, 1024)])
 def test_dequant_kernels_match_plain_versions(cuda, storage, block, n, p):
+    """The three dequant kernels against their plain versions; the dense
+    and ELL mixes on the route the rule gives (counted there, once a
+    call), bitwise the same from call to call."""
     from repro_torch.kernels.mixing import fused, ref, sparse
 
     p = -(-p // block) * block
@@ -387,22 +400,29 @@ def test_dequant_kernels_match_plain_versions(cuda, storage, block, n, p):
     torch.testing.assert_close(
         fused.aggregate_dequant_cuda(w, Xq, S, **q),
         ref.aggregate_dequant_ref(w, Xq, S, storage, block), **F32)
-    mixed, agg = fused.mix_aggregate_dequant_cuda(A, w, Xq, S, **q)
+    (mixed, agg), route = _routed_call(fused.mix_aggregate_dequant_cuda, A,
+                                       w, Xq, S, **q)
+    assert route == _route(Xq, n)
     mixed_r, agg_r = ref.mix_aggregate_dequant_ref(A, w, Xq, S, storage,
                                                    block)
     assert mixed.dtype == agg.dtype == torch.float32
     torch.testing.assert_close(mixed, mixed_r, **F32)
     torch.testing.assert_close(agg, agg_r, **F32)
-    mixed, agg = sparse.sparse_mix_aggregate_dequant_cuda(idx, wl, w, Xq, S,
-                                                          **q)
+    again = fused.mix_aggregate_dequant_cuda(A, w, Xq, S, **q)
+    assert torch.equal(mixed, again[0]) and torch.equal(agg, again[1])
+    (mixed, agg), route = _routed_call(
+        sparse.sparse_mix_aggregate_dequant_cuda, idx, wl, w, Xq, S, **q)
+    assert route == _route(Xq, n, idx.shape[1])
     mixed_r, agg_r = ref.sparse_mix_aggregate_dequant_ref(idx, wl, w, Xq, S,
                                                           storage, block)
     assert torch.equal(mixed, mixed_r)
     torch.testing.assert_close(agg, agg_r, **F32)
+    again = sparse.sparse_mix_aggregate_dequant_cuda(idx, wl, w, Xq, S, **q)
+    assert torch.equal(mixed, again[0]) and torch.equal(agg, again[1])
     assert (fused.aggregate_dequant_cuda.launches,
             fused.mix_aggregate_dequant_cuda.launches,
             sparse.sparse_mix_aggregate_dequant_cuda.launches) == \
-        tuple(b + 1 for b in before)
+        (before[0] + 1, before[1] + 2, before[2] + 2)
     torch.cuda.synchronize()
 
 
@@ -424,6 +444,122 @@ def test_sparse_dequant_kernel_splits_rows_into_groups(cuda):
     again = sparse.sparse_mix_aggregate_dequant_cuda(
         idx, w, wrow, Xq, S, storage="int8", block=512)[1]
     assert torch.equal(agg, again)
+
+
+@pytest.mark.parametrize("storage,block", STORAGES[:3])
+@pytest.mark.parametrize("d_max", [STAGED_SLOTS, STAGED_SLOTS + 1])
+def test_sparse_dequant_kernel_route_follows_the_slot_limit(cuda, storage,
+                                                            block, d_max):
+    """At n = 128 the ELL dequant kernel is staged up to d_max = 64 and
+    generic past it; mixed is bitwise its plain version's on both."""
+    from repro_torch.kernels.mixing import ref, sparse
+
+    n, p = STAGED_ROWS, 1024
+    Xq, S = _wire(n, p, storage, block, cuda, d_max)
+    idx, w = _ell(n, d_max, d_max, cuda)
+    wrow = torch.rand(n, device=cuda)
+    (mixed, agg), route = _routed_call(
+        sparse.sparse_mix_aggregate_dequant_cuda, idx, w, wrow, Xq, S,
+        storage=storage, block=block)
+    assert route == _route(Xq, n, d_max) == \
+        ("staged" if d_max <= STAGED_SLOTS else "generic")
+    mixed_r, agg_r = ref.sparse_mix_aggregate_dequant_ref(idx, w, wrow, Xq,
+                                                          S, storage, block)
+    assert torch.equal(mixed, mixed_r)
+    torch.testing.assert_close(agg, agg_r, **F32)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("storage,block", STORAGES[:3])
+@pytest.mark.parametrize("n", [70, STAGED_ROWS])
+def test_staged_dequant_kernels_equal_the_fp32_staged_kernels(cuda, storage,
+                                                              block, n):
+    """On the staged route both quantized kernels do the fp32 staged
+    kernels' sums on the values ``dequantize_group`` gives: mixed and agg
+    of each bitwise equal to ``mix_aggregate_cuda`` /
+    ``sparse_mix_aggregate_cuda`` on the dequantized payload."""
+    from repro_torch.fl import packing
+    from repro_torch.kernels.mixing import fused, sparse
+
+    p = 4096
+    Xq, S = _wire(n, p, storage, block, cuda, n + 1)
+    x = packing.dequantize_group(
+        Xq, S, packing.QuantSpec(storage=storage, block=block))
+    g = torch.Generator(device=cuda).manual_seed(n)
+    A = torch.rand(n, n, generator=g, device=cuda)
+    w = torch.rand(n, generator=g, device=cuda)
+    idx, wl = _ell(n, 9, n, cuda)
+    q = dict(storage=storage, block=block)
+    got, route = _routed_call(fused.mix_aggregate_dequant_cuda, A, w, Xq, S,
+                              **q)
+    want, route_f32 = _routed_call(fused.mix_aggregate_cuda, A, w, x)
+    assert route == route_f32 == "staged"
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got, route = _routed_call(sparse.sparse_mix_aggregate_dequant_cuda, idx,
+                              wl, w, Xq, S, **q)
+    want, route_f32 = _routed_call(sparse.sparse_mix_aggregate_cuda, idx,
+                                   wl, w, x)
+    assert route == route_f32 == "staged"
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("storage,block", STORAGES[:3])
+@pytest.mark.parametrize("n", [4, STAGED_ROWS + 1])
+def test_dequant_kernels_decode_every_code_exactly(cuda, storage, block, n):
+    """Rows holding every byte code (every nibble, in every pair, for
+    int4) under scales 0, 1, 2^-20 and 1/448, through the identity ELL (one
+    slot of weight 1.0), whose mixed output is then the dequantized
+    payload itself: it must equal ``dequantize_group``'s value for every
+    code, fp8's NaN codes 0x7F / 0xFF included, on the staged route
+    (n = 4) and the generic one (n = 129)."""
+    from repro_torch.fl import packing
+    from repro_torch.kernels.mixing import sparse
+
+    dtype = torch.float8_e4m3fn if storage == "fp8" else torch.int8
+    codes = torch.arange(256, dtype=torch.uint8, device=cuda)
+    Xq = codes.repeat(n, 1).view(dtype)          # two scale blocks a row
+    scales = torch.tensor([0.0, 1.0, 2.0 ** -20, 1 / 448], device=cuda)
+    rows = torch.arange(n, device=cuda)[:, None]
+    S = scales[(rows + torch.arange(2, device=cuda)) % 4].contiguous()
+    idx = rows.int().contiguous()
+    w = torch.ones(n, 1, device=cuda)
+    (mixed, _), route = _routed_call(
+        sparse.sparse_mix_aggregate_dequant_cuda, idx, w,
+        torch.ones(n, device=cuda), Xq, S, storage=storage, block=block)
+    assert route == ("staged" if n <= STAGED_ROWS else "generic")
+    want = packing.dequantize_group(
+        Xq, S, packing.QuantSpec(storage=storage, block=block))
+    assert torch.isnan(want).any() == (storage == "fp8")
+    torch.testing.assert_close(mixed, want, **BITWISE)
+
+
+@pytest.mark.parametrize("n", [STAGED_ROWS, STAGED_ROWS + 1])
+def test_sparse_dequant_kernel_propagates_a_row_zero_nan_code(cuda, n):
+    """fp8 NaN codes (0x7F, 0xFF) in row 0 reach every row through its
+    padding slot (index 0, weight 0.0: 0 * nan = nan), as in the plain
+    version, on the staged route (n = 128) and the generic one
+    (n = 129)."""
+    from repro_torch.kernels.mixing import ref, sparse
+
+    Xq, S = _wire(n, 2048, "fp8", 128, cuda, n)
+    Xq.view(torch.uint8)[0, :7] = 0x7F
+    Xq.view(torch.uint8)[0, 7:9] = 0xFF
+    idx, w = _ell(n, 9, n, cuda)
+    # one more padding slot a row, so every row reads row 0
+    idx = torch.cat([idx, torch.zeros_like(idx[:, :1])], 1).contiguous()
+    w = torch.cat([w, torch.zeros_like(w[:, :1])], 1).contiguous()
+    wrow = torch.rand(n, device=cuda)
+    (mixed, agg), route = _routed_call(
+        sparse.sparse_mix_aggregate_dequant_cuda, idx, w, wrow, Xq, S,
+        storage="fp8", block=128)
+    assert route == _route(Xq, n, idx.shape[1])
+    mixed_r, agg_r = ref.sparse_mix_aggregate_dequant_ref(idx, w, wrow, Xq,
+                                                          S, "fp8", 128)
+    assert torch.isnan(mixed_r[:, :9]).all()
+    torch.testing.assert_close(mixed, mixed_r, **BITWISE)
+    torch.testing.assert_close(agg, agg_r, **F32, equal_nan=True)
+    torch.cuda.synchronize()
 
 
 def test_dequant_kernels_reject_what_they_do_not_take(cuda):
@@ -499,8 +635,12 @@ def test_server_runs_every_quant_backend_on_the_card(cuda):
             ("sparse", False, fused.aggregate_dequant_cuda),
             ("sparse", True, sparse.sparse_mix_aggregate_dequant_cuda)]:
         counter.launches = 0
+        if hasattr(counter, "routes"):
+            counter.routes = dict.fromkeys(counter.routes, 0)
         seq = run(backend, record_mixed)
         assert counter.launches == 2            # one a round, one group
+        if hasattr(counter, "routes"):          # n = 12: staged
+            assert counter.routes == {"generic": 0, "staged": 2}
         scn = run(backend, record_mixed, scan=True)
         for a, b, c in zip(seq, scn, ref_leaves):
             assert torch.equal(a, b)

@@ -228,9 +228,11 @@ def test_wrappers_use_plain_versions_on_cpu():
 
 @pytest.mark.parametrize("name", ["mixing.mix_cuda", "fused.mix_aggregate_cuda",
                                   "sparse.sparse_mix_cuda",
-                                  "sparse.sparse_mix_aggregate_cuda"])
+                                  "sparse.sparse_mix_aggregate_cuda",
+                                  "fused.mix_aggregate_dequant_cuda",
+                                  "sparse.sparse_mix_aggregate_dequant_cuda"])
 def test_routed_wrappers_count_nothing_on_cpu(name):
-    """The four wrappers of the kernels with a staged and a generic route
+    """The six wrappers of the kernels with a staged and a generic route
     count launches by route in ``routes`` (keys ``_lib.ROUTES``); a CPU
     call takes the plain version and moves neither count."""
     from repro_torch.kernels.mixing import _lib, sparse
@@ -249,6 +251,10 @@ def test_routed_wrappers_count_nothing_on_cpu(name):
     idx = torch.as_tensor(np.stack([np.arange(n), (np.arange(n) + 1) % n],
                                    1).astype(np.int32))
     wl = torch.as_tensor(rng.random((n, 2)).astype(np.float32))
+    # an int8 payload in its wire format: one 128-column scale block
+    Xq = torch.as_tensor(rng.integers(-128, 128, (n, 128)).astype(np.int8))
+    S = torch.as_tensor(rng.random((n, 1)).astype(np.float32))
+    q = dict(storage="int8", block=128)
     calls = {"mix_cuda": (lambda: fn(A, X), lambda: ref.mix_ref(A, X)),
              "mix_aggregate_cuda": (lambda: fn(A, w, X),
                                     lambda: ref.mix_aggregate_ref(A, w, X)),
@@ -256,7 +262,15 @@ def test_routed_wrappers_count_nothing_on_cpu(name):
                                  lambda: ref.sparse_mix_ref(idx, wl, X)),
              "sparse_mix_aggregate_cuda": (
                  lambda: fn(idx, wl, w, X),
-                 lambda: ref.sparse_mix_aggregate_ref(idx, wl, w, X))}
+                 lambda: ref.sparse_mix_aggregate_ref(idx, wl, w, X)),
+             "mix_aggregate_dequant_cuda": (
+                 lambda: fn(A, w, Xq, S, **q),
+                 lambda: ref.mix_aggregate_dequant_ref(A, w, Xq, S, "int8",
+                                                       128)),
+             "sparse_mix_aggregate_dequant_cuda": (
+                 lambda: fn(idx, wl, w, Xq, S, **q),
+                 lambda: ref.sparse_mix_aggregate_dequant_ref(
+                     idx, wl, w, Xq, S, "int8", 128))}
     run, plain = calls[attr]
     launches, routes = fn.launches, dict(fn.routes)
     got, want = run(), plain()
