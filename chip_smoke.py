@@ -54,6 +54,17 @@ Phases (each raises on failure; nothing is caught):
               bitwise.  No single PyTorch call computes these functions;
               the dequantize + torch.matmul / torch.sparse.mm pair is
               printed as a two-call yardstick.
+   gemv    -- the two GEMVs (aggregate in fp32 and bf16,
+              aggregate_dequant on int8 / int4 / fp8, block 512) at both
+              shapes the main paths give them: the paper's (70 x
+              1,663,488) and the scale round's (100,000 x 7,936 fp32 /
+              bf16, 100,000 x 8,192 quantized), each against its plain
+              version (rtol / atol 1e-5) and a second call bitwise equal
+              to the first, with its row groups G, its time, its bound and
+              torch.matmul's time (dequantize_group + torch.matmul for the
+              quantized payloads); where G > 1, the device time of the
+              GEMV kernel and of its second pass (torch.profiler).  The
+              [kernels] / [quant] lines of the paper's shape print G too.
    flash   -- the flash-attention kernel against its plain version
               (``flash_attention_ref``): bf16, the tensor-core route, at
               qwen2-7b's prefill shape (B 2, S 2048, 28 / 4 heads of 128,
@@ -106,10 +117,14 @@ Phases (each raises on failure; nothing is caught):
               round; and one traced int8 run.
 4. scale   -- an n = 100,000 ``ring`` plan built sparse (12,500
               clusters of 8), one round of the logreg model (7,850
-              params, T = 1, batch 8 drawn from the seed) on 'sparse' and
-              on 'sparse' with record_mixed: d2d == n, the two agree, the
-              ELL kernel takes the generic route, and the peak device
-              memory stays far below one (n, n) f32 array (40 GB).
+              params, T = 1, batch 8 drawn from the seed) on 'sparse',
+              on 'sparse' with record_mixed, and on 'sparse' with an int8
+              payload (block 512; -> aggregate_dequant at its scale
+              shape): d2d == n, the two fp32 rounds agree, the int8 one
+              is within one grid step of them (as in [train]), the ELL
+              kernel takes the generic route, each GEMV prints its G, and
+              the peak device memory stays far below one (n, n) f32 array
+              (40 GB).
 5. lm      -- the port's ``Model`` (``repro_torch.models``): qwen2-7b at
               full width and depth in bf16 from random weights, a forward
               on 2 x 2048 tokens with attn_impl='flash' (-> 28 flash
@@ -214,13 +229,16 @@ def phase_build():
 
 
 # the quantized kernels' instances on the paper's path (n = 70, d_max 9):
-# generic dense RM 5, staged dense RM 9, both ELL D 16, and aggregate; a
+# generic dense RM 5, staged dense RM 9, both ELL D 16, and the
+# aggregate_dequant GEMV (row_groups.cuh's gemv_kernel on QuantLoad<storage,
+# words a thread>, its second argument the warps along the rows); a
 # template's first argument is the storage (0 int8, 1 int4, 2 fp8)
 SASS_KERNELS = re.compile(
     r"(mix_aggregate_dequant_kernelILi(\d)ELi5E|mix_dequant_staged_kernelILi"
     r"(\d)ELi9E|sparse_mix_dequant_kernelILi(\d)ELi16E|"
     r"sparse_dequant_staged_kernelILi(\d)ELi16E|"
-    r"aggregate_dequant_kernelILi(\d)EE)")
+    r"gemv_kernelI\w*?QuantLoadILi\dELi\dEEELi\dE)")
+GEMV_ARGS = re.compile(r"QuantLoadILi(\d)ELi(\d)EEELi(\d)E")
 SASS_OP = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
 
@@ -246,6 +264,9 @@ def sass_conversions(lib) -> None:
             flush()
             m = SASS_KERNELS.search(line)
             name = m.group(1) if m else None
+            if name and name.startswith("gemv"):
+                name = "gemv_kernel<QuantLoad<{}, {}>, {}>".format(
+                    *GEMV_ARGS.search(name).groups())
             ops, total = {}, 0
         elif name is not None:
             m = SASS_OP.search(line)
@@ -371,6 +392,8 @@ def phase_kernels(n: int, p: int):
                  else f"({n}, {p})")
         print(f"[kernels] {name} @ {shape} f32"
               + (f", routes {routes}" if routes else "")
+              + (f", G {fused.aggregate_row_groups(X)}"
+                 if name == "aggregate" else "")
               + f": {ms:.4f} ms "
               f"(plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms by {b_by}: {b_ms / ms:.1%} of it; "
@@ -720,6 +743,8 @@ def phase_quant_kernels(seed: int):
             b_ms, b_by = bound(nbytes, flops)
             print(f"[quant] {name} @ {label} ({n}, {p}) {storage}"
                   + (f", route {routes[name]}" if name in routes else "")
+                  + (f", G {fused.aggregate_dequant_row_groups(Xq, S, **q)}"
+                     if name == "aggregate_dequant" else "")
                   + f": {ms:.4f} ms (plain {plain_ms:.4f} ms; yardstick, two "
                   f"calls, {yard_name} {yard_ms:.4f} ms; bound {b_ms:.4f} "
                   f"ms by {b_by}: {b_ms / ms:.1%} of it; "
@@ -770,6 +795,111 @@ def phase_quant_kernels(seed: int):
     torch.cuda.empty_cache()
     return [rows[k] for k in ("aggregate_dequant", "mix_aggregate_dequant",
                               "sparse_mix_aggregate_dequant")]
+
+
+# the GEMVs' main-path payloads: (label, n, fp32 / bf16 width, quantized
+# width); the scale round's (phase 4) is logreg's 7,850 params packed to
+# 7,936 fp32 columns or 8,192 quantized ones (block 512)
+GEMV_SHAPES = (("paper", 70, 1_663_488, 1_663_488),
+               ("scale", 100_000, 7_936, 8_192))
+
+
+def phase_gemv(seed: int):
+    """The two GEMVs (aggregate, aggregate_dequant) at every shape the main
+    paths give them: the paper's (70 x 1,663,488) and the scale round's
+    (100,000 x 7,936 fp32 / bf16, 100,000 x 8,192 int8 / int4 / fp8 at
+    block 512), each held against its plain version and timed beside its
+    bound and ``torch.matmul`` (for the dequant kernel: dequantize_group
+    + torch.matmul, two calls), with the row groups G it splits n into."""
+    import torch
+    from repro_torch.fl import packing
+    from repro_torch.kernels.mixing import fused, ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    f4, block = 4, 512
+    # fp32 sums over up to 100,000 rows in another order than the plain
+    # version's: roundings of ~2^-24 of partial sums far below 1
+    tol = dict(rtol=1e-5, atol=1e-5)
+
+    def report(tag, name, shape, kernel, plain_ms, yard, yard_ms, nbytes,
+               flops, e, groups):
+        ms = cuda_ms(kernel)
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"[{tag}] {name} @ {shape}, G {groups}: {ms:.4f} ms (plain "
+              f"{plain_ms:.4f} ms, {yard} {yard_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by}: {b_ms / ms:.1%} of it; "
+              f"{nbytes / ms / 1e6:.0f} GB/s; max|err| {e:.3e}, rtol "
+              f"{tol['rtol']:.1e}, atol {tol['atol']:.1e})"
+              + (second_pass(kernel) if groups > 1 else ""))
+
+    def second_pass(kernel):
+        """The device time a call of the GEMV kernel and of the row
+        groups' second pass, by torch.profiler over 5 calls."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                kernel()
+            torch.cuda.synchronize()
+        us = {"gemv_kernel": 0.0, "sum_groups_kernel": 0.0}
+        for ev in prof.key_averages():
+            for k in us:
+                if k in ev.key:
+                    us[k] += ev.self_device_time_total / 5
+        return (f"; profiled: GEMV {us['gemv_kernel']:.1f} us + second pass "
+                f"{us['sum_groups_kernel']:.1f} us a call")
+
+    def check(name, kernel, want):
+        """The kernel against its plain version, and a second call
+        bitwise equal to the first."""
+        got = kernel()
+        e = float((got - want).abs().max())
+        if not torch.allclose(got, want, **tol):
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"by {e:.3e}")
+        if not torch.equal(got, kernel()):
+            raise AssertionError(f"{name}: a second call differs")
+        return e
+
+    for label, n, p_f, p_q in GEMV_SHAPES:
+        w = torch.rand(n, generator=g, device=dev) / n
+        for dtype in (torch.float32, torch.bfloat16):
+            X = torch.randn(n, p_f, generator=g, device=dev).to(dtype)
+            # the yardstick takes w in X's dtype (one call; for bf16 its
+            # output is bf16, the bytes it reads the same)
+            yard = ("torch.matmul" if dtype == torch.float32
+                    else "torch.matmul in bf16")
+            kernel = partial(fused.aggregate_cuda, w, X)
+            e = check("aggregate", kernel, ref.aggregate_ref(w, X))
+            report("kernels", "aggregate", f"{label} ({n}, {p_f}) "
+                   f"{str(dtype).split('.')[1]}", kernel,
+                   cuda_ms(lambda: ref.aggregate_ref(w, X), iters=5),
+                   yard, cuda_ms(lambda: torch.matmul(w.to(dtype), X),
+                                 iters=10),
+                   X.numel() * X.element_size() + n * f4 + p_f * f4,
+                   2 * n * p_f, e, fused.aggregate_row_groups(X))
+            del X
+        X = torch.randn(n, p_q, generator=g, device=dev)
+        for storage in ("int8", "int4", "fp8"):
+            quant = packing.QuantSpec(storage=storage, block=block)
+            Xq, S = packing.quantize_group(X, quant)
+            q = dict(storage=storage, block=block)
+            kernel = partial(fused.aggregate_dequant_cuda, w, Xq, S, **q)
+            e = check("aggregate_dequant", kernel,
+                      ref.aggregate_dequant_ref(w, Xq, S, storage, block))
+            report("quant", "aggregate_dequant",
+                   f"{label} ({n}, {p_q}) {storage}", kernel,
+                   cuda_ms(lambda: ref.aggregate_dequant_ref(
+                       w, Xq, S, storage, block), iters=5),
+                   "yardstick, two calls, dequantize_group + torch.matmul",
+                   cuda_ms(lambda: torch.matmul(w, packing.dequantize_group(
+                       Xq, S, quant)), iters=10),
+                   Xq.numel() * Xq.element_size() + S.numel() * f4
+                   + n * f4 + p_q * f4, n * p_q + 2 * n * p_q, e,
+                   fused.aggregate_dequant_row_groups(Xq, S, **q))
+            del Xq, S
+        del X, w
+        torch.cuda.empty_cache()
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -1242,15 +1372,19 @@ def trace_device(fn, what: str, top: int = 12):
 
 def phase_scale(seed: int):
     """One round of the logreg model at n = 100,000 on both sparse
-    backends, from a plan built sparse (nothing (n, n) anywhere)."""
+    backends and on 'sparse' with an int8 payload (block 512), from a plan
+    built sparse (nothing (n, n) anywhere); each aggregate GEMV launch
+    prints its row groups G."""
     import torch
     from functools import partial as _partial
     from repro_torch import topology
-    from repro_torch.core.pytree import tree_flatten
+    from repro_torch.core.pytree import tree_flatten, tree_map
+    from repro_torch.core.rounds import client_deltas
     from repro_torch.core.server import ServerConfig
-    from repro_torch.fl.engine import ExecutionConfig, make_engine
+    from repro_torch.fl import packing
+    from repro_torch.fl.engine import ExecutionConfig, _to_device, make_engine
     from repro_torch.fl.plan import RoundPlan
-    from repro_torch.kernels.mixing import fused, sparse
+    from repro_torch.kernels.mixing import fused, ops, sparse
     from repro_torch.models import cnn
 
     n, c, B = 100_000, 12_500, 8
@@ -1274,12 +1408,28 @@ def phase_scale(seed: int):
           f"built in {plan_s:.2f} s (nnz {plan.A_t.nnz}, d_max "
           f"{plan.A_t.max_degree}, m {int(plan.m_t[0])}); logreg "
           f"{n_params:,} params, T=1, batch {B}")
+    meta = tree_map(lambda x: torch.empty((n,) + tuple(x.shape),
+                                          dtype=x.dtype, device="meta"),
+                    init)
+    int8 = packing.QuantSpec(storage="int8", block=512)
+    P = packing.pack_spec(meta).padded
+    Pq = packing.pack_spec(meta, quant=int8).padded
+    # the GEMVs' row groups at this round's payloads, from the shapes alone
+    groups = {
+        fused.aggregate_cuda: fused.aggregate_row_groups(
+            torch.empty(n, P, device="meta")),
+        fused.aggregate_dequant_cuda: fused.aggregate_dequant_row_groups(
+            torch.empty(n, Pq, dtype=torch.int8, device="meta"),
+            torch.empty(n, Pq // 512, device="meta"), storage="int8",
+            block=512)}
     finals = {}
-    for record_mixed, counter in ((False, fused.aggregate_cuda),
-                                  (True, sparse.sparse_mix_aggregate_cuda)):
+    for record_mixed, quant, counter in (
+            (False, None, fused.aggregate_cuda),
+            (True, None, sparse.sparse_mix_aggregate_cuda),
+            (False, int8, fused.aggregate_dequant_cuda)):
         eng = make_engine(ExecutionConfig(backend="sparse",
-                                          record_mixed=record_mixed),
-                          loss_fn)
+                                          record_mixed=record_mixed,
+                                          quant=quant), loss_fn)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counters({"counter": counter})
@@ -1302,19 +1452,49 @@ def phase_scale(seed: int):
         leaves = tree_flatten(final)[0]
         if not all(torch.isfinite(x).all() for x in leaves):
             raise AssertionError(f"{eng.backend}: non-finite params")
-        finals[record_mixed] = leaves
-        print(f"[scale] {eng.backend}: one round {round_ms:.1f} ms (first "
+        finals[record_mixed, quant] = leaves
+        print(f"[scale] {eng.backend}"
+              + ("" if quant is None else f" {quant.storage}")
+              + f": one round {round_ms:.1f} ms (first "
               f"call, host clock), peak device memory {peak / 1e9:.2f} GB, "
               f"d2d {hist.records[0].d2d}, {counter.launches} "
               f"{counter.__name__} launch"
-              + (f" (routes {routes})" if routes is not None else ""))
+              + (f" (routes {routes})" if routes is not None else "")
+              + (f" (G {groups[counter]})" if counter in groups else ""))
     worst = max(float((a - b).abs().max())
-                for a, b in zip(finals[False], finals[True]))
+                for a, b in zip(finals[False, None], finals[True, None]))
     if not all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
-               for a, b in zip(finals[False], finals[True])):
+               for a, b in zip(finals[False, None], finals[True, None])):
         raise AssertionError(f"the sparse backends disagree by {worst:.3e}")
     print(f"[scale] sparse_aggregate and sparse agree: max|diff| "
           f"{worst:.3e}")
+    # the int8 round against the fp32 one: the payloads differ by at most
+    # half a grid step a value, so the params by at most one step times
+    # the combine weight, summed over the clients (as in [train])
+    deltas = client_deltas(loss_fn, _to_device(init, dev), batch,
+                           torch.tensor(float(plan.eta_t[0]), device=dev))
+    qspec = packing.pack_spec(deltas, quant=int8)
+    x = packing.pack(deltas, qspec)[0]
+    steps = x.reshape(n, -1, 512).abs().amax(2) / int8.qmax
+    del deltas, x
+    idx, w = (torch.as_tensor(a[0], device=dev) for a in plan.A_t.ell())
+    wrow = ops.combine_weights_ell(
+        idx, w, torch.as_tensor(plan.tau_t[0], device=dev),
+        torch.tensor(float(plan.m_t[0]), device=dev))
+    allow = tree_flatten(packing.unpack_row(
+        (wrow.abs() @ steps).repeat_interleave(512), qspec))[0]
+    worst, flipped = 0.0, 0
+    for a, b, c in zip(finals[False, int8], finals[False, None], allow):
+        d = (a - b).abs()
+        if not (d <= c + 1e-5 + 1e-4 * b.abs()).all():
+            raise AssertionError(f"the int8 scale round differs from the "
+                                 f"fp32 one by {float(d.max()):.3e}, past "
+                                 "one grid step")
+        worst = max(worst, float(d.max()))
+        flipped += int((d > 1e-5 + 1e-4 * b.abs()).sum())
+    print(f"[scale] sparse_aggregate int8 against fp32: max|diff| "
+          f"{worst:.3e} ({flipped} past rtol 1e-4 / atol 1e-5, all within "
+          f"one grid step)")
 
 
 # -- phase 5: the LM slice ----------------------------------------------------
@@ -1641,6 +1821,7 @@ def main() -> int:
     rows = phase_kernels(70, 1_663_488)
     rows += phase_sparse_kernels(SEED)
     rows += phase_quant_kernels(SEED)
+    phase_gemv(SEED)
     rows.append(phase_flash(SEED))
     launches, routes = phase_train(ROUNDS, SEED)
     phase_scale(SEED)

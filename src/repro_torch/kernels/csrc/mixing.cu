@@ -22,9 +22,15 @@
 // cudaGetLastError() as an int (0 = success; repro_error_string(code)
 // names any other).  All arrays are row-major and contiguous.
 //
+//   int repro_aggregate_row_groups(int n, long long p, int dtype);
+//       the number G of row groups the aggregate GEMV splits the n rows
+//       into for (n, p, dtype) (csrc/row_groups.cuh); a launch needs a
+//       (G, p) f32 scratch when G > 1.  -1 for an unknown dtype.
+//
 //   int repro_aggregate(const float* w,        // (n,) f32 combine row
 //                       const void* X,         // (n, p) f32 | bf16
 //                       float* agg,            // (p,) f32 out
+//                       float* partial,        // (G, p) f32 scratch if G > 1
 //                       int n, long long p, int dtype,
 //                       int device, void* stream);
 //
@@ -46,6 +52,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "row_groups.cuh"
 #include "staged.cuh"
 
 namespace {
@@ -54,21 +61,17 @@ namespace {
 // aggregate: agg[c] = sum_i w[i] * X[i, c]
 //
 // Bound: the bytes of X (n * p * itemsize, read once; the (p,) f32 row out
-// is 1/n of that).  At the slice's shape (70 x 1,663,488 f32, 466 MB) the
-// least time on an H100 is ~0.14 ms at 3.35 TB/s; the 2 n p flops are
-// ~0.2 GFLOP, far under the fp32 rate.  Design: a GEMV that streams X
-// exactly once.  Each thread owns VEC neighbouring columns (16 bytes: 4 f32
-// or 8 bf16) and walks all n rows with 16-byte streaming loads (__ldcs,
-// evict-first: X is never reused), so a warp reads 512 contiguous bytes per
-// row; the row loop is unrolled so several loads are in flight per thread.
-// w is staged through shared memory in tiles of kWTile rows, so any n
-// works.  When p or the base pointer does not allow 16-byte loads the
-// wrapper picks VEC = 1 (coalesced scalar loads); either way columns >= p
-// are masked here.
+// is 1/n of that).  At the paper's shape (70 x 1,663,488 f32, 466 MB) the
+// least time on an H100 is ~0.14 ms at 3.35 TB/s; at the scale round's
+// (100,000 x 7,936 f32, 3.17 GB) ~0.95 ms; the 2 n p flops are far under
+// the fp32 rate.  Design: csrc/row_groups.cuh's GEMV, which streams X
+// exactly once with 16-byte loads (4 f32 or 8 bf16 a thread; 4- or 2-byte
+// loads when p or the base pointer does not allow 16) and picks its layout
+// and row groups G from (n, p) so that enough warps stream at once: the
+// paper's payload takes the wide layout with G = 1 (1,625 CTAs, agg
+// bitwise the first design's), the scale round's the tall one with G = 35
+// (fp32) or 69 (bf16).  Columns >= p are masked there.
 // ---------------------------------------------------------------------------
-
-constexpr int kAggThreads = 256;
-constexpr int kWTile = 2048;
 
 template <typename T, int VEC>
 struct VecLoad;
@@ -114,56 +117,41 @@ struct VecLoad<__nv_bfloat16, 1> {
   }
 };
 
+// the GEMV's loader (csrc/row_groups.cuh): VEC values of row r
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kAggThreads)
-aggregate_kernel(const float* __restrict__ w, const T* __restrict__ X,
-                 float* __restrict__ agg, int n, long long p) {
-  __shared__ float ws[kWTile];
-  const long long c0 =
-      ((long long)blockIdx.x * kAggThreads + threadIdx.x) * VEC;
-  const bool live = c0 < p;   // VEC > 1 only when p % VEC == 0
-  float acc[VEC];
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
+struct DenseLoad {
+  static constexpr int kVals = VEC;
+  static constexpr int kUnroll = 4;
+  struct Args {
+    const T* X;
+  };
+  const T* x;
+  long long p;
+  __device__ DenseLoad(Args a, long long p_, long long col)
+      : x(a.X + col), p(p_) {}
+  __device__ __forceinline__ void row(long long r, float* v) const {
+    VecLoad<T, VEC>::run(x + r * p, v);
+  }
+};
 
-  for (int r0 = 0; r0 < n; r0 += kWTile) {
-    const int rn = min(kWTile, n - r0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < rn; i += kAggThreads) ws[i] = w[r0 + i];
-    __syncthreads();
-    if (live) {
-      const T* xp = X + (long long)r0 * p + c0;
-#pragma unroll 8
-      for (int r = 0; r < rn; ++r) {
-        float v[VEC];
-        VecLoad<T, VEC>::run(xp + (long long)r * p, v);
-        const float wr = ws[r];
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) acc[j] = fmaf(wr, v[j], acc[j]);
-      }
-    }
-  }
-  if (live) {
-    if constexpr (VEC % 4 == 0) {
-#pragma unroll
-      for (int j = 0; j < VEC; j += 4)
-        *reinterpret_cast<float4*>(agg + c0 + j) =
-            make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) agg[c0 + j] = acc[j];
-    }
-  }
+// the plan of an (n, p) payload of T: by the 16-byte vector's width, so
+// the narrow loads of an unaligned payload sum in the same order.  Tall
+// CTAs keep 8 warps along the rows at any n, and the row groups aim at
+// two waves of CTAs: both timed in turns on the H100 against the
+// alternatives (fewer warps along the rows, one wave), as was the loader's
+// 4 rows in flight against 8.
+template <typename T>
+rowsum::Plan aggregate_plan(int n, long long p) {
+  return rowsum::plan(n, p, 16 / (int)sizeof(T), 1, 2 * rowsum::kWave);
 }
 
 template <typename T, int VEC>
 cudaError_t launch_aggregate(const float* w, const void* X, float* agg,
-                             int n, long long p, cudaStream_t stream) {
-  const long long cols_per_block = (long long)kAggThreads * VEC;
-  const long long blocks = (p + cols_per_block - 1) / cols_per_block;
-  aggregate_kernel<T, VEC><<<(unsigned)blocks, kAggThreads, 0, stream>>>(
-      w, static_cast<const T*>(X), agg, n, p);
-  return cudaGetLastError();
+                             float* partial, int n, long long p,
+                             cudaStream_t stream) {
+  return rowsum::launch_gemv<DenseLoad<T, VEC>>(
+      w, {static_cast<const T*>(X)}, agg, partial, n, p,
+      aggregate_plan<T>(n, p), stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -624,8 +612,15 @@ const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int repro_aggregate(const float* w, const void* X, float* agg, int n,
-                    long long p, int dtype, int device, void* stream) {
+int repro_aggregate_row_groups(int n, long long p, int dtype) {
+  if (dtype != 0 && dtype != 1) return -1;
+  return dtype == 0 ? aggregate_plan<float>(n, p).groups
+                    : aggregate_plan<__nv_bfloat16>(n, p).groups;
+}
+
+int repro_aggregate(const float* w, const void* X, float* agg,
+                    float* partial, int n, long long p, int dtype,
+                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (p <= 0) return (int)cudaGetLastError();
@@ -635,13 +630,15 @@ int repro_aggregate(const float* w, const void* X, float* agg, int n,
                        (reinterpret_cast<uintptr_t>(agg) % 16 == 0);
   if (dtype == 0) {
     if (aligned && p % 4 == 0)
-      return (int)launch_aggregate<float, 4>(w, X, agg, n, p, s);
-    return (int)launch_aggregate<float, 1>(w, X, agg, n, p, s);
+      return (int)launch_aggregate<float, 4>(w, X, agg, partial, n, p, s);
+    return (int)launch_aggregate<float, 1>(w, X, agg, partial, n, p, s);
   }
   if (dtype == 1) {
     if (aligned && p % 8 == 0)
-      return (int)launch_aggregate<__nv_bfloat16, 8>(w, X, agg, n, p, s);
-    return (int)launch_aggregate<__nv_bfloat16, 1>(w, X, agg, n, p, s);
+      return (int)launch_aggregate<__nv_bfloat16, 8>(w, X, agg, partial, n,
+                                                     p, s);
+    return (int)launch_aggregate<__nv_bfloat16, 1>(w, X, agg, partial, n, p,
+                                                   s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -44,9 +44,15 @@
 // (0 = success; repro_error_string(code) names any other).  Xq must be
 // 16-byte aligned; every array is contiguous.
 //
+//   int repro_aggregate_dequant_row_groups(int n, long long p, int storage);
+//       the number G of row groups the aggregate_dequant GEMV splits the n
+//       rows into (csrc/row_groups.cuh); a launch needs a (G, p) f32
+//       scratch when G > 1.  -1 for an unknown storage.
+//
 //   int repro_aggregate_dequant(const float* w,   // (n,) f32 combine row
 //                               const void* Xq, const float* S,
 //                               float* agg,       // (p,) f32 out
+//                               float* partial,   // (G, p) f32 if G > 1
 //                               int n, long long p, int block, int storage,
 //                               int device, void* stream);
 //
@@ -76,8 +82,10 @@
 //       int device, void* stream,
 //       int* route);         // out: 1 staged, 0 generic (set on success)
 //
-// Arithmetic.  aggregate and mix_aggregate accumulate fmaf(w, deq, acc)
-// over the rows in order (fp32, no tensor cores).  The sparse kernel does,
+// Arithmetic.  mix_aggregate accumulates fmaf(w, deq, acc) over the rows
+// in order (fp32, no tensor cores); aggregate does too within each of its
+// row ranges and adds the ranges' partial rows in a fixed order
+// (csrc/row_groups.cuh).  The sparse kernel does,
 // for every slot k = 0 .. d_max-1 in order, padding slots included,
 // acc = acc + w[i, k] * deq(X)[idx[i, k]] with the product and the sum
 // rounded apart (__fmul_rn / __fadd_rn), as the reference's _gather_mix:
@@ -136,6 +144,7 @@
 #include <cuda_fp8.h>
 #include <stdint.h>
 
+#include "row_groups.cuh"
 #include "staged.cuh"
 
 namespace {
@@ -192,68 +201,143 @@ __device__ __forceinline__ void dequant_words(const uint32_t (&u)[W], float s,
 // Bound: bytes.  The compressed payload is read once (n p bits / 8), the
 // scales once (n p / block * 4) and the f32 row written once (4 p): at the
 // paper's shape (70 x 1,663,488, block 512) 124.0 MB for int8 / fp8, so
-// ~0.037 ms at 3.35 TB/s, and 65.8 MB (~0.020 ms) for int4; the 2 n p
-// flops are far under the fp32 rate.  Design: csrc/mixing.cu's
-// aggregate_kernel GEMV on the container.  Each thread owns one 16-byte
-// container vector of a row (16 int8 / fp8 or 32 int4 values, inside one
-// scale block since the block is a multiple of 128 or 256 columns) and
-// walks all n rows with 16-byte
-// streaming loads (__ldcs: the payload is never reused), reading its row's
-// scale once per row; the row loop is unrolled so several rows' loads are
-// in flight.  w is staged through shared memory in tiles of kWTile rows, so
-// any n works.
+// ~0.037 ms at 3.35 TB/s, and 65.8 MB (~0.020 ms) for int4; at the scale
+// round's (100,000 x 8,192) 826 MB (~0.247 ms) and 416 MB (~0.124 ms).
+// The 2 n p flops are far under the fp32 rate, but the decode is not: at
+// 3.35 TB/s an int4 payload brings 6.7 T values a second, more than the
+// H100's int -> fp32 conversion units turn out (16 a clock an SM, ~4.2 T
+// a second), so the GEMV decodes on the FP32 and INT pipes where that is
+// faster (GemvWord, below).  Design: csrc/row_groups.cuh's GEMV on the
+// container.  A thread owns one 16-byte container vector of a row (16
+// int8 / fp8 or 32 int4 values, inside one scale block since the block is
+// a multiple of 128 or 256 columns) and reads its row's scale with it; the
+// layout, the row groups G and, for int4, the vector's width follow (n, p,
+// storage) (aggregate_dequant_plan, below): at both main-path shapes the
+// tall layout, G = 1 at the paper's (813 CTAs of 2 warps a strip for int8
+// / fp8, 1,625 of 4 warps a strip on 8-byte vectors for int4), G = 66
+// (int8 / fp8) or 132 (int4) at the scale round's.
 // ---------------------------------------------------------------------------
 
-constexpr int kAggThreads = 256;
-constexpr int kWTile = 2048;
-
+// The GEMV's decoders: one 32-bit word of containers to kVals fp32 values,
+// each exact (so the product with the scale is packing.dequantize_group's
+// bitwise).  Timed in turns on the H100 against Word::decode's hardware
+// conversions, per storage the faster:
+//   int8  Word::decode (I2F.S8 reads the byte in place: one instruction a
+//         value; the 2^23 trick below, two, was slower);
+//   int4  each nibble, sign bit flipped (n + 8), under the exponent of
+//         2^23 (__byte_perm): 2^23 + n + 8, minus 8,388,616.0f -- no
+//         conversion unit, ~2.4 FP32 / INT instructions a value;
+//   fp8   two values a conversion (cvt.rn.f16x2.e4m3x2, NaN codes 0x7F /
+//         0xFF to NaN), then f16 -> f32.
 template <int ST>
-__global__ void __launch_bounds__(kAggThreads)
-aggregate_dequant_kernel(const float* __restrict__ w,
-                         const uint8_t* __restrict__ Xq,
-                         const float* __restrict__ S,
-                         float* __restrict__ agg, int n, long long p,
-                         int block) {
-  constexpr int V = 4 * Word<ST>::kVals;          // values a 16-byte vector
-  __shared__ float ws[kWTile];
-  const long long qcols = p / V * 16;             // container bytes a row
-  const long long nb = p / block;                 // scales a row
-  const long long t = (long long)blockIdx.x * kAggThreads + threadIdx.x;
-  const long long c0 = t * V;
-  const bool live = c0 < p;
-  const long long sb = c0 / block;
-  float acc[V];
+struct GemvWord {
+  static constexpr int kVals = Word<ST>::kVals;
+  __device__ __forceinline__ static void decode(uint32_t u, float* v) {
+    if constexpr (ST == kInt8) {
+      Word<ST>::decode(u, v);
+    } else if constexpr (ST == kInt4) {
+      const uint32_t lo = (u & 0x0F0F0F0Fu) ^ 0x08080808u;   // even columns
+      const uint32_t hi = ((u >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
 #pragma unroll
-  for (int j = 0; j < V; ++j) acc[j] = 0.f;
-
-  for (int r0 = 0; r0 < n; r0 += kWTile) {
-    const int rn = min(kWTile, n - r0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < rn; i += kAggThreads) ws[i] = w[r0 + i];
-    __syncthreads();
-    if (live) {
-      const uint8_t* xp = Xq + (long long)r0 * qcols + t * 16;
-      const float* sp = S + (long long)r0 * nb + sb;
-#pragma unroll 4
-      for (int r = 0; r < rn; ++r) {
-        const uint4 q = __ldcs(reinterpret_cast<const uint4*>(
-            xp + (long long)r * qcols));
-        const float s = __ldg(sp + (long long)r * nb);
-        const uint32_t u[4] = {q.x, q.y, q.z, q.w};
-        float v[V];
-        dequant_words<ST, 4>(u, s, v);
-        const float wr = ws[r];
+      for (int j = 0; j < 4; ++j) {
+        v[2 * j] = __uint_as_float(__byte_perm(lo, 0x4B000000u,
+                                               0x7540u + j)) - 8388616.0f;
+        v[2 * j + 1] = __uint_as_float(__byte_perm(hi, 0x4B000000u,
+                                                   0x7540u + j)) -
+                       8388616.0f;
+      }
+    } else {
 #pragma unroll
-        for (int j = 0; j < V; ++j) acc[j] = fmaf(wr, v[j], acc[j]);
+      for (int j = 0; j < 2; ++j) {
+        const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+            (__nv_fp8x2_storage_t)((u >> (16 * j)) & 0xFFFFu), __NV_E4M3);
+        const float2 f = __half22float2(__half2(h));
+        v[2 * j] = f.x;
+        v[2 * j + 1] = f.y;
       }
     }
   }
-  if (live) {
+};
+
+// the GEMV's loader (csrc/row_groups.cuh): W container words of row r and
+// the row's block scale -> W * kVals dequantized values
+struct QuantArgs {
+  const uint8_t* Xq;
+  const float* S;
+  int block;
+};
+
+template <int ST, int W>
+struct QuantLoad {
+  static constexpr int kVals = W * GemvWord<ST>::kVals;
+  static constexpr int kUnroll = 8;
+  using Args = QuantArgs;
+  const uint8_t* x;
+  const float* s;
+  long long qcols, nb;
+  __device__ QuantLoad(Args a, long long p, long long col)
+      : x(a.Xq + col / kVals * (4 * W)), s(a.S + col / a.block),
+        qcols(p / kVals * (4 * W)), nb(p / a.block) {}
+  __device__ __forceinline__ void row(long long r, float* v) const {
+    uint32_t u[W];
+    if constexpr (W == 4) {
+      const uint4 q = __ldcs(reinterpret_cast<const uint4*>(x + r * qcols));
+      u[0] = q.x; u[1] = q.y; u[2] = q.z; u[3] = q.w;
+    } else {
+      static_assert(W == 2, "4 or 2 words a thread");
+      const uint2 q = __ldcs(reinterpret_cast<const uint2*>(x + r * qcols));
+      u[0] = q.x; u[1] = q.y;
+    }
+    const float sc = __ldg(s + r * nb);
+    constexpr int K = GemvWord<ST>::kVals;
 #pragma unroll
-    for (int j = 0; j < V; j += 4)
-      *reinterpret_cast<float4*>(agg + c0 + j) =
-          make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
+    for (int q = 0; q < W; ++q) {
+      float t[K];
+      GemvWord<ST>::decode(u[q], t);
+#pragma unroll
+      for (int j = 0; j < K; ++j) v[q * K + j] = __fmul_rn(t[j], sc);
+    }
   }
+};
+
+// The plan (csrc/row_groups.cuh) and the words a thread, each the faster
+// of the variants timed in turns on the H100 at both main-path shapes:
+// row groups aiming at one wave of CTAs (two were slower at the scale
+// round's shape); 16 bytes a thread, and for int8 / fp8 tall CTAs of 2
+// warps along the rows at the paper's n = 70 (35 rows a warp: 8 warps of
+// 9 rows were slower).  int4 takes 8 bytes a thread (16 values) and 4
+// warps along the rows when 16 bytes would need no row groups (the
+// paper's shape), 16 bytes otherwise (8 were slower at the scale round's).
+struct AggPlan {
+  int words;            // container words a thread: 4 or 2
+  rowsum::Plan plan;
+};
+
+template <int ST>
+AggPlan aggregate_dequant_plan(int n, long long p) {
+  constexpr int K = GemvWord<ST>::kVals;
+  constexpr long long target = rowsum::kWave;
+  if constexpr (ST == kInt4) {
+    const rowsum::Plan full = rowsum::plan(n, p, 4 * K, 1, target);
+    if (full.groups > 1) return {4, full};
+    return {2, rowsum::plan(n, p, 2 * K, 16, target)};
+  } else {
+    return {4, rowsum::plan(n, p, 4 * K, 32, target)};
+  }
+}
+
+template <int ST>
+cudaError_t launch_aggregate_dequant(const float* w, const void* Xq,
+                                     const float* S, float* agg,
+                                     float* partial, int n, long long p,
+                                     int block, cudaStream_t stream) {
+  const AggPlan ap = aggregate_dequant_plan<ST>(n, p);
+  const QuantArgs args{static_cast<const uint8_t*>(Xq), S, block};
+  if (ap.words == 4)
+    return rowsum::launch_gemv<QuantLoad<ST, 4>>(w, args, agg, partial, n, p,
+                                                 ap.plan, stream);
+  return rowsum::launch_gemv<QuantLoad<ST, 2>>(w, args, agg, partial, n, p,
+                                               ap.plan, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -600,29 +684,6 @@ sparse_mix_dequant_kernel(const int* __restrict__ idx,
       make_float4(aacc[0], aacc[1], aacc[2], aacc[3]);
   *reinterpret_cast<float4*>(ar + 4) =
       make_float4(aacc[4], aacc[5], aacc[6], aacc[7]);
-}
-
-// agg[c] = sum_g partial[g, c], g in a fixed order (as in
-// csrc/sparse_mixing.cu): a 32 x 8
-// block takes 32 columns, thread row y sums groups y, y + 8, ..., then row
-// 0 adds the eight stripes in order.
-__global__ void __launch_bounds__(kThreads)
-sum_groups_kernel(const float* __restrict__ partial, float* __restrict__ agg,
-                  int groups, long long p) {
-  __shared__ float s[8][33];
-  const long long c = (long long)blockIdx.x * 32 + threadIdx.x;
-  float acc = 0.f;
-  if (c < p)
-    for (int g = threadIdx.y; g < groups; g += 8)
-      acc += partial[(long long)g * p + c];
-  s[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < p) {
-    float t = s[0][threadIdx.x];
-#pragma unroll
-    for (int y = 1; y < 8; ++y) t += s[y][threadIdx.x];
-    agg[c] = t;
-  }
 }
 
 long long tiles_of(long long p) { return (p + kTile - 1) / kTile; }
@@ -1026,9 +1087,17 @@ const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+int repro_aggregate_dequant_row_groups(int n, long long p, int storage) {
+  if (storage == kInt8) return aggregate_dequant_plan<kInt8>(n, p).plan.groups;
+  if (storage == kInt4) return aggregate_dequant_plan<kInt4>(n, p).plan.groups;
+  if (storage == kFp8) return aggregate_dequant_plan<kFp8>(n, p).plan.groups;
+  return -1;
+}
+
 int repro_aggregate_dequant(const float* w, const void* Xq, const float* S,
-                            float* agg, int n, long long p, int block,
-                            int storage, int device, void* stream) {
+                            float* agg, float* partial, int n, long long p,
+                            int block, int storage, int device,
+                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!valid_geometry(Xq, p, block, storage) ||
@@ -1036,21 +1105,14 @@ int repro_aggregate_dequant(const float* w, const void* Xq, const float* S,
     return (int)cudaErrorInvalidValue;
   if (p <= 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long vals = storage == kInt4 ? 32 : 16;   // a 16-byte vector
-  const long long threads = p / vals;
-  const unsigned blocks =
-      (unsigned)((threads + kAggThreads - 1) / kAggThreads);
-  const uint8_t* x = static_cast<const uint8_t*>(Xq);
   if (storage == kInt8)
-    aggregate_dequant_kernel<kInt8><<<blocks, kAggThreads, 0, s>>>(
-        w, x, S, agg, n, p, block);
-  else if (storage == kInt4)
-    aggregate_dequant_kernel<kInt4><<<blocks, kAggThreads, 0, s>>>(
-        w, x, S, agg, n, p, block);
-  else
-    aggregate_dequant_kernel<kFp8><<<blocks, kAggThreads, 0, s>>>(
-        w, x, S, agg, n, p, block);
-  return (int)cudaGetLastError();
+    return (int)launch_aggregate_dequant<kInt8>(w, Xq, S, agg, partial, n, p,
+                                                block, s);
+  if (storage == kInt4)
+    return (int)launch_aggregate_dequant<kInt4>(w, Xq, S, agg, partial, n, p,
+                                                block, s);
+  return (int)launch_aggregate_dequant<kFp8>(w, Xq, S, agg, partial, n, p,
+                                             block, s);
 }
 
 int repro_mix_aggregate_dequant(const float* B, const void* Xq,
@@ -1140,9 +1202,7 @@ int repro_sparse_mix_aggregate_dequant(const int* idx, const float* w,
     err = launch_sparse<kFp8>(idx, w, wrow, Xq, S, mixed, agg_rows, n,
                               d_max, p, block, s);
   if (err == cudaSuccess && groups > 1) {
-    sum_groups_kernel<<<(unsigned)((p + 31) / 32), dim3(32, 8), 0, s>>>(
-        partial, agg, groups, p);
-    err = cudaGetLastError();
+    err = rowsum::sum_groups(partial, agg, groups, p, s);
   }
   if (err == cudaSuccess) *route = 0;
   return (int)err;

@@ -119,6 +119,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "row_groups.cuh"
 #include "staged.cuh"
 
 namespace {
@@ -310,28 +311,6 @@ sparse_mix_kernel(const int* __restrict__ idx, const float* __restrict__ w,
   }
   if (wrow != nullptr)
     Row<T, VEC>::store_f32(agg_rows + group * p, col, p, aacc);
-}
-
-// agg[c] = sum_g partial[g, c], g in a fixed order: a 32 x 8 block takes 32
-// columns, thread row y sums groups y, y + 8, ..., then row 0 adds the
-// eight stripes in order.
-__global__ void __launch_bounds__(kThreads)
-sum_groups_kernel(const float* __restrict__ partial, float* __restrict__ agg,
-                  int groups, long long p) {
-  __shared__ float s[8][33];
-  const long long c = (long long)blockIdx.x * 32 + threadIdx.x;
-  float acc = 0.f;
-  if (c < p)
-    for (int g = threadIdx.y; g < groups; g += 8)
-      acc += partial[(long long)g * p + c];
-  s[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < p) {
-    float t = s[0][threadIdx.x];
-#pragma unroll
-    for (int y = 1; y < 8; ++y) t += s[y][threadIdx.x];
-    agg[c] = t;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -612,9 +591,7 @@ int repro_sparse_mix_aggregate(const int* idx, const float* w,
               : launch_vec<__nv_bfloat16, false>(idx, w, wrow, X, mixed,
                                                  agg_rows, n, d_max, p, s);
   if (err == cudaSuccess && agg != nullptr && groups > 1) {
-    sum_groups_kernel<<<(unsigned)((p + 31) / 32), dim3(32, 8), 0, s>>>(
-        partial, agg, groups, p);
-    err = cudaGetLastError();
+    err = rowsum::sum_groups(partial, agg, groups, p, s);
   }
   if (err == cudaSuccess) *route = 0;
   return (int)err;

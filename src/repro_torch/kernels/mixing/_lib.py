@@ -36,7 +36,10 @@ def lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         handle = _build.load("mixing")
-        handle.repro_aggregate.argtypes = [_P, _P, _P, _I, _LL, _I, _I, _P]
+        handle.repro_aggregate_row_groups.argtypes = [_I, _LL, _I]
+        handle.repro_aggregate_row_groups.restype = _I
+        handle.repro_aggregate.argtypes = [_P, _P, _P, _P, _I, _LL, _I, _I,
+                                           _P]
         handle.repro_aggregate.restype = _I
         handle.repro_mix_aggregate.argtypes = [_P, _P, _P, _P, _I, _I, _LL,
                                                _I, _I, _P, _PI]
@@ -66,8 +69,10 @@ def quant_lib() -> ctypes.CDLL:
     global _QUANT_LIB
     if _QUANT_LIB is None:
         handle = _build.load("quant_mixing")
+        handle.repro_aggregate_dequant_row_groups.argtypes = [_I, _LL, _I]
+        handle.repro_aggregate_dequant_row_groups.restype = _I
         handle.repro_aggregate_dequant.argtypes = [
-            _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P]
+            _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P]
         handle.repro_aggregate_dequant.restype = _I
         handle.repro_mix_aggregate_dequant.argtypes = [
             _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P, _PI]

@@ -11,7 +11,11 @@ dims), so with the precombined row ``w = (tau^T A) / m``
 
 ``aggregate_cuda``
     writes only the f32 row: a GEMV that streams X once, bound by X's
-    bytes (``csrc/mixing.cu::aggregate_kernel``).  What the default
+    bytes (``csrc/row_groups.cuh``'s GEMV, instanced in
+    ``csrc/mixing.cu``).  For a tall payload (the n = 100,000 scale
+    round) it splits the rows into G groups, whose partial rows go to a
+    (G, p) f32 scratch this wrapper allocates and a second pass sums in a
+    fixed order; ``aggregate_row_groups`` gives G.  What the default
     'aggregate' round backend runs.
 ``mix_aggregate_cuda``
     one tiled product of the stacked ``[A; w]`` ((n+1) x n) with X: the
@@ -26,7 +30,9 @@ dims), so with the precombined row ``w = (tau^T A) / m``
     kernels (``csrc/quant_mixing.cu``): the port of
     ``aggregate_dequant_pallas`` and ``mix_aggregate_dequant_pallas``.
     Both outputs are f32.  The 'aggregate' and 'fused' round backends
-    with a ``quant`` spec.  ``mix_aggregate_dequant_cuda`` has
+    with a ``quant`` spec.  ``aggregate_dequant_cuda`` is
+    ``aggregate_cuda``'s GEMV on the container, with its row groups
+    (``aggregate_dequant_row_groups``).  ``mix_aggregate_dequant_cuda`` has
     ``mix_aggregate_cuda``'s two routes: 'staged' (n <= 128: the
     container slabs staged by TMA, each value decoded once a tile into
     an fp32 slab that ``mix_staged_kernel``'s loop reads) and 'generic'
@@ -51,7 +57,8 @@ from .ref import (aggregate_dequant_ref, aggregate_ref,
                   mix_aggregate_dequant_ref, mix_aggregate_ref)
 
 __all__ = ["aggregate_cuda", "mix_aggregate_cuda", "aggregate_dequant_cuda",
-           "mix_aggregate_dequant_cuda"]
+           "mix_aggregate_dequant_cuda", "aggregate_row_groups",
+           "aggregate_dequant_row_groups"]
 
 
 def aggregate_cuda(w: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -69,15 +76,44 @@ def aggregate_cuda(w: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     if p == 0:
         return agg
     lib = _lib.lib()
+    partial = _scratch(lib.repro_aggregate_row_groups(n, p, code), p,
+                       X.device)
     device, stream = _lib.launch_args(X)
-    rc = lib.repro_aggregate(w.data_ptr(), X.data_ptr(), agg.data_ptr(), n,
-                             p, code, device, stream)
+    rc = lib.repro_aggregate(w.data_ptr(), X.data_ptr(), agg.data_ptr(),
+                             _ptr(partial), n, p, code, device, stream)
     _build.check(lib, rc, "aggregate")
     aggregate_cuda.launches += 1
     return agg
 
 
 aggregate_cuda.launches = 0
+
+
+def _scratch(groups: int, p: int, device: torch.device):
+    """The GEMVs' (G, p) f32 scratch of partial rows, when G > 1."""
+    if groups > 1:
+        return torch.empty(groups, p, dtype=torch.float32, device=device)
+    return None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def aggregate_row_groups(X: torch.Tensor) -> int:
+    """The row groups G ``aggregate_cuda`` splits the rows of payload X
+    into (``csrc/row_groups.cuh``): a function of X's shape and dtype
+    alone.  Needs the built library (a CUDA machine)."""
+    n, p = X.shape
+    return _lib.lib().repro_aggregate_row_groups(n, p, _lib.dtype_code(X))
+
+
+def aggregate_dequant_row_groups(Xq: torch.Tensor, S: torch.Tensor, *,
+                                 storage: str, block: int) -> int:
+    """The row groups G ``aggregate_dequant_cuda`` splits the rows of a
+    quantized payload into; as ``aggregate_row_groups``."""
+    code, n, p = _lib.check_quant_operands(Xq, S, storage, block)
+    return _lib.quant_lib().repro_aggregate_dequant_row_groups(n, p, code)
 
 
 def mix_aggregate_cuda(A: torch.Tensor, w: torch.Tensor, X: torch.Tensor
@@ -130,10 +166,13 @@ def aggregate_dequant_cuda(w: torch.Tensor, Xq: torch.Tensor,
     if p == 0:
         return agg
     lib = _lib.quant_lib()
+    partial = _scratch(lib.repro_aggregate_dequant_row_groups(n, p, code), p,
+                       Xq.device)
     device, stream = _lib.launch_args(Xq)
     rc = lib.repro_aggregate_dequant(w.data_ptr(), Xq.data_ptr(),
-                                     S.data_ptr(), agg.data_ptr(), n, p,
-                                     block, code, device, stream)
+                                     S.data_ptr(), agg.data_ptr(),
+                                     _ptr(partial), n, p, block, code,
+                                     device, stream)
     _build.check(lib, rc, "aggregate_dequant")
     aggregate_dequant_cuda.launches += 1
     return agg

@@ -52,23 +52,35 @@ def test_every_source_has_a_build_key():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
-def test_the_staged_header_builds_all_three_mixing_sources(tmp_path,
-                                                           monkeypatch):
-    """``csrc/staged.cuh`` (the TMA slab ring of the staged route) is
-    included by the dense, the ELL and the quantized mixing sources, so an
-    edit to it renames all three libraries and no stale build of any is
-    loaded."""
+def _edit_renames_the_mixing_libraries(header, tmp_path, monkeypatch):
+    """``header`` is included by the dense, the ELL and the quantized
+    mixing sources, and an edit to it renames those three libraries (and
+    not the flash kernel's), so no stale build of any is loaded."""
     mixing = ("mixing", "sparse_mixing", "quant_mixing")
     for name in mixing:
-        assert _build.CSRC / "staged.cuh" in _build.includes(
+        assert _build.CSRC / header in _build.includes(
             _build.CSRC / f"{name}.cu")
     for src in _build.CSRC.iterdir():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     names = ("mixing", "sparse_mixing", "quant_mixing", "flash_attention")
     before = {name: _build.library_path(name) for name in names}
-    with open(tmp_path / "staged.cuh", "a") as f:
+    with open(tmp_path / header, "a") as f:
         f.write("// edited\n")
     after = {name: _build.library_path(name) for name in names}
     assert [name for name in names if after[name] != before[name]] == \
         list(mixing)
+
+
+def test_the_staged_header_builds_all_three_mixing_sources(tmp_path,
+                                                           monkeypatch):
+    """``csrc/staged.cuh``: the TMA slab ring of the staged route."""
+    _edit_renames_the_mixing_libraries("staged.cuh", tmp_path, monkeypatch)
+
+
+def test_the_row_groups_header_builds_all_three_mixing_sources(tmp_path,
+                                                               monkeypatch):
+    """``csrc/row_groups.cuh``: the fixed-order sum of row groups the
+    generic ELL kernels' aggregate legs use, and the aggregate GEMV."""
+    _edit_renames_the_mixing_libraries("row_groups.cuh", tmp_path,
+                                       monkeypatch)

@@ -27,7 +27,12 @@ flash-attention kernel is held against its plain version at fp32 (the
 CUDA-core route) and bf16 (the tensor-core route), GQA, windows,
 non-causal, masked kv tails, Sq != Sk and strided views (the reference's
 tolerances, 2e-5 / 2e-2), and a reduced qwen2-7b on the card must launch
-it once a layer and agree with the 'ref' attention path.
+it once a layer and agree with the 'ref' attention path.  The two GEMVs
+(aggregate, aggregate_dequant) split tall payloads into row groups (G >
+1) and still agree with their plain versions and with themselves from
+call to call, an unaligned payload sums in the aligned one's order, the
+paper's fp32 payload keeps G = 1, and aggregate_dequant decodes every
+byte code exactly.
 """
 
 from functools import partial
@@ -579,6 +584,96 @@ def test_dequant_kernels_reject_what_they_do_not_take(cuda):
                                      block=128)
     with pytest.raises(ValueError):
         fused.aggregate_dequant_cuda(w, Xq, S, storage="int8", block=256)
+
+
+# the two GEMVs' payloads: (dtype or storage, block)
+GEMV_KINDS = [(torch.float32, None), (torch.bfloat16, None),
+              ("int8", 512), ("int4", 512), ("fp8", 512)]
+
+
+def _gemv(kind, block, n, p, device, seed):
+    """A payload of ``kind`` and the GEMV over it: ``(call, plain, G)``,
+    ``call()`` launching aggregate_cuda or aggregate_dequant_cuda."""
+    from repro_torch.kernels.mixing import fused, ref
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    w = torch.rand(n, generator=g, device=device)
+    if isinstance(kind, torch.dtype):
+        X = torch.randn(n, p, generator=g, device=device).to(kind)
+        return (partial(fused.aggregate_cuda, w, X), ref.aggregate_ref(w, X),
+                fused.aggregate_row_groups(X))
+    Xq, S = _wire(n, p, kind, block, device, seed)
+    q = dict(storage=kind, block=block)
+    return (partial(fused.aggregate_dequant_cuda, w, Xq, S, **q),
+            ref.aggregate_dequant_ref(w, Xq, S, kind, block),
+            fused.aggregate_dequant_row_groups(Xq, S, **q))
+
+
+@pytest.mark.parametrize("kind,block", GEMV_KINDS)
+@pytest.mark.parametrize("n,p", [(5000, 2048), (5000, 512), (3000, 1024)])
+def test_gemvs_split_tall_payloads_into_row_groups(cuda, kind, block, n, p):
+    """Tall, narrow payloads (the scale round's shape, cut down) split the
+    rows into G > 1 groups whose partial rows a second pass sums in a fixed
+    order: against the plain version, and a second call bitwise equal to
+    the first."""
+    call, want, groups = _gemv(kind, block, n, p, cuda, n + p)
+    assert groups > 1
+    got = call()
+    # fp32 sums over 5,000 rows in another order, partial sums up to ~50
+    # (w in [0, 1), x ~ N(0, 1)): a few ulps there (3.8e-6 each)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, call())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,p", [(5000, 2048), (70, 4096), (13, 1024)])
+def test_aggregate_narrow_loads_sum_in_the_same_order(cuda, dtype, n, p):
+    """An unaligned payload takes 4- or 2-byte loads but the 16-byte
+    vector's plan, so its agg is bitwise the aligned payload's."""
+    from repro_torch.kernels.mixing import fused
+
+    g = torch.Generator(device=cuda).manual_seed(p)
+    w = torch.rand(n, generator=g, device=cuda)
+    X = torch.randn(n, p, generator=g, device=cuda).to(dtype)
+    assert torch.equal(fused.aggregate_cuda(w, X),
+                       fused.aggregate_cuda(w, _misaligned(X)))
+
+
+def test_aggregate_keeps_one_group_at_the_paper_width(cuda):
+    """The paper's fp32 payload (70 x 1,663,488) fills the card without
+    row groups: G = 1, so agg is written as the first design wrote it."""
+    from repro_torch.kernels.mixing import fused, ref
+
+    g = torch.Generator(device=cuda).manual_seed(70)
+    X = torch.randn(70, 1_663_488, generator=g, device=cuda)
+    w = torch.rand(70, generator=g, device=cuda) / 70
+    assert fused.aggregate_row_groups(X) == 1
+    torch.testing.assert_close(fused.aggregate_cuda(w, X),
+                               ref.aggregate_ref(w, X), **F32)
+
+
+@pytest.mark.parametrize("storage,unit", [("int8", 256), ("int4", 512),
+                                          ("fp8", 256)])
+def test_aggregate_dequant_decodes_every_code_exactly(cuda, storage, unit):
+    """One row holding every byte code (every nibble in every pair, for
+    int4) four times, under scales 0, 1, 2^-20 and 1/448, with w = [1.0]:
+    agg is then the dequantized row itself and must equal
+    ``dequantize_group``'s value for every code, fp8's NaN codes 0x7F /
+    0xFF included (a -0.0 comes out +0.0: fmaf(1, -0, +0))."""
+    from repro_torch.fl import packing
+    from repro_torch.kernels.mixing import fused
+
+    dtype = torch.float8_e4m3fn if storage == "fp8" else torch.int8
+    codes = torch.arange(256, dtype=torch.uint8, device=cuda)
+    Xq = codes.repeat(1, 4).view(dtype)          # four scale blocks
+    S = torch.tensor([[0.0, 1.0, 2.0 ** -20, 1 / 448]], device=cuda)
+    agg = fused.aggregate_dequant_cuda(torch.ones(1, device=cuda), Xq, S,
+                                       storage=storage, block=unit)
+    want = packing.dequantize_group(
+        Xq, S, packing.QuantSpec(storage=storage, block=unit))[0]
+    assert torch.isnan(want).any() == (storage == "fp8")
+    torch.testing.assert_close(agg, want, **BITWISE)
 
 
 @pytest.mark.parametrize("storage,block", STORAGES[:3])

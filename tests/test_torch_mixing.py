@@ -94,6 +94,53 @@ def test_kernel_modules_match_pallas(dt):
     _close(ga, wa[0], F32_TOL)
 
 
+# tall, narrow payloads: more rows than the first GEMV's w tile (2,048),
+# the shape the scale round gives the GEMVs, cut down; (kind, n, p, block)
+TALL = [("f32", 2100, 256, None), ("bf16", 2100, 384, None),
+        ("int8", 2100, 256, 128), ("int4", 2100, 512, 256),
+        ("fp8", 2100, 256, 128), ("int8", 4500, 128, 128)]
+
+
+@pytest.mark.parametrize("kind,n,p,block", TALL,
+                         ids=[f"{k}-{n}x{p}" for k, n, p, _ in TALL])
+def test_tall_gemvs_match_pallas(kind, n, p, block):
+    """The port's aggregate / aggregate_dequant (their plain versions on
+    the CPU) against aggregate_pallas / aggregate_dequant_pallas
+    (interpret) on n > 2,048 rows; fp32 sums over n rows in another
+    order (``F32_TOL``), each side quantizing with its own quantizer,
+    whose containers and scales must agree bitwise."""
+    from repro.fl import packing as jpacking
+    from repro_torch.fl import packing
+
+    rng = np.random.default_rng(n + p)
+    w = (rng.random(n) / n).astype(np.float32)
+    X = rng.standard_normal((n, p)).astype(np.float32)
+    w_pad = np.zeros((8, n), np.float32)
+    w_pad[0] = w
+    if block is None:
+        jdt, tdt = DTYPES[kind]
+        want = jfused.aggregate_pallas(_j(w_pad), _j(X, jdt), chunk=128,
+                                       interpret=True)[0]
+        _close(fused.aggregate_cuda(_t(w), _t(X, tdt)), want, F32_TOL)
+        return
+    storage = kind
+    q = packing.QuantSpec(storage=storage, block=block)
+    jq = jpacking.QuantSpec(storage=storage, block=block)
+    Xq, S = packing.quantize_group(torch.from_numpy(X), q)
+    jXq, jS = jpacking.quantize_group(jnp.asarray(X), jq)
+    as_bits = (lambda a: a.view(np.uint8)) if storage == "fp8" else \
+        (lambda a: a)
+    tq = Xq.view(torch.uint8) if storage == "fp8" else Xq
+    np.testing.assert_array_equal(tq.numpy(), as_bits(np.asarray(jXq)))
+    np.testing.assert_array_equal(S.numpy(), np.asarray(jS))
+    want = jfused.aggregate_dequant_pallas(_j(w_pad), jXq, jS,
+                                           storage=storage, block=block,
+                                           chunk=block, interpret=True)[0]
+    got = fused.aggregate_dequant_cuda(_t(w), Xq, S, storage=storage,
+                                       block=block)
+    _close(got, want, F32_TOL)
+
+
 # ---------------------------------------------------------------------------
 # ops: ragged n / p, A = I, active, weights, m = 0, both dtypes
 # ---------------------------------------------------------------------------
