@@ -115,6 +115,34 @@ Phases (each raises on failure; nothing is caught):
               and sparse_mix_aggregate_dequant launch on the staged
               route), with the time of the plain-PyTorch quantizer in a
               round; and one traced int8 run.
+   control -- the closed loop at the same width, through
+              ``FederatedServer.run(controller=)``: ``static`` on 'fused'
+              (-> aggregate; bitwise the run of the precomputed
+              ``connectivity_aware`` plan), ``threshold:tau=2`` on 'fused'
+              with record_mixed (-> mix_aggregate),
+              ``threshold:scheme=sampled`` and ``threshold:tau=2`` on
+              'sparse' with record_mixed (-> sparse_mix_aggregate; a live
+              round's ELL is as wide as its own widest row, the replay's
+              as the plan's), and ``similarity`` over a ``learned:k=3``
+              topology on 'fused'.  Each run's launches are counted with
+              the counts reset before it, and its routes asserted (all
+              staged); its realized plan replayed through ``run(plan=)``
+              must reproduce it bitwise, with the same launches and
+              routes; 'einsum' under the same controller (for the sparse
+              runs: replaying the realized plan) within rtol 1e-4 / atol
+              1e-5; the sparse runs also hold round 0's payload through
+              sparse_mix_aggregate with 6 more ELL padding slots, bitwise.
+              Round times (host clock) and the ``similarity`` feed's ms:
+              the device-to-host copy of a round's deltas, the
+              controller's whole ``feed`` (host numpy), and within it the
+              float64 cast with normalisation and the Gram, timed apart.
+   hetero  -- ``optim.HeteroClientOptimizers`` with the CNN at n = 70: an
+              all-'sgd' runner against ``client_deltas`` (rtol 1e-6, atol
+              1e-7); two 'sgd,adam' instances, two ``deltas`` calls each
+              on the same inputs, bitwise equal to each other (the 'sgd'
+              clients repeat, the 'adam' ones move on); ms a call.
+   quickstart -- ``examples/quickstart_torch.py`` once on the card, its
+              table printed, its columns the plan's.
 4. scale   -- an n = 100,000 ``ring`` plan built sparse (12,500
               clusters of 8), one round of the logreg model (7,850
               params, T = 1, batch 8 drawn from the seed) on 'sparse',
@@ -135,8 +163,10 @@ Phases (each raises on failure; nothing is caught):
               prefill + decode vs the forward within 2e-3.
 6. report  -- a ``{"kernels": [...]}`` JSON line (nine kernels; the
               six routed ones with the ``routes`` of their main-path
-              launches), the card's name and power limit (nvidia-smi),
-              and the final ``{"ok": true, "device": {...}}`` line.
+              launches; the launches are those of [train], [control]
+              and the quickstart), the card's name and power limit
+              (nvidia-smi), and the final ``{"ok": true, "device":
+              {...}}`` line.
 
 It imports only ``torch``, numpy and ``repro_torch`` (never JAX), and
 exits non-zero without a result when no CUDA card is present or when run
@@ -930,19 +960,15 @@ def reset_counters(counters) -> None:
             f.routes = dict.fromkeys(f.routes, 0)
 
 
-def phase_train(rounds: int, seed: int):
-    """Algorithm 1 at full width on every kernel backend; returns the
-    launch count of each kernel in the path that runs it, and the routes
-    of the routed kernels' launches there."""
+def paper_cell(seed: int):
+    """The paper's Sec. 6 setting at full width: n = 70 clients in c = 7
+    clusters, ``k_regular`` k in [6, 9] with p_fail = 0.1, label-sorted
+    synthetic 28x28x1 data, the McMahan CNN, T = 5, batch 32.  Returns
+    ``(n, c, T, ds_test, batcher, spec, loss_fn, init)``."""
     import numpy as np
-    import torch
     from repro_torch import topology
-    from repro_torch.core.pytree import tree_flatten
-    from repro_torch.core.server import FederatedServer, ServerConfig
     from repro_torch.data import (FederatedBatcher, label_sorted_partition,
                                   make_classification)
-    from repro_torch.fl import packing
-    from repro_torch.fl.engine import ExecutionConfig
     from repro_torch.models import cnn
 
     n, c, T, batch = 70, 7, 5, 32
@@ -954,7 +980,21 @@ def phase_train(rounds: int, seed: int):
     spec = topology.make_spec("k_regular", n=n, c=c, k_range=(6, 9),
                               p_fail=0.1)
     loss_fn = partial(cnn.l2_regularized_loss, cnn.cnn_apply)
-    init = cnn.init_cnn(seed)
+    return n, c, T, ds_test, batcher, spec, loss_fn, cnn.init_cnn(seed)
+
+
+def phase_train(rounds: int, seed: int):
+    """Algorithm 1 at full width on every kernel backend; returns the
+    launch count of each kernel in the path that runs it, and the routes
+    of the routed kernels' launches there."""
+    import torch
+    from repro_torch.core.pytree import tree_flatten
+    from repro_torch.core.server import FederatedServer, ServerConfig
+    from repro_torch.fl import packing
+    from repro_torch.fl.engine import ExecutionConfig
+    from repro_torch.models import cnn
+
+    n, c, T, ds_test, batcher, spec, loss_fn, init = paper_cell(seed)
     n_params = sum(int(x.numel()) for x in tree_flatten(init)[0])
     pspec = packing.pack_spec({k: {kk: v[None] for kk, v in d.items()}
                                for k, d in init.items()})
@@ -1366,6 +1406,378 @@ def trace_device(fn, what: str, top: int = 12):
                                     key=lambda kv: -kv[1][1])[:top]:
         print(f"[profile]   {us / 1e3:9.3f} ms {us / 1e3 / total:6.1%}  "
               f"x{count:<5d} {name[:90]}")
+
+
+# -- phase 3b: the closed loop, the heterogeneous optimizers, the quickstart --
+
+# (controller, topology family, backend, record_mixed, the kernel its
+# path launches: once a round, the CNN's deltas being one fp32 group)
+CONTROL_RUNS = (
+    ("static", "k_regular", "fused", False, "aggregate"),
+    ("threshold:tau=2", "k_regular", "fused", True, "mix_aggregate"),
+    ("threshold:scheme=sampled", "k_regular", "sparse", True,
+     "sparse_mix_aggregate"),
+    ("threshold:tau=2", "k_regular", "sparse", True,
+     "sparse_mix_aggregate"),
+    ("similarity", "learned", "fused", False, "aggregate"),
+)
+
+
+def phase_control(rounds: int, seed: int):
+    """The closed loop at the paper's width (the [train] configuration;
+    ``similarity`` over a ``learned:k=3`` topology of the same n and c):
+    each controller of ``CONTROL_RUNS`` drives ``FederatedServer.run(
+    controller=)`` on its kernel backend with the launch counts reset just
+    before and read just after.  Its realized plan replayed through
+    ``run(plan=)`` must reproduce it bitwise with the same launches and
+    routes (and, on 'sparse', extra ELL padding slots must change
+    nothing); the same controller on 'einsum' must realize the same plan
+    (a sparse run's: einsum replays it), with params within rtol 1e-4 /
+    atol 1e-5; ``static`` must equal the precomputed
+    ``connectivity_aware`` plan's run bitwise.  Prints the
+    round times (host clock) and the ``similarity`` feed's ms (the
+    device-to-host copy of a round's deltas, the controller's ``feed``,
+    and its cast and Gram timed apart).  Returns
+    the kernels' launch counts and routes in the live runs."""
+    import numpy as np
+    import torch
+    from repro_torch import control, topology
+    from repro_torch.core.pytree import tree_flatten, tree_leaves
+    from repro_torch.core.rounds import client_deltas
+    from repro_torch.core.server import FederatedServer, ServerConfig
+    from repro_torch.fl.engine import ExecutionConfig, _to_device
+    from repro_torch.fl.plan import RoundPlan
+    from repro_torch.models import cnn
+
+    n, c, T, ds_test, batcher, spec, loss_fn, init = paper_cell(seed)
+    specs = {"k_regular": spec,
+             "learned": topology.make_spec("learned", n=n, c=c, k=3)}
+    cfg = ServerConfig(T=T, t_max=rounds, seed=seed)
+    dev = torch.device("cuda")
+    xs = torch.as_tensor(ds_test.x, device=dev)
+    ys = torch.as_tensor(ds_test.y, device=dev).long()
+    counters = kernel_counters()
+
+    def server_for(family, backend, record_mixed):
+        return FederatedServer(
+            specs[family].build(), loss_fn, init, batcher, cfg,
+            execution=ExecutionConfig(backend=backend,
+                                      record_mixed=record_mixed))
+
+    def run(family, backend, record_mixed, **how):
+        """One run with the counts reset before it and read after it:
+        ``(server, history, counts, routes, round ms)``."""
+        stamps, exits = [time.perf_counter()], []
+        exits.append(stamps[0])
+
+        def eval_fn(p):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            out = {"test_acc": cnn.accuracy(cnn.cnn_apply, p, xs, ys)}
+            torch.cuda.synchronize()
+            exits.append(time.perf_counter())
+            return out
+
+        server = server_for(family, backend, record_mixed)
+        reset_counters(counters)
+        hist = server.run(eval_fn=eval_fn, **how)
+        torch.cuda.synchronize()
+        counts = {k: f.launches for k, f in counters.items()}
+        routes = {k: dict(f.routes) for k, f in counters.items()
+                  if hasattr(f, "routes")}
+        ms = [(stamps[t + 1] - exits[t]) * 1e3 for t in range(rounds)]
+        return server, hist, counts, routes, ms
+
+    def records(h):
+        return [(r.t, r.m, r.m_actual, r.psi_bound, r.d2s, r.d2d, r.eta,
+                 r.metrics) for r in h.records]
+
+    launches, path_routes = {}, {}
+    for ctl, family, backend, record_mixed, kernel in CONTROL_RUNS:
+        what = f"{ctl} on {backend}" + (" + record_mixed" if record_mixed
+                                        else "") + f" ({family})"
+        feed_ms = []
+        controller = control.build(control.parse_spec(ctl))
+        if controller.needs_deltas:
+            feed = controller.feed
+
+            def timed_feed(record, deltas, feed=feed):
+                t0 = time.perf_counter()
+                feed(record, deltas)
+                feed_ms.append((time.perf_counter() - t0) * 1e3)
+
+            controller.feed = timed_feed
+        live, h_live, counts, routes, ms = run(family, backend, record_mixed,
+                                               controller=controller)
+        plan = live.last_plan
+        want = rounds
+        if counts[kernel] != want or sum(counts.values()) != want:
+            raise AssertionError(f"[control] {what}: launches {counts}, "
+                                 f"not {want} of {kernel}")
+        if kernel in routes and routes[kernel] != {"generic": 0,
+                                                   "staged": want}:
+            raise AssertionError(f"[control] {what}: {kernel} routes "
+                                 f"{routes[kernel]}, not all staged")
+        if any(r.control is None for r in h_live.records) != \
+                (ctl == "static"):
+            raise AssertionError(f"[control] {what}: telemetry missing")
+        launches[kernel] = launches.get(kernel, 0) + counts[kernel]
+        if kernel in routes:
+            total = path_routes.setdefault(kernel, dict.fromkeys(
+                routes[kernel], 0))
+            for r in total:
+                total[r] += routes[kernel][r]
+
+        # the realized plan replays bitwise, through the same kernels
+        replay, h_rep, r_counts, r_routes, _ = run(family, backend,
+                                                   record_mixed, plan=plan)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(live.params), tree_leaves(replay.params)))
+        if not same or records(h_live) != records(h_rep) or \
+                r_counts != counts or r_routes != routes or \
+                any(r.control is not None for r in h_rep.records):
+            raise AssertionError(f"[control] {what}: the replay of the "
+                                 f"realized plan differs (params equal: "
+                                 f"{same}, launches {r_counts}, routes "
+                                 f"{r_routes})")
+        if plan.is_sparse:
+            padding_is_inert(plan, loss_fn, init, batcher, seed)
+        if ctl == "static":
+            pre, h_pre, _, _, _ = run(
+                family, backend, record_mixed,
+                plan=RoundPlan.connectivity_aware(specs[family].build(),
+                                                  cfg))
+            if records(h_pre) != records(h_live) or not all(
+                    torch.equal(a, b) for a, b in zip(
+                        tree_leaves(pre.params), tree_leaves(live.params))):
+                raise AssertionError("[control] static controller differs "
+                                     "from the precomputed plan")
+        # the same controller on the plain einsum backend.  A dense loop
+        # must realize the same plan; a sparse one computes realized phi
+        # on the CSR (power iteration) where einsum's dense loop takes an
+        # SVD, which agree to ~1e-6, not bitwise, so einsum replays the
+        # sparse run's realized plan (densified) instead
+        how = ({"plan": plan} if plan.is_sparse else {"controller": ctl})
+        oracle, h_ref, ref_counts, _, _ = run(family, "einsum", False,
+                                              **how)
+        if any(ref_counts.values()):
+            raise AssertionError(f"einsum launched kernels: {ref_counts}")
+        if [r[:7] for r in records(h_ref)] != \
+                [r[:7] for r in records(h_live)] or (
+                    not plan.is_sparse and (
+                        oracle.last_plan.to_json() != plan.to_json()
+                        or [r.control for r in h_ref.records]
+                        != [r.control for r in h_live.records])):
+            raise AssertionError(f"[control] {what}: einsum realized "
+                                 "another plan")
+        worst = 0.0
+        for a, b in zip(tree_flatten(live.params)[0],
+                        tree_flatten(oracle.params)[0]):
+            if a.shape != b.shape or not torch.isfinite(a).all() or \
+                    not torch.allclose(a, b, rtol=1e-4, atol=1e-5):
+                raise AssertionError(f"[control] {what}: params differ "
+                                     "from einsum")
+            worst = max(worst, float((a - b).abs().max()))
+        d_max = ((max(plan.A_t.max_degree, 1),
+                  [int(m.row_degrees.max()) for m in plan.A_t])
+                 if plan.is_sparse else None)
+        print(f"[control] {what}: m {[r.m_actual for r in h_live.records]}"
+              f", d2d {[r.d2d for r in h_live.records]}, "
+              f"{counts[kernel]} {kernel} launches"
+              + (f" (routes {routes[kernel]})" if kernel in routes else "")
+              + (f", ELL d_max live {d_max[1]} / replay {d_max[0]}"
+                 if d_max else "")
+              + f"; replay bitwise: {same}; max|params - einsum| "
+              f"{worst:.3e}; round ms {[round(x, 1) for x in ms]} (mean "
+              f"after round 0 {np.mean(ms[1:]):.1f}); telemetry "
+              f"{h_live.records[-1].control}; test_acc "
+              f"{[r.metrics['test_acc'] for r in h_live.records]}")
+        if feed_ms:
+            # the device-to-host copy that execute_controlled makes of a
+            # round's deltas, timed alone on round 0's inputs
+            params = _to_device(init, dev)
+            b0 = _to_device(batcher(np.random.default_rng([seed, 1]), 0),
+                            dev)
+            eta = torch.tensor(plan.eta_t[0], dtype=torch.float32,
+                               device=dev)
+            tree = client_deltas(loss_fn, params, b0, eta)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flat = np.concatenate([leaf.reshape(n, -1).cpu().numpy()
+                                   for leaf in tree_leaves(tree)], axis=1)
+            copy_ms = (time.perf_counter() - t0) * 1e3
+            # the feed's two steps on that copy, timed apart: the float64
+            # cast and row normalisation, then the Gram alone
+            t0 = time.perf_counter()
+            X = np.asarray(flat, np.float64)
+            norms = np.linalg.norm(X, axis=1)
+            norms[norms == 0.0] = 1.0
+            X = X / norms[:, None]
+            t1 = time.perf_counter()
+            X @ X.T
+            t2 = time.perf_counter()
+            print(f"[control] similarity feed: ({n}, {flat.shape[1]}) fp32 "
+                  f"= {flat.nbytes / 1e6:.1f} MB to the host in "
+                  f"{copy_ms:.1f} ms; the controller's feed (host numpy: "
+                  f"float64 cast, normalisation, Gram, EMA, graph "
+                  f"rebuild) {[round(x, 1) for x in feed_ms]} ms a round; "
+                  f"of it, on round 0's deltas, cast + normalisation "
+                  f"{(t1 - t0) * 1e3:.1f} ms, Gram {(t2 - t1) * 1e3:.1f} ms")
+            del tree, flat, X
+        del live, replay, oracle
+        torch.cuda.empty_cache()
+    return launches, path_routes
+
+
+def padding_is_inert(plan, loss_fn, init, batcher, seed):
+    """A live controlled round's ELL is as wide as its own widest row, the
+    replay's as the plan's widest; the extra slots (index 0, weight 0.0)
+    must change nothing.  Round 0's packed deltas through
+    ``sparse_mix_aggregate_cuda`` with the round's own ELL and with 6 more
+    padding slots (another template bound of the slot loop): both outputs
+    bitwise equal, both launches on one route."""
+    import numpy as np
+    import torch
+    from repro_torch.core.rounds import client_deltas
+    from repro_torch.fl import packing
+    from repro_torch.fl.engine import _to_device
+    from repro_torch.kernels.mixing import sparse
+
+    dev = torch.device("cuda")
+    b0 = _to_device(batcher(np.random.default_rng([seed, 1]), 0), dev)
+    eta = torch.tensor(plan.eta_t[0], dtype=torch.float32, device=dev)
+    deltas = client_deltas(loss_fn, _to_device(init, dev), b0, eta)
+    X = packing.pack(deltas, packing.pack_spec(deltas))[0]
+    wrow = torch.rand(X.shape[0], device=dev)
+    d = int(plan.A_t[0].row_degrees.max())
+    outs = []
+    for width in (d, d + 6):
+        idx, w = (torch.as_tensor(a, device=dev)
+                  for a in plan.A_t[0].ell(width))
+        outs.append(routed(sparse.sparse_mix_aggregate_cuda, idx, w, wrow,
+                           X))
+    (m1, a1), r1 = outs[0]
+    (m2, a2), r2 = outs[1]
+    if not (torch.equal(m1, m2) and torch.equal(a1, a2)) or r1 != r2:
+        raise AssertionError(f"ELL padding slots changed the result (d_max "
+                             f"{d} on {r1}, {d + 6} on {r2})")
+    print(f"[control]   ELL d_max {d} and {d + 6} (6 padding slots) on "
+          f"{X.shape[0]} x {X.shape[1]}: mixed and agg bitwise equal, both "
+          f"{r1}")
+
+
+def phase_hetero(seed: int):
+    """``HeteroClientOptimizers`` at the paper's width (the McMahan CNN, n =
+    70, T = 5, batch 32) on the card: an all-'sgd' runner against
+    ``client_deltas`` (rtol 1e-6, atol 1e-7), then two 'sgd,adam'
+    instances fed the same dispatch order (two ``deltas`` calls each on
+    the same inputs: the 'sgd' clients repeat, the 'adam' ones move on),
+    bitwise equal, with the ms a call."""
+    import numpy as np
+    import torch
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.core.rounds import client_deltas
+    from repro_torch.fl.engine import _to_device
+    from repro_torch.optim import HeteroClientOptimizers, parse_client_optim
+
+    n, _, T, _, batcher, _, loss_fn, init = paper_cell(seed)
+    dev = torch.device("cuda")
+    params = _to_device(init, dev)
+    # the same inputs twice: the 'sgd' clients must repeat themselves and
+    # the 'adam' clients (odd indices) move on with their state
+    b0 = _to_device(batcher(np.random.default_rng([seed, 1]), 0), dev)
+    rounds = [b0, b0]
+    eta = 0.02
+
+    sgd = HeteroClientOptimizers(loss_fn, params,
+                                 parse_client_optim("sgd", n))
+    got = sgd.deltas(params, rounds[0], eta)
+    want = client_deltas(loss_fn, params, rounds[0],
+                         torch.tensor(eta, dtype=torch.float32, device=dev))
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        if not torch.allclose(a, b, rtol=1e-6, atol=1e-7):
+            raise AssertionError("[hetero] all-sgd differs from "
+                                 "client_deltas")
+        worst = max(worst, float((a - b).abs().max()))
+    del sgd, got, want
+
+    def calls():
+        h = HeteroClientOptimizers(loss_fn, params,
+                                   parse_client_optim("sgd,adam", n))
+        h.warmup(params, rounds[0], eta)
+        out, ms = [], []
+        for b in rounds:
+            t0 = time.perf_counter()
+            d = h.deltas(params, b, eta)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(tree_leaves(d))
+        return h, out, ms
+
+    h1, out1, ms1 = calls()
+    h2, out2, ms2 = calls()
+    same = all(torch.equal(a, b) for r1, r2 in zip(out1, out2)
+               for a, b in zip(r1, r2)) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(h1.states),
+                                          tree_leaves(h2.states)))
+    adam = h1.states["adam"]
+    state_bytes = sum(x.numel() * x.element_size() for x in
+                      tree_leaves(h1.states))
+    first, second = out1[0][0], out1[1][0]
+    advanced = (torch.equal(first[0::2], second[0::2])
+                and not torch.equal(first[1::2], second[1::2]))
+    print(f"[hetero] all-sgd vs client_deltas: max|diff| {worst:.3e} "
+          f"(rtol 1e-6, atol 1e-7); sgd,adam: groups "
+          f"{list(h1.states)}, adam steps {int(adam.count[0])} a client, "
+          f"state {state_bytes / 1e9:.3f} GB on the card; second instance "
+          f"bitwise equal: {same}; on the same inputs again sgd repeated and "
+          f"adam moved: {advanced}; ms a call {[round(x, 1) for x in ms1]} / "
+          f"{[round(x, 1) for x in ms2]}")
+    if not same or not advanced or int(adam.count[0]) != 2 * T or \
+            any(not torch.isfinite(x).all() for x in out1[-1]):
+        raise AssertionError("[hetero] heterogeneous runner is not "
+                             "deterministic or did not advance")
+    del h1, h2, out1, out2
+    torch.cuda.empty_cache()
+
+
+def phase_quickstart(counters):
+    """``examples/quickstart_torch.py`` once on the card, its table
+    printed; its m(t) / psi / D2D columns must be the port's plan's and
+    its accuracies finite.  Returns the aggregate launches of its run."""
+    import importlib.util
+    import math
+    from repro_torch import topology
+    from repro_torch.core.server import ServerConfig
+    from repro_torch.fl.plan import RoundPlan
+
+    path = ROOT / "examples" / "quickstart_torch.py"
+    spec = importlib.util.spec_from_file_location("quickstart_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    reset_counters(counters)
+    server, hist = mod.main(["--device", "cuda"])
+    counts = {k: f.launches for k, f in counters.items()}
+    rounds = len(hist.records)
+    plan = RoundPlan.connectivity_aware(
+        topology.make_spec("k_regular", n=20, c=2, k_range=(6, 9),
+                           p_fail=0.1).build(),
+        ServerConfig(T=5, t_max=rounds, phi_max=2.0))
+    cols = [(r.m_actual, r.psi_bound, r.d2d) for r in hist.records]
+    if cols != list(zip(plan.m_actual_t.tolist(),
+                        plan.psi_bound_t.tolist(), plan.d2d_t.tolist())) \
+            or any(not math.isfinite(r.metrics["acc"])
+                   for r in hist.records) \
+            or counts["aggregate"] != rounds \
+            or sum(counts.values()) != rounds:
+        raise AssertionError(f"[quickstart] table or launches wrong: "
+                             f"{counts}")
+    print(f"[quickstart] examples/quickstart_torch.py on cuda: {rounds} "
+          f"rounds, {counts['aggregate']} aggregate launches, m(t) / psi "
+          f"/ D2D equal the plan's, final acc "
+          f"{hist.records[-1].metrics['acc']:.3f}")
+    return counts["aggregate"]
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -1824,6 +2236,14 @@ def main() -> int:
     phase_gemv(SEED)
     rows.append(phase_flash(SEED))
     launches, routes = phase_train(ROUNDS, SEED)
+    control_launches, control_routes = phase_control(ROUNDS, SEED)
+    for kernel, count in control_launches.items():
+        launches[kernel] += count
+    for kernel, by_route in control_routes.items():
+        for r, count in by_route.items():
+            routes[kernel][r] += count
+    phase_hetero(SEED)
+    launches["aggregate"] += phase_quickstart(kernel_counters())
     phase_scale(SEED)
     launches["flash_attention"] = phase_lm(SEED, kernel_counters())
     for row in rows:

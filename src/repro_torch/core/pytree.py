@@ -6,7 +6,8 @@ tensors, as in the reference.  ``jax.tree.flatten`` visits dict entries in
 the packed delta layout (``repro_torch.fl.packing``), its padded widths
 and byte counts, and the order of the L2 sum in the loss all follow the
 leaf order, so the port flattens the JAX way.  ``None`` is an empty
-subtree, as in JAX.
+subtree, as in JAX, and a NamedTuple (an optimizer state such as
+``optim.optimizers.AdamState``) is a node that keeps its type.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from typing import Any, Callable, List, Tuple
 __all__ = ["tree_flatten", "tree_unflatten", "tree_leaves", "tree_map"]
 
 PyTree = Any
-# treedef: "*" for a leaf, None for None, else (kind, keys, children)
+# treedef: "*" for a leaf, None for None, else (kind, keys, children);
+# kind is "dict", "list", "tuple" or a NamedTuple class
 TreeDef = Any
 _END = object()
 
@@ -28,7 +30,10 @@ def _walk(node, leaves: List[Any]) -> TreeDef:
         keys = tuple(sorted(node))
         return ("dict", keys, tuple(_walk(node[k], leaves) for k in keys))
     if isinstance(node, (list, tuple)):
-        kind = "list" if isinstance(node, list) else "tuple"
+        if isinstance(node, list):
+            kind = "list"
+        else:
+            kind = type(node) if hasattr(node, "_fields") else "tuple"
         return (kind, len(node), tuple(_walk(c, leaves) for c in node))
     leaves.append(node)
     return "*"
@@ -43,7 +48,9 @@ def _build(d: TreeDef, it) -> PyTree:
     if kind == "dict":
         return {k: _build(c, it) for k, c in zip(keys, children)}
     out = [_build(c, it) for c in children]
-    return out if kind == "list" else tuple(out)
+    if kind == "list":
+        return out
+    return tuple(out) if kind == "tuple" else kind(*out)
 
 
 # The walkers are module-level functions: a recursive closure is a

@@ -19,10 +19,14 @@ the ``RoundPlan`` constructors), batches from ``default_rng([config.seed,
 both packages, and a replayed plan consumes the batch stream like the
 planning run did.
 
+``run(controller=...)`` closes the loop instead: a ``repro_torch.control``
+policy decides each round online (``LocalEngine.execute_controlled``),
+and ``last_plan`` then holds the realized plan, which replays the run
+bitwise through ``run(plan=...)``.
+
 Not ported: the reference's deprecated per-knob kwargs
 (``mixing_backend=``, ``scan_rounds=``, ..., translated there under a
-``DeprecationWarning``) -- pass ``execution=ExecutionConfig(...)`` -- and
-the closed-loop ``run(controller=...)`` (ROADMAP queue 1 item 10).
+``DeprecationWarning``) -- pass ``execution=ExecutionConfig(...)``.
 """
 
 from __future__ import annotations
@@ -70,6 +74,11 @@ class RoundRecord:
     d2d: int
     eta: float
     metrics: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # control telemetry (repro_torch.control): realized per-cluster phi,
+    # the open-loop m rule vs the decided m, gossip depth.  None for every
+    # open-loop round AND for replays of a controlled run's emitted plan
+    # -- replay equality checks compare everything but this field.
+    control: Optional[Dict[str, float]] = None
 
 
 @dataclasses.dataclass
@@ -153,13 +162,55 @@ class FederatedServer:
         return plan, batches
 
     def run(self, eval_fn: Optional[EvalFn] = None, eval_every: int = 1,
-            plan=None) -> History:
+            plan=None, controller=None) -> History:
         """build plan -> engine.execute(plan) -> History.
 
         ``plan``: an explicit ``RoundPlan`` to execute (e.g. loaded from
         JSON, or a built plan transformed by ``with_dropout``); default
         is to plan ``config.t_max`` rounds of ``self.algorithm`` here.
+
+        ``controller``: close the loop instead of planning open-loop --
+        a ``repro_torch.control`` policy (family string like
+        ``'threshold:phi_max=0.2'``, a ``ControllerSpec``, or a built
+        ``Controller``) decides each round's sample size / gossip depth
+        / step size online from the realized topology.  Mutually
+        exclusive with ``plan``; requires an engine with an
+        ``execute_controlled`` method (``LocalEngine``).  Afterwards
+        ``self.last_plan`` holds the *realized* plan emitted by the
+        control loop -- replaying it through ``run(plan=...)`` reproduces
+        the controlled run bitwise (modulo the ``RoundRecord.control``
+        telemetry, which only the live run has).
         """
+        if controller is not None:
+            if plan is not None:
+                raise ValueError(
+                    "pass either plan= or controller=, not both: a "
+                    "controller generates its own realized plan")
+            if self.algorithm != "semidec":
+                raise ValueError(
+                    "controllers drive the connectivity-aware algorithm "
+                    f"only (algorithm='semidec'), got {self.algorithm!r}")
+            execute_controlled = getattr(self.engine,
+                                         "execute_controlled", None)
+            if execute_controlled is None:
+                raise ValueError(
+                    f"{type(self.engine).__name__} does not support "
+                    "controlled execution (no execute_controlled); use "
+                    "LocalEngine")
+            from repro_torch.control import ControlLoop
+
+            sparse = self.effective_backend in ("sparse",
+                                                "sparse_aggregate")
+            loop = ControlLoop(self.network, self.config, controller,
+                               algorithm=self.algorithm, sparse=sparse)
+            batches = [self.batch_sampler(self.rng, t)
+                       for t in range(self.config.t_max)]
+            self.params, history = execute_controlled(
+                loop, self.params, batches, eval_fn=eval_fn,
+                eval_every=eval_every,
+                energy_ratio=self.config.energy_ratio)
+            self.last_plan = self.engine.last_realized_plan
+            return history
         plan, batches = self._plan_and_batches(plan)
         self.params, history = self.engine.execute(
             plan, self.params, batches, eval_fn=eval_fn,

@@ -6,7 +6,9 @@
     LocalEngine       single-host runtime over ``repro_torch.core.rounds``
                       (``make_round_fn`` / ``make_scanned_rounds``) on one
                       device -- ``cuda`` unless the caller passes
-                      ``device="cpu"``.
+                      ``device="cpu"``; ``execute`` runs a plan,
+                      ``execute_controlled`` a ``repro_torch.control``
+                      loop (the closed loop, one round at a time).
     make_engine       ExecutionConfig -> the engine.
 
 Backend selection::
@@ -42,13 +44,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.metrics import CommLedger
-from repro_torch.core.pytree import tree_map
+from repro_torch.core.pytree import tree_leaves, tree_map
 from repro_torch.core.rounds import (SPARSE_BACKENDS, check_backend,
-                                     check_quant_backend, make_round_fn,
-                                     make_scanned_rounds)
+                                     check_quant_backend, client_deltas,
+                                     make_round_fn, make_scanned_rounds)
 from repro_torch.core.sparse import SparseAseq
 from repro_torch.core.server import History, RoundRecord
 from . import packing
@@ -242,6 +245,8 @@ class LocalEngine:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_fp32_policy()
+        # filled by execute_controlled: the realized RoundPlan artifact
+        self.last_realized_plan = None
 
     def execute(self, plan, params, batches, *, eval_fn=None, eval_every=1,
                 energy_ratio=0.1):
@@ -286,6 +291,89 @@ class LocalEngine:
             # record inline: only the current round's params stay live
             _append_record(plan, history, t, lambda p=params: p,
                            eval_fn, eval_every)
+        return params, history
+
+    def execute_controlled(self, loop, params, batches, *, eval_fn=None,
+                           eval_every=1, energy_ratio=0.1):
+        """Closed-loop execution: one ``repro_torch.control.ControlLoop``
+        row per round, realized through the same round function as
+        ``execute`` with per-round tensors carrying identical values -- so
+        replaying ``self.last_realized_plan`` (set on return)
+        through ``execute`` reproduces this run bitwise (the replay's
+        records merely lack the live ``control`` telemetry).  On the
+        sparse backends a live round's ELL is as wide as its own widest
+        row, the replay's as the plan's: the extra slots are index 0,
+        weight 0.0, which the kernels add as exact zeros on either route.
+        (Were the plan's widest row past the staged route's 64 slots and
+        a live round's within them, that round would replay on the
+        generic route, whose aggregate sums the rows in another order.)
+
+        When the policy consumes training feedback
+        (``loop.needs_deltas``, the learned-graph path), each round's
+        client deltas are re-derived from the pre-round params, flattened
+        leaf by leaf in ``tree_leaves`` order into one host (n, P) fp32
+        array and fed back after the round -- one extra deltas evaluation
+        and one device-to-host copy per round, the documented price of
+        the alternating model/graph scheme.
+        """
+        cfg = self.cfg
+        if cfg.scan:
+            raise ValueError(
+                "controlled execution is inherently per-round (the "
+                "policy observes each realized topology); scan=True is "
+                "unsupported")
+        if cfg.quant is not None:
+            raise ValueError(
+                "controlled execution does not support quantized "
+                "payloads: the realized plan carries no quant spec to "
+                "replay the error-feedback residuals against")
+        sparse = self.backend in SPARSE_BACKENDS
+        if bool(getattr(loop, "_sparse")) != sparse:
+            raise ValueError(
+                f"loop sparsity ({getattr(loop, '_sparse')}) must match "
+                f"the engine backend {self.backend!r} ({sparse})")
+        K = len(batches)
+        device = self.device
+        history = History(algorithm=loop.algorithm,
+                          ledger=CommLedger(energy_ratio=energy_ratio))
+        params = _to_device(params, device)
+        batches = [_to_device(b, device) for b in batches]
+        round_fn = make_round_fn(self.loss_fn, self.backend)
+
+        def col(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                   device=device)
+
+        for t in range(K):
+            row, telemetry = loop.next_row()
+            eta = col(row.eta)
+            deltas = None
+            if loop.needs_deltas:
+                # pre-round params: the deltas the round itself mixes
+                tree = client_deltas(self.loss_fn, params, batches[t], eta)
+                deltas = np.concatenate(
+                    [leaf.reshape(loop.n, -1).cpu().numpy()
+                     for leaf in tree_leaves(tree)], axis=1)
+                del tree
+            if sparse:
+                idx, w = row.A.ell()
+                A = (torch.as_tensor(idx, dtype=torch.int32, device=device),
+                     col(w))
+            else:
+                A = col(row.A)
+            params, _ = round_fn(params, batches[t], A, col(row.tau),
+                                 col(row.m), eta)
+            rec = RoundRecord(
+                t=row.t, m=row.m_planned, m_actual=row.m_actual,
+                psi_bound=row.psi_bound, d2s=row.d2s, d2d=row.d2d,
+                eta=row.eta, control=telemetry)
+            if eval_fn is not None and (t % eval_every == 0 or t == K - 1):
+                rec.metrics = {k: float(v)
+                               for k, v in eval_fn(params).items()}
+            history.records.append(rec)
+            history.ledger.add_round(d2s=rec.d2s, d2d=rec.d2d)
+            loop.feed(rec, deltas)
+        self.last_realized_plan = loop.emit_plan()
         return params, history
 
 

@@ -446,11 +446,27 @@ class RoundPlan:
     def controlled(cls, network, config, controller,
                    rng: Optional[np.random.Generator] = None,
                    *, sparse: bool = False) -> "RoundPlan":
-        """Offline closed-loop planning: not yet ported (ROADMAP queue 1,
-        closed-loop slice)."""
-        raise NotImplementedError(
-            "controlled plans are not yet ported to repro_torch (ROADMAP "
-            "queue 1, closed-loop slice)")
+        """Offline closed-loop planning: run a ``repro_torch.control``
+        policy over ``config.t_max`` rounds with no training in the loop
+        (the controller sees each realized topology draw, never a
+        ``RoundRecord`` or deltas) and return the realized plan.
+        Controllers that learn from training feedback
+        (``needs_deltas``, e.g. ``similarity``) cannot plan offline --
+        run them through an engine (``FederatedServer.run(
+        controller=...)``) instead."""
+        from repro_torch.control import ControlLoop   # deferred: control
+        # imports this module back at package init
+
+        loop = ControlLoop(network, config, controller, rng=rng,
+                           sparse=sparse)
+        if loop.needs_deltas:
+            raise ValueError(
+                "this controller consumes per-round training feedback "
+                "(needs_deltas); it cannot plan offline -- run it with "
+                "FederatedServer.run(controller=...) instead")
+        for _ in range(config.t_max):
+            loop.next_row()
+        return loop.emit_plan()
 
     # -- straggler transforms ----------------------------------------------
 

@@ -26,12 +26,18 @@ bursty Markov chains with ``--dropout-recover``, or whole clusters).
 ``--quant {int8,int4,fp8}`` quantizes the client payloads (with
 ``--quant-block``, ``--quant-rounding``, ``--no-error-feedback``): the
 kernel backends then run the dequant kernels, and the plan written by
-``--plan-out`` carries the spec.
+``--plan-out`` carries the spec.  ``--controller 'family:key=val,...'``
+closes the loop (``repro_torch.control``: static, threshold,
+similarity): the policy decides each round online, and ``--plan-out``
+saves the realized plan, which ``--plan`` replays bitwise; it refuses
+``--plan``, ``--dropout`` and ``--quant``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --backend sparse \
       --topology ring:hops=1
   PYTHONPATH=src python -m repro_torch.launch.train --backend fused \
       --quant int8
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --controller threshold:tau=2 --plan-out realized.json
 """
 
 from __future__ import annotations
@@ -100,6 +106,14 @@ def main(argv=None) -> int:
                          f"(families: {', '.join(topology.families())}); "
                          "default: the paper's k_regular model from "
                          "--k-min/--k-max/--p")
+    ap.add_argument("--controller", default="",
+                    help="close the loop: adaptive per-round control "
+                         "'family:key=val,...' (families: static, "
+                         "threshold, similarity -- see "
+                         "repro_torch.control). The realized plan lands "
+                         "in --plan-out like any other run.  Mutually "
+                         "exclusive with --plan/--dropout/--quant; "
+                         "semidec only")
     ap.add_argument("--dropout", type=float, default=0.0,
                     help="per-round client straggler probability "
                          "(adds an active_t column to the plan)")
@@ -187,6 +201,26 @@ def main(argv=None) -> int:
                                  record_mixed=args.record_mixed,
                                  quant=quant),
                              device=device)
+    if args.controller:
+        if args.plan:
+            raise SystemExit(
+                "--controller generates its own realized plan; it cannot "
+                "replay --plan (replay the realized artifact without "
+                "--controller instead)")
+        if args.dropout > 0:
+            raise SystemExit(
+                "--controller and --dropout are mutually exclusive: "
+                "straggler injection on a controlled run belongs to the "
+                "stream runtime's fault specs")
+        if args.quant:
+            raise SystemExit(
+                "--controller does not support --quant (controlled "
+                "execution has no error-feedback replay state)")
+        history = server.run(eval_fn=eval_fn, controller=args.controller)
+        if args.plan_out:
+            server.last_plan.save(args.plan_out)
+            print(f"realized trajectory saved to {args.plan_out}")
+        return _report(args, server, history)
     plan = RoundPlan.load(args.plan) if args.plan else None
     if args.dropout > 0:
         if plan is None:

@@ -12,7 +12,9 @@ small Algorithm-1 run on every kernel backend must launch its kernel and
 agree with the plain 'einsum' backend.  The sparse (ELL) kernels also
 run at a shape that splits the rows into groups (the aggregate leg's
 two-pass sum), and the combine row they are fed must be bitwise the same
-from run to run.  The three dequant kernels run on int8, int4 and fp8
+from run to run; trailing padding slots change nothing (a controlled
+round's ELL is narrower than its replay's), and small controlled runs on
+the kernel backends replay bitwise from their realized plans.  The three dequant kernels run on int8, int4 and fp8
 payloads made by the port's quantizer: the sparse one's mixed output
 must be bitwise its plain version's, the other outputs ``rtol=atol=1e-5``
 (fp32 FMA sums in another order); the dense and ELL ones take the route
@@ -268,6 +270,35 @@ def test_sparse_kernels_match_plain_versions(cuda, n, p, d_max, dtype):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("n,p,d_max,extra,dtype", [
+    (70, 4096, 8, 6, torch.float32), (70, 4096, 3, 13, torch.bfloat16),
+    (13, 1001, 3, 2, torch.float32), (3000, 100, 2, 14, torch.float32),
+    (128, 4100, 16, 30, torch.float32)])
+def test_sparse_kernels_ignore_trailing_padding_slots(cuda, n, p, d_max,
+                                                      extra, dtype):
+    """A controlled round's ELL is as wide as its own widest row, the
+    replay of its realized plan pads every round to the plan's widest:
+    extra trailing slots (index 0, weight 0.0; here across the slot
+    loop's template bounds and the generic loop) leave both outputs
+    bitwise the same, on the same route."""
+    from repro_torch.kernels.mixing import sparse
+
+    idx, w = _ell(n, d_max, n + d_max, cuda)
+    pad = torch.zeros(n, extra, dtype=idx.dtype, device=cuda)
+    idx2 = torch.cat([idx, pad], 1)
+    w2 = torch.cat([w, pad.float()], 1)
+    g = torch.Generator(device=cuda).manual_seed(p)
+    X = torch.randn(n, p, generator=g, device=cuda).to(dtype)
+    wrow = torch.rand(n, generator=g, device=cuda)
+    (m1, a1), r1 = _routed_call(sparse.sparse_mix_aggregate_cuda, idx, w,
+                                wrow, X)
+    (m2, a2), r2 = _routed_call(sparse.sparse_mix_aggregate_cuda, idx2, w2,
+                                wrow, X)
+    assert r1 == r2 == _route(X, n, d_max + extra)
+    assert torch.equal(m1, m2) and torch.equal(a1, a2)
+    assert torch.equal(m1, sparse.sparse_mix_cuda(idx2, w2, X))
+
+
 @pytest.mark.parametrize("n", [STAGED_ROWS, STAGED_ROWS + 1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sparse_kernels_propagate_row_zero_non_finite(cuda, n, dtype):
@@ -362,6 +393,54 @@ def test_server_runs_the_sparse_backends_on_the_card(cuda):
         for a, b, c in zip(seq, scn, ref_leaves):
             assert torch.equal(a, b)
             torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+
+
+def test_controlled_runs_replay_bitwise_on_the_card(cuda):
+    """The closed loop on the card: each controlled run launches its
+    kernel once a round, and its realized plan replayed through
+    ``run(plan=)`` reproduces it bitwise on the same routes."""
+    from repro_torch import topology
+    from repro_torch.core.pytree import tree_flatten
+    from repro_torch.core.server import FederatedServer, ServerConfig
+    from repro_torch.data import (FederatedBatcher, label_sorted_partition,
+                                  make_classification)
+    from repro_torch.fl.engine import ExecutionConfig
+    from repro_torch.kernels.mixing import fused, sparse
+    from repro_torch.models import cnn
+
+    ds = make_classification(n_samples=400, image_hw=8, seed=0)
+    parts = label_sorted_partition(ds, 12, rng=np.random.default_rng(0))
+    spec = topology.make_spec("hub", n=12, c=3)
+    loss = partial(cnn.l2_regularized_loss, cnn.cnn_apply)
+
+    def run(backend, record_mixed, counter, **how):
+        server = FederatedServer(
+            spec.build(), loss, cnn.init_cnn(0, image_hw=8),
+            FederatedBatcher(ds, parts, T=2, batch_size=4),
+            ServerConfig(T=2, t_max=3, seed=1, phi_max=0.3),
+            execution=ExecutionConfig(backend=backend,
+                                      record_mixed=record_mixed))
+        counter.launches = 0
+        routes = dict(getattr(counter, "routes", {}))
+        hist = server.run(**how)
+        torch.cuda.synchronize()
+        moved = {r: counter.routes[r] - routes[r] for r in routes}
+        return server, hist, counter.launches, moved
+
+    for ctl, backend, record_mixed, counter in [
+            ("threshold", "fused", False, fused.aggregate_cuda),
+            ("threshold:tau=2", "fused", True, fused.mix_aggregate_cuda),
+            ("threshold:scheme=sampled", "sparse", True,
+             sparse.sparse_mix_aggregate_cuda)]:
+        live, h_live, n_live, r_live = run(backend, record_mixed, counter,
+                                           controller=ctl)
+        rep, h_rep, n_rep, r_rep = run(backend, record_mixed, counter,
+                                       plan=live.last_plan)
+        assert n_live == n_rep == 3 and r_live == r_rep
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_flatten(live.params)[0], tree_flatten(rep.params)[0]))
+        assert [(r.m, r.d2s, r.d2d) for r in h_live.records] == \
+            [(r.m, r.d2s, r.d2d) for r in h_rep.records]
 
 
 STORAGES = [("int8", 128), ("int4", 256), ("fp8", 128), ("int8", 512)]

@@ -77,8 +77,10 @@ def test_pending_slices_raise():
     # the quant slice has landed: with_quant validates the type only
     with pytest.raises(ValueError, match="QuantSpec"):
         plan.with_quant(object())
-    with pytest.raises(NotImplementedError, match="closed-loop"):
-        RoundPlan.controlled(net, cfg, "static")
+    # the closed-loop slice has landed: the static controller's realized
+    # plan is the open-loop plan, provenance included
+    assert RoundPlan.controlled(net, cfg, "static").to_json() == \
+        plan.to_json()
     # the sparse slice has landed: CSR plans over every family
     assert RoundPlan.connectivity_aware(net, cfg, sparse=True).is_sparse
     assert len(topology.families()) == 9

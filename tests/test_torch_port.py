@@ -38,6 +38,12 @@ def test_no_module_imports_jax_or_the_reference():
     assert bad == []
     root = SRC.parents[1] / "chip_smoke.py"
     assert [n for n in _imports(root) if n.split(".")[0] in FORBIDDEN] == []
+    # the new subpackages are covered, and so are the example twins
+    assert {"control", "optim"} <= {f.parent.name for f in files}
+    twins = sorted((SRC.parents[1] / "examples").glob("*_torch.py"))
+    assert len(twins) >= 2
+    assert [(t.name, n) for t in twins for n in _imports(t)
+            if n.split(".")[0] in FORBIDDEN] == []
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):
