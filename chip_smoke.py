@@ -143,6 +143,29 @@ Phases (each raises on failure; nothing is caught):
               clients repeat, the 'adam' ones move on); ms a call.
    quickstart -- ``examples/quickstart_torch.py`` once on the card, its
               table printed, its columns the plan's.
+   stream  -- the semi-async runtime at the same width, 4 rounds, through
+              ``FederatedServer(execution=ExecutionConfig(stream=...))``:
+              a pristine ``StreamConfig()`` on 'fused' bitwise the
+              ``LocalEngine`` run with the same aggregate launches; under
+              ``STREAM_FAULTS`` (markov p_fail 0.2, exponential latency of
+              mean 0.5) with ``STREAM_POLICY`` (buffer 40, deadline 2.0,
+              poly staleness) 'fused' must take the stale path (aggregate
+              once per contributing cohort), keep History bitwise the
+              'einsum' run's and params within rtol 1e-4 / atol 1e-5, and
+              its realized plan, replayed fault-free, must reproduce it
+              bitwise with the same launches; the same with
+              ``client_optim='sgd,adam'``; ``threshold:tau=2`` closed-loop
+              (``StreamEngine.execute_controlled``) under the same faults,
+              replayed bitwise.  Round ms after round 0 and launches.
+   ingest  -- the wall-clock runtime: ``IngestEngine`` (clock 'wall',
+              0.2 s a virtual unit, 4 workers) under the same faults on
+              'fused', with and without overlapping dispatch, traced
+              (device activity only): ``Recording.verify() == []`` on the
+              card, every overlapped cohort's payload event complete when
+              its future resolved; wall seconds, rounds closed, late /
+              lost / duplicate uploads, launches, the device's busy share.
+              Then ``python -m repro_torch.launch.stream --selfcheck`` and
+              ``launch.ingest --selfcheck`` on cuda ('fused').
 4. scale   -- an n = 100,000 ``ring`` plan built sparse (12,500
               clusters of 8), one round of the logreg model (7,850
               params, T = 1, batch 8 drawn from the seed) on 'sparse',
@@ -163,8 +186,9 @@ Phases (each raises on failure; nothing is caught):
               prefill + decode vs the forward within 2e-3.
 6. report  -- a ``{"kernels": [...]}`` JSON line (nine kernels; the
               six routed ones with the ``routes`` of their main-path
-              launches; the launches are those of [train], [control]
-              and the quickstart), the card's name and power limit
+              launches; the launches are those of [train], [control],
+              the quickstart, [stream] and [ingest]), the card's name and
+              power limit
               (nvidia-smi), and the final ``{"ok": true, "device":
               {...}}`` line.
 
@@ -1351,23 +1375,12 @@ def mix_alone(loss_fn, init, batcher, spec, rounds, seed, counters):
     return counts["sparse_mix"], routes
 
 
-def trace_device(fn, what: str, top: int = 12):
-    """Trace ``fn()`` (``what``) with ``torch.profiler``, device activity
-    only, after one untraced call, and print the device events (kernels,
-    copies, sets) by total time and the device's busy share of the traced
-    wall time.  Events are read from the exported trace and kept once per
-    correlation id (one per launch); the busy time is the union of their
-    intervals, so events overlapping on several streams count once."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()                                     # warm: cuDNN / vmap set-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+def device_events(prof):
+    """The device events of a finished ``torch.profiler`` run, read from
+    its exported trace (``build/profile_trace.json``): ``(raw, events,
+    busy_us)`` -- every kernel / copy / set event, the same kept once per
+    correlation id (one per launch), and the union of their intervals in
+    µs (events overlapping on several streams count once)."""
     trace = ROOT / "build" / "profile_trace.json"
     trace.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(trace))
@@ -1385,6 +1398,27 @@ def trace_device(fn, what: str, top: int = 12):
     for e in sorted(events, key=lambda ev: ev["ts"]):
         busy_us += max(0.0, e["ts"] + e["dur"] - max(e["ts"], end))
         end = max(end, e["ts"] + e["dur"])
+    return raw, events, busy_us
+
+
+def trace_device(fn, what: str, top: int = 12):
+    """Trace ``fn()`` (``what``) with ``torch.profiler``, device activity
+    only, after one untraced call, and print the device events (kernels,
+    copies, sets) by total time and the device's busy share of the traced
+    wall time.  Events are read from the exported trace and kept once per
+    correlation id (one per launch); the busy time is the union of their
+    intervals, so events overlapping on several streams count once."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()                                     # warm: cuDNN / vmap set-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    raw, events, busy_us = device_events(prof)
     per_name, per_stream = {}, {}
     for e in events:
         count, us = per_name.get(e["name"], (0, 0.0))
@@ -1778,6 +1812,299 @@ def phase_quickstart(counters):
           f"/ D2D equal the plan's, final acc "
           f"{hist.records[-1].metrics['acc']:.3f}")
     return counts["aggregate"]
+
+
+# -- phase 3c: the semi-async and wall-clock runtimes -------------------------
+
+STREAM_ROUNDS = 4   # enough rounds for a stale cohort to form
+# the fault process and the closure policy of [stream] and [ingest]
+STREAM_FAULTS = "markov:p_fail=0.2,latency=exponential,mean=0.5"
+STREAM_POLICY = dict(buffer=40, deadline=2.0, staleness="poly")
+# [ingest]: wall seconds a virtual time unit, so that the mean upload
+# latency (0.5 units = 0.1 s) is near one round's compute at this width
+INGEST_TIME_SCALE = 0.2
+
+
+def _stream_records(h, metrics=True):
+    """A History's records as comparable tuples (nan psi as a string)."""
+    return [(r.t, r.m, r.m_actual,
+             "nan" if r.psi_bound != r.psi_bound else r.psi_bound,
+             r.d2s, r.d2d, r.eta, r.stream)
+            + ((r.metrics,) if metrics else ()) for r in h.records]
+
+
+def phase_stream(rounds: int, seed: int) -> int:
+    """The semi-async runtime at the paper's width (the [train]
+    configuration, ``rounds`` rounds), through
+    ``FederatedServer(execution=ExecutionConfig(stream=...))``: a
+    pristine ``StreamConfig()`` on 'fused' must equal ``LocalEngine``
+    'fused' bitwise with the same launches; under ``STREAM_FAULTS`` with
+    ``STREAM_POLICY`` 'fused' must take the stale path, keep History
+    bitwise the 'einsum' run's and params within rtol 1e-4 / atol 1e-5,
+    and its realized plan replayed fault-free must reproduce it bitwise;
+    the same with ``client_optim='sgd,adam'``; ``threshold:tau=2``
+    closed-loop under the same faults, replayed bitwise.  Prints each
+    run's round ms after round 0 (host clock) and aggregate launches;
+    returns the aggregate launches of the runs that are not replays."""
+    import numpy as np
+    import torch
+    from repro_torch.core.pytree import tree_flatten, tree_leaves
+    from repro_torch.core.server import FederatedServer, ServerConfig
+    from repro_torch.fl.engine import ExecutionConfig
+    from repro_torch.fl.faults import parse_fault_spec
+    from repro_torch.fl.stream import StreamConfig, StreamEngine
+    from repro_torch.models import cnn
+
+    n, c, T, ds_test, batcher, spec, loss_fn, init = paper_cell(seed)
+    cfg = ServerConfig(T=T, t_max=rounds, seed=seed)
+    dev = torch.device("cuda")
+    xs = torch.as_tensor(ds_test.x, device=dev)
+    ys = torch.as_tensor(ds_test.y, device=dev).long()
+    counters = kernel_counters()
+    faults = parse_fault_spec(STREAM_FAULTS)
+
+    def run(backend, stream, **how):
+        """One run with the counts reset before it and read after it:
+        ``(server, history, counts, round ms)``."""
+        stamps, exits = [time.perf_counter()], []
+        exits.append(stamps[0])
+
+        def eval_fn(p):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            out = {"test_acc": cnn.accuracy(cnn.cnn_apply, p, xs, ys)}
+            torch.cuda.synchronize()
+            exits.append(time.perf_counter())
+            return out
+
+        server = FederatedServer(
+            spec.build(), loss_fn, init, batcher, cfg,
+            execution=ExecutionConfig(backend=backend, stream=stream))
+        reset_counters(counters)
+        hist = server.run(eval_fn=eval_fn, **how)
+        torch.cuda.synchronize()
+        counts = {k: f.launches for k, f in counters.items()}
+        ms = [(stamps[t + 1] - exits[t]) * 1e3 for t in range(rounds)]
+        return server, hist, counts, ms
+
+    def same_params(a, b):
+        return all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(a.params), tree_leaves(b.params)))
+
+    def only_aggregate(counts, what):
+        if sum(counts.values()) != counts["aggregate"]:
+            raise AssertionError(f"[stream] {what}: launches {counts}")
+        return counts["aggregate"]
+
+    def report(what, hist, counts, ms, extra=""):
+        late = sum(r.stream.get("late", 0) for r in hist.records
+                   if r.stream)
+        print(f"[stream] {what}: m {[r.m_actual for r in hist.records]}, "
+              f"late {late:g}, {counts['aggregate']} aggregate launches, "
+              f"round ms {[round(x, 1) for x in ms]} (mean after round 0 "
+              f"{np.mean(ms[1:]):.1f}){extra}; test_acc "
+              f"{[round(r.metrics['test_acc'], 4) for r in hist.records]}")
+
+    launches = 0
+    # 1) pristine: bitwise the synchronous engine, the same launches
+    sync, h_sync, c_sync, ms_sync = run("fused", None)
+    semi, h_semi, c_semi, ms_semi = run("fused", StreamConfig())
+    if not isinstance(semi.engine, StreamEngine) or \
+            semi.effective_backend != "aggregate":
+        raise AssertionError("[stream] the server did not run the stream "
+                             "engine on 'aggregate'")
+    if not same_params(sync, semi) or \
+            _stream_records(h_sync) != _stream_records(h_semi) or \
+            only_aggregate(c_semi, "pristine") != \
+            only_aggregate(c_sync, "LocalEngine") or \
+            c_semi["aggregate"] != rounds:
+        raise AssertionError(f"[stream] pristine StreamConfig() differs from "
+                             f"LocalEngine (launches {c_semi} vs {c_sync})")
+    report("LocalEngine fused", h_sync, c_sync, ms_sync)
+    report("pristine StreamConfig() fused", h_semi, c_semi, ms_semi,
+           "; == LocalEngine bitwise (params, History, launches)")
+    launches += c_semi["aggregate"]
+    del sync, semi
+
+    # 2) - 3) faults on fused: stale path, einsum, realized-plan replay
+    for optim in (None, "sgd,adam"):
+        stream = StreamConfig(faults=faults, client_optim=optim,
+                              **STREAM_POLICY)
+        what = f"{STREAM_FAULTS}, {STREAM_POLICY}" + (
+            f", client_optim={optim!r}" if optim else "")
+        live, h_live, c_live, ms_live = run("fused", stream)
+        only_aggregate(c_live, what)
+        if not any(r.stream and r.stream.get("late") for r in
+                   h_live.records):
+            raise AssertionError(f"[stream] {what}: no stale cohort")
+        oracle, h_ref, c_ref, _ = run("einsum", stream)
+        if any(c_ref.values()):
+            raise AssertionError(f"einsum launched kernels: {c_ref}")
+        if _stream_records(h_live, False) != _stream_records(h_ref, False):
+            raise AssertionError(f"[stream] {what}: History differs from "
+                                 "einsum")
+        worst = 0.0
+        for a, b in zip(tree_flatten(live.params)[0],
+                        tree_flatten(oracle.params)[0]):
+            if not torch.isfinite(a).all() or \
+                    not torch.allclose(a, b, rtol=1e-4, atol=1e-5):
+                raise AssertionError(f"[stream] {what}: params differ "
+                                     "from einsum")
+            worst = max(worst, float((a - b).abs().max()))
+        realized = live.engine.last_realized_plan
+        replay, h_rep, c_rep, _ = run(
+            "fused", StreamConfig(client_optim=optim, **STREAM_POLICY),
+            plan=realized)
+        if not same_params(live, replay) or \
+                _stream_records(h_live) != _stream_records(h_rep) or \
+                c_rep != c_live:
+            raise AssertionError(f"[stream] {what}: the realized plan's "
+                                 f"replay differs (launches {c_rep})")
+        report(what, h_live, c_live, ms_live,
+               f"; max|params - einsum| {worst:.3e}; realized plan replayed "
+               f"fault-free bitwise, {c_rep['aggregate']} launches")
+        launches += c_live["aggregate"]
+        del live, oracle, replay
+
+    # 4) closed loop on the stream runtime, under the same faults
+    stream = StreamConfig(faults=faults, **STREAM_POLICY)
+    live, h_live, c_live, ms_live = run("fused", stream,
+                                        controller="threshold:tau=2")
+    only_aggregate(c_live, "threshold:tau=2")
+    replay, h_rep, c_rep, _ = run("fused", StreamConfig(**STREAM_POLICY),
+                                  plan=live.last_plan)
+    if not same_params(live, replay) or c_rep != c_live or \
+            _stream_records(h_live) != _stream_records(h_rep) or \
+            any(r.control is None for r in h_live.records):
+        raise AssertionError("[stream] threshold:tau=2: the realized plan's "
+                             f"replay differs (launches {c_rep})")
+    report("threshold:tau=2 under the same faults", h_live, c_live,
+           ms_live, f"; realized plan replayed bitwise, "
+           f"{c_rep['aggregate']} launches; telemetry "
+           f"{h_live.records[-1].control}")
+    launches += c_live["aggregate"]
+    del live, replay
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ingest(rounds: int, seed: int) -> int:
+    """The wall-clock runtime at the paper's width: ``IngestEngine``
+    (clock 'wall', ``INGEST_TIME_SCALE`` s a unit, 4 workers) under
+    ``STREAM_FAULTS`` / ``STREAM_POLICY`` on 'fused', with and without
+    overlapping dispatch, each traced with ``torch.profiler`` (device
+    activity only).  Its ``Recording`` must verify bitwise on the card,
+    and every overlapped cohort's payload event must have completed when
+    its future resolved.  Prints wall seconds, rounds closed, late / lost
+    / duplicate uploads, aggregate launches, how far past their drawn
+    latency the uploads landed (ms) and the device's busy share of the
+    traced wall time; then runs both CLIs' ``--selfcheck`` on cuda.
+    Returns the aggregate launches of the two live runs."""
+    import os
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.server import FederatedServer, ServerConfig
+    from repro_torch.fl.engine import ExecutionConfig
+    from repro_torch.fl.faults import parse_fault_spec
+    from repro_torch.fl.stream import StreamConfig
+    from repro_torch.runtime import IngestEngine, RuntimeConfig
+
+    n, c, T, _, batcher, spec, loss_fn, init = paper_cell(seed)
+    cfg = ServerConfig(T=T, t_max=rounds, seed=seed)
+    dev = torch.device("cuda")
+    counters = kernel_counters()
+    stream = StreamConfig(faults=parse_fault_spec(STREAM_FAULTS),
+                          **STREAM_POLICY)
+
+    def server_for(runtime):
+        return FederatedServer(
+            spec.build(), loss_fn, init, batcher, cfg,
+            execution=ExecutionConfig(backend="fused", stream=stream,
+                                      runtime=runtime))
+
+    launches = 0
+    for overlap in (True, False):
+        runtime = RuntimeConfig(clock="wall", time_scale=INGEST_TIME_SCALE,
+                                workers=4, overlap=overlap)
+        server = server_for(runtime)
+        if not isinstance(server.engine, IngestEngine):
+            raise AssertionError("[ingest] the server did not run "
+                                 "IngestEngine")
+        reset_counters(counters)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            hist = server.run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: f.launches for k, f in counters.items()}
+        _, events, busy_us = device_events(prof)
+        eng = server.engine
+        rec = eng.last_recording
+        # the live run's batches: a fresh server's seeded stream
+        _, batches = server_for(None)._plan_and_batches(rec.plan)
+        problems = rec.verify(loss_fn, init, batches, backend="fused",
+                              device=dev)
+        ready = eng.last_payload_ready
+        want_ready = dict.fromkeys(range(rounds), True) if overlap else {}
+        tally = {k: sum(r.stream.get(k, 0) for r in hist.records
+                        if r.stream) for k in ("late", "lost", "dup")}
+        # how much later than its drawn latency each upload landed while
+        # the run was open: the payload's compute (overlap: the timers
+        # start at payload-ready) and the timers' own lateness, in ms.
+        # The uploads the shutdown flushed early, past the last closure,
+        # are left out
+        measured = rec.plan.arrival_t
+        drawn = eng.last_trace.arrival[:rec.plan.n_rounds]
+        dispatched = np.array([0.0] + rec.closures[:-1])[:, None]
+        landed = np.isfinite(drawn) & np.isfinite(measured) & \
+            (dispatched + measured <= rec.closures[-1])
+        extra = (measured - drawn)[landed] * INGEST_TIME_SCALE * 1e3
+        lateness = (f"{extra.size} uploads landed in the run {extra.mean():.1f}"
+                    f" ms past their drawn latency on average (min "
+                    f"{extra.min():.1f}, max {extra.max():.1f})"
+                    if extra.size else "no upload landed in the run")
+        print(f"[ingest] wall clock, overlap={overlap}, time_scale "
+              f"{INGEST_TIME_SCALE} s a unit: {rec.meta['wall_seconds']:.3f}"
+              f" s wall in the loop ({wall_ms / 1e3:.3f} s with set-up), "
+              f"{len(hist.records)} rounds closed, m "
+              f"{[r.m_actual for r in hist.records]}, late {tally['late']:g}"
+              f", lost {tally['lost']:g}, dup {tally['dup']:g}, "
+              f"{counts['aggregate']} aggregate launches (2 of them the "
+              f"warm-up's); {lateness}; device busy {busy_us / 1e3:.1f} of "
+              f"{wall_ms:.1f} ms traced ({busy_us / 1e3 / wall_ms:.1%}, "
+              f"{len(events)} device events); Recording.verify() "
+              f"{problems}; payload events complete at resolution: "
+              f"{sorted(ready.items())}")
+        if problems or ready != want_ready or \
+                sum(counts.values()) != counts["aggregate"] or \
+                len(hist.records) != rounds:
+            raise AssertionError(f"[ingest] overlap={overlap}: verify "
+                                 f"{problems}, payload events {ready}, "
+                                 f"launches {counts}")
+        launches += counts["aggregate"]
+        del server, eng
+        torch.cuda.empty_cache()
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.launch.{cli}", "--selfcheck",
+         "--device", "cuda", "--backend", "fused"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cli in ("stream", "ingest")]
+    try:
+        for cli, proc in zip(("stream", "ingest"), procs):
+            out = proc.communicate(timeout=300)[0].strip()
+            print(f"[ingest] python -m repro_torch.launch.{cli} --selfcheck"
+                  f" --device cuda --backend fused: {out}")
+            if proc.returncode != 0:
+                raise AssertionError(f"launch.{cli} --selfcheck failed")
+    finally:
+        for proc in procs:           # stop what is still running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return launches
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -2244,6 +2571,8 @@ def main() -> int:
             routes[kernel][r] += count
     phase_hetero(SEED)
     launches["aggregate"] += phase_quickstart(kernel_counters())
+    launches["aggregate"] += phase_stream(STREAM_ROUNDS, SEED)
+    launches["aggregate"] += phase_ingest(STREAM_ROUNDS, SEED)
     phase_scale(SEED)
     launches["flash_attention"] = phase_lm(SEED, kernel_counters())
     for row in rows:

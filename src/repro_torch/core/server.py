@@ -8,9 +8,12 @@ The server is a thin host-side driver around two objects:
   the algorithm constructors (``connectivity_aware`` = Algorithm 1 with
   the eq.-7 m(t) rule, ``fedavg`` = A I / fixed m, ``colrel``) and
   serializable to JSON.
-* ``repro_torch.fl.engine.LocalEngine`` -- the runtime that executes a
-  plan on one device, selected by ``ExecutionConfig(backend=, scan=,
-  record_mixed=)``.
+* the engine that executes a plan on one device, selected by one
+  ``ExecutionConfig`` (``repro_torch.fl.engine.make_engine``): the
+  synchronous ``LocalEngine`` (``backend=, scan=, record_mixed=``), the
+  semi-async ``repro_torch.fl.stream.StreamEngine`` (``stream=``) or the
+  wall-clock ``repro_torch.runtime.IngestEngine`` (``stream=`` and
+  ``runtime=``).
 
 Planning and batch sampling draw from SPLIT numpy rng streams, exactly as
 in the reference: planning from ``default_rng(config.seed)`` (owned by
@@ -74,6 +77,11 @@ class RoundRecord:
     d2d: int
     eta: float
     metrics: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # streaming telemetry (repro_torch.fl.stream): deadline hits, late /
+    # lost / duplicate uploads, staleness stats, weighted divisor,
+    # shortfall.  None for every synchronous round, so a fault-free
+    # semi-async run records a History identical to the synchronous one.
+    stream: Optional[Dict[str, float]] = None
     # control telemetry (repro_torch.control): realized per-cluster phi,
     # the open-loop m rule vs the decided m, gossip depth.  None for every
     # open-loop round AND for replays of a controlled run's emitted plan
@@ -175,7 +183,8 @@ class FederatedServer:
         ``Controller``) decides each round's sample size / gossip depth
         / step size online from the realized topology.  Mutually
         exclusive with ``plan``; requires an engine with an
-        ``execute_controlled`` method (``LocalEngine``).  Afterwards
+        ``execute_controlled`` method (``LocalEngine``,
+        ``StreamEngine``).  Afterwards
         ``self.last_plan`` holds the *realized* plan emitted by the
         control loop -- replaying it through ``run(plan=...)`` reproduces
         the controlled run bitwise (modulo the ``RoundRecord.control``

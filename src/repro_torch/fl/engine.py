@@ -2,14 +2,18 @@
 (single-host port of ``repro.fl.engine``).
 
     ExecutionConfig   what to run: backend name, scan on/off, mixed-delta
-                      recording, payload quantization.
+                      recording, payload quantization, and the semi-async
+                      (``stream``) and wall-clock (``runtime``) runtimes.
     LocalEngine       single-host runtime over ``repro_torch.core.rounds``
                       (``make_round_fn`` / ``make_scanned_rounds``) on one
                       device -- ``cuda`` unless the caller passes
                       ``device="cpu"``; ``execute`` runs a plan,
                       ``execute_controlled`` a ``repro_torch.control``
                       loop (the closed loop, one round at a time).
-    make_engine       ExecutionConfig -> the engine.
+    make_engine       ExecutionConfig -> the engine: ``LocalEngine``,
+                      ``repro_torch.fl.stream.StreamEngine`` (``stream``)
+                      or ``repro_torch.runtime.IngestEngine`` (``stream``
+                      and ``runtime``).
 
 Backend selection::
 
@@ -23,8 +27,12 @@ Backend selection::
 The sparse backends take any plan: a sparse (CSR) plan's ``A_t`` goes to
 the device as (K, n, d_max) ELL columns without densifying, a dense plan
 is converted O(nnz)-wise; the dense backends densify a sparse plan.
-The reference's mesh, stream (semi-async) and wall-clock runtimes raise
-``NotImplementedError`` until their slices of the port (ROADMAP queue 1).
+The stream runtime (``ExecutionConfig.stream``, a ``StreamConfig``) takes
+the dense backends only: 'pallas' and 'fused' resolve to 'aggregate'
+(stale cohorts aggregate through combine rows), and quant, scan,
+record_mixed and the sparse backends are refused, as is ``runtime``
+without ``stream``.  The reference's mesh runtime raises
+``NotImplementedError`` until its slice of the port (ROADMAP queue 1).
 
 Quantized payloads: ``ExecutionConfig.quant`` (or, when it is None, the
 plan's ``quant``) quantizes every client upload (``QuantSpec``); the
@@ -74,9 +82,12 @@ class ExecutionConfig:
     (``make_scanned_rounds``).  ``record_mixed=True`` keeps per-client
     mixed deltas materialized; otherwise the kernel backends upgrade to
     the aggregate-only fast path.  ``quant`` (a ``packing.QuantSpec``)
-    quantizes the client payloads and overrides the plan's.  ``mesh`` and
-    ``stream`` are the reference's other runtimes: setting either raises
-    until its slice of the port.
+    quantizes the client payloads and overrides the plan's.  ``stream``
+    (a ``repro_torch.fl.stream.StreamConfig``) selects the event-driven
+    semi-async runtime instead of the synchronous one; ``runtime`` (a
+    ``repro_torch.runtime.RuntimeConfig``, requires ``stream``) upgrades
+    it to the wall-clock ingestion engine.  ``mesh`` raises until its
+    slice of the port.
     """
     backend: str = "einsum"
     scan: bool = False
@@ -84,15 +95,24 @@ class ExecutionConfig:
     mesh: Any = None
     stream: Any = None
     quant: Any = None
+    runtime: Any = None
 
 
 def resolve_backend(cfg: ExecutionConfig) -> str:
-    """Validate ``cfg`` and return the *effective* backend name."""
-    for field, item in (("mesh", 13), ("stream", 9)):
-        if getattr(cfg, field) is not None:
-            raise NotImplementedError(
-                f"ExecutionConfig.{field} is not yet ported to repro_torch "
-                f"(ROADMAP queue 1 item {item})")
+    """Validate ``cfg`` and return the *effective* backend name: the
+    stream matrix, the record_mixed upgrade to 'aggregate', and every
+    invalid combination."""
+    if cfg.runtime is not None and cfg.stream is None:
+        raise ValueError(
+            "cfg.runtime (the wall-clock ingestion engine) extends the "
+            "semi-async runtime; it requires cfg.stream (a StreamConfig) "
+            "for the closure policy")
+    if cfg.stream is not None:
+        return _resolve_stream_backend(cfg)
+    if cfg.mesh is not None:
+        raise NotImplementedError(
+            "ExecutionConfig.mesh is not yet ported to repro_torch "
+            "(ROADMAP queue 1 item 13)")
     check_backend(cfg.backend)
     if cfg.record_mixed and cfg.backend in ("aggregate", "sparse_aggregate"):
         raise ValueError(
@@ -108,6 +128,38 @@ def resolve_backend(cfg: ExecutionConfig) -> str:
         effective = "sparse_aggregate"
     _check_quant_backend(cfg.quant, effective)
     return effective
+
+
+def _resolve_stream_backend(cfg: ExecutionConfig) -> str:
+    """The stream runtime's part of the matrix (``resolve_backend``)."""
+    if cfg.mesh is not None:
+        raise ValueError("the stream runtime is single-host; "
+                         "cfg.mesh is unsupported with cfg.stream")
+    if cfg.quant is not None:
+        raise ValueError(
+            "quantized payloads are not supported on the stream "
+            "runtime: stale cohorts re-aggregate deltas from "
+            "earlier rounds, which has no well-defined "
+            "error-feedback residual; use LocalEngine")
+    if cfg.scan:
+        raise ValueError(
+            "scan=True contradicts the stream runtime: round closure "
+            "is an event-driven host loop, not a scanned trajectory")
+    if cfg.record_mixed:
+        raise ValueError(
+            "record_mixed is not supported on the stream runtime: "
+            "stale cohorts aggregate through combine rows and never "
+            "materialize mixed deltas")
+    check_backend(cfg.backend)
+    if cfg.backend in SPARSE_BACKENDS:
+        raise ValueError(
+            "the sparse backends are not supported on the stream "
+            "runtime: cohort closure slices dense A_t rows; use "
+            "LocalEngine (backend='sparse') or densify the plan")
+    # stale cohorts always take the aggregate-only combine-row path
+    if cfg.backend in ("pallas", "fused"):
+        return "aggregate"
+    return cfg.backend
 
 
 def _check_quant_backend(quant, backend: str) -> None:
@@ -239,6 +291,10 @@ class LocalEngine:
     fp32 on the card (``set_fp32_policy``)."""
 
     def __init__(self, loss_fn, cfg: ExecutionConfig, device=None):
+        if cfg.stream is not None:
+            raise ValueError("LocalEngine is synchronous; use "
+                             "StreamEngine (or make_engine) for "
+                             "cfg.stream")
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.backend = resolve_backend(cfg)
@@ -377,9 +433,16 @@ class LocalEngine:
         return params, history
 
 
-def make_engine(cfg: ExecutionConfig, loss_fn=None, device=None
-                ) -> LocalEngine:
-    """ExecutionConfig -> the engine that implements it (the single-host
-    ``LocalEngine``; the mesh and stream engines raise until their
-    slices)."""
+def make_engine(cfg: ExecutionConfig, loss_fn=None, device=None):
+    """ExecutionConfig -> the engine that implements it on ``device``:
+    ``IngestEngine`` (``stream`` and ``runtime``), ``StreamEngine``
+    (``stream``) or ``LocalEngine``; the mesh engine raises until its
+    slice."""
+    if cfg.stream is not None:
+        # deferred: both import back into this module
+        if cfg.runtime is not None:
+            from repro_torch.runtime import IngestEngine
+            return IngestEngine(loss_fn, cfg, device=device)
+        from .stream import StreamEngine
+        return StreamEngine(loss_fn, cfg, device=device)
     return LocalEngine(loss_fn, cfg, device=device)

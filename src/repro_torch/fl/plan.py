@@ -590,8 +590,8 @@ class RoundPlan:
                       ) -> "RoundPlan":
         """Attach (or clear, with None) the per-upload arrival-delay
         column.  Pure bookkeeping: synchronous engines never read it;
-        the reference's ``StreamEngine`` folds it into its virtual-time
-        closure rule."""
+        ``repro_torch.fl.stream.StreamEngine`` folds it into its
+        virtual-time closure rule."""
         if arrival_t is not None:
             arrival_t = np.asarray(arrival_t, np.float32)
         return dataclasses.replace(self, arrival_t=arrival_t)
@@ -610,7 +610,7 @@ class RoundPlan:
         like the dropout transforms -- and its arrival delays become the
         ``arrival_t`` column.  A zero-latency trace applied here and
         run synchronously is bitwise-identical to the same trace run
-        through the reference's ``StreamEngine``.
+        through ``StreamEngine``.
         """
         if (trace.K, trace.n) != self.tau_t.shape:
             raise ValueError(

@@ -34,7 +34,9 @@ it once a layer and agree with the 'ref' attention path.  The two GEMVs
 1) and still agree with their plain versions and with themselves from
 call to call, an unaligned payload sums in the aligned one's order, the
 paper's fp32 payload keeps G = 1, and aggregate_dequant decodes every
-byte code exactly.
+byte code exactly.  A wall-clock ``IngestEngine`` run on the card
+replays bitwise from its recording, and each overlapped payload was
+computed when its future resolved.
 """
 
 from functools import partial
@@ -960,3 +962,54 @@ def test_model_bf16_flash_path_takes_the_tensor_core_route(cuda):
     assert bool(torch.isfinite(logits).all())
     torch.testing.assert_close(logits.float(), want.float(), rtol=0.1,
                                atol=0.1)
+
+
+def test_ingest_wall_run_on_the_card_replays_bitwise(cuda):
+    """A wall-clock ``IngestEngine`` run on the card under faults, with
+    overlapping dispatch on 'fused' (-> the aggregate kernel, also on the
+    stale path): its recording replays bitwise through ``StreamEngine``
+    on the card, and every overlapped payload's event had completed when
+    its future resolved."""
+    from repro_torch import topology
+    from repro_torch.core.server import ServerConfig
+    from repro_torch.fl.engine import ExecutionConfig, make_engine
+    from repro_torch.fl.faults import parse_fault_spec
+    from repro_torch.fl.plan import RoundPlan
+    from repro_torch.fl.stream import StreamConfig
+    from repro_torch.kernels.mixing import fused
+    from repro_torch.runtime import IngestEngine, RuntimeConfig
+
+    n, T, K, p = 12, 3, 6, 300
+    plan = RoundPlan.connectivity_aware(
+        topology.make_spec("k_regular", n=n, c=2, k_range=(4, 6),
+                           p_fail=0.1).build(),
+        ServerConfig(T=T, t_max=K, phi_max=0.3, seed=3, eta=lambda t: 0.2))
+    rng = np.random.default_rng(7)
+    targets = rng.standard_normal((n, p)).astype(np.float32)
+    batches = [(torch.as_tensor((targets[:, None, None, :] + 0.05 * rng
+                                 .standard_normal((n, T, 2, p)))
+                                .astype(np.float32)),) for _ in range(K)]
+
+    def loss(params, batch):
+        b, = batch
+        return 0.5 * torch.sum((params["x"] - b.mean(dim=0)) ** 2)
+
+    stream = StreamConfig(
+        buffer=8, deadline=0.8, staleness="poly", max_staleness=4,
+        faults=parse_fault_spec("markov:p_fail=0.2,latency=exponential,"
+                                "mean=2.0,duplicate_rate=0.1"),
+        fault_seed=5)
+    eng = make_engine(ExecutionConfig(
+        backend="fused", stream=stream,
+        runtime=RuntimeConfig(clock="wall", time_scale=0.02, workers=4)),
+        loss, device=cuda)
+    assert isinstance(eng, IngestEngine)
+    params = {"x": torch.zeros(p)}
+    fused.aggregate_cuda.launches = 0
+    final, hist = eng.execute(plan, params, batches)
+    assert fused.aggregate_cuda.launches > 0
+    assert any(r.stream for r in hist.records)
+    assert final["x"].is_cuda and bool(torch.isfinite(final["x"]).all())
+    assert eng.last_payload_ready == dict.fromkeys(range(K), True)
+    assert eng.last_recording.verify(loss, params, batches,
+                                     backend="fused", device=cuda) == []

@@ -14,7 +14,9 @@ import torch
 from repro_torch.fl.engine import (ExecutionConfig, LocalEngine,
                                    resolve_backend, resolve_device)
 from repro_torch.fl.packing import QuantSpec
+from repro_torch.fl.stream import StreamConfig
 from repro_torch.launch import train
+from repro_torch.runtime import RuntimeConfig
 
 SRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -39,7 +41,7 @@ def test_no_module_imports_jax_or_the_reference():
     root = SRC.parents[1] / "chip_smoke.py"
     assert [n for n in _imports(root) if n.split(".")[0] in FORBIDDEN] == []
     # the new subpackages are covered, and so are the example twins
-    assert {"control", "optim"} <= {f.parent.name for f in files}
+    assert {"control", "optim", "runtime"} <= {f.parent.name for f in files}
     twins = sorted((SRC.parents[1] / "examples").glob("*_torch.py"))
     assert len(twins) >= 2
     assert [(t.name, n) for t in twins for n in _imports(t)
@@ -78,7 +80,7 @@ def test_cuda_engine_sets_the_fp32_policy(monkeypatch, device, fp32):
      ValueError),
     (ExecutionConfig(backend="sparse", quant="int8"), ValueError),
     (ExecutionConfig(mesh=object()), NotImplementedError),
-    (ExecutionConfig(stream=object()), NotImplementedError),
+    (ExecutionConfig(stream=StreamConfig(), scan=True), ValueError),
     (ExecutionConfig(backend="aggregate", record_mixed=True), ValueError),
     (ExecutionConfig(backend="nope"), ValueError),
     (ExecutionConfig(backend="sparse_aggregate", record_mixed=True),
@@ -100,6 +102,33 @@ def test_pending_and_invalid_configs_raise(cfg, exc):
     (ExecutionConfig(backend="fused", quant=QuantSpec()), "aggregate")])
 def test_record_mixed_upgrade_matrix(cfg, effective):
     assert resolve_backend(cfg) == effective
+
+
+@pytest.mark.parametrize("cfg,want", [
+    (ExecutionConfig(backend="pallas", stream=StreamConfig()), "aggregate"),
+    (ExecutionConfig(backend="fused", stream=StreamConfig()), "aggregate"),
+    (ExecutionConfig(backend="einsum", stream=StreamConfig()), "einsum"),
+    (ExecutionConfig(backend="aggregate", stream=StreamConfig(),
+                     runtime=RuntimeConfig()), "aggregate"),
+    (ExecutionConfig(scan=True, stream=StreamConfig()), "scan"),
+    (ExecutionConfig(backend="pallas", record_mixed=True,
+                     stream=StreamConfig()), "record_mixed"),
+    (ExecutionConfig(stream=StreamConfig(), mesh=object()), "mesh"),
+    (ExecutionConfig(backend="ring", stream=StreamConfig()), "ring"),
+    (ExecutionConfig(backend="sparse", stream=StreamConfig()), "sparse"),
+    (ExecutionConfig(backend="sparse_aggregate", stream=StreamConfig()),
+     "sparse"),
+    (ExecutionConfig(stream=StreamConfig(), quant=QuantSpec()), "quantized"),
+    (ExecutionConfig(runtime=RuntimeConfig()), "stream")])
+def test_resolve_backend_stream_matrix(cfg, want):
+    """The reference's stream matrix: 'pallas'/'fused' resolve to
+    'aggregate'; scan, record_mixed, mesh, unknown and sparse backends,
+    quant, and a runtime without a stream raise ValueError."""
+    if want in ("aggregate", "einsum"):
+        assert resolve_backend(cfg) == want
+    else:
+        with pytest.raises(ValueError, match=want):
+            resolve_backend(cfg)
 
 
 def test_train_cli_runs_and_replays_its_plan(tmp_path, capsys):
