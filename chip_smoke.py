@@ -73,11 +73,15 @@ Phases (each raises on failure; nothing is caught):
               ragged, GQA groups 1 / 3 / 7 / 8, sliding windows 1 / 16 /
               100 / 256, non-causal, masked kv tails (900 and 0 of 1024
               keys) and Sq != Sk; fp32, the CUDA-core route, at head dims
-              32 / 64 / 128 with GQA groups 1 to 8 (the reference's
-              tolerances: 2e-5 fp32, 2e-2 bf16), each case with the route
-              the library reports; its time at qwen2-7b's shape beside the
-              plain version's, its bound (at the bf16 tensor-core peak)
-              and ``scaled_dot_product_attention``'s as the yardstick.
+              32 / 64 / 128 with GQA groups 1 to 8; head dims the kernels
+              run zero-padded to the next instantiated one (zamba2's 80 at
+              its shared block's shape, 48) on both routes (the
+              reference's tolerances: 2e-5 fp32, 2e-2 bf16), each case
+              with the route the library reports; its time at qwen2-7b's
+              shape beside the plain version's, its bound (at the bf16
+              tensor-core peak) and ``scaled_dot_product_attention``'s as
+              the yardstick, and at zamba2's head dim 80 beside the
+              library's.
 3. train   -- Algorithm 1 end to end at full width through
               ``FederatedServer``: n = 70 clients in c = 7 clusters,
               ``k_regular`` k in [6, 9] with p_fail = 0.1, the McMahan
@@ -184,11 +188,26 @@ Phases (each raises on failure; nothing is caught):
               both traced with ``torch.profiler``; then qwen2-7b's widths
               in fp32 at 4 layers: flash vs ref logits within 1e-4,
               prefill + decode vs the forward within 2e-3.
+   zoo     -- the zoo's other families (``ZOO``), each in bf16 at full
+              width from random weights and freed before the next:
+              phi3.5-moe-42b-a6.6b at 25 of 32 layers, deepseek-v2-236b
+              at its dense layer + 7 MoE layers (MLA), mamba2-1.3b and
+              zamba2-2.7b whole; a 2 x 2048 forward with the launch counts
+              reset before it and read after it (flash: one a phi3.5
+              layer, 9 for zamba2's shared block at head dim 80, none for
+              MLA or mamba2, all on the tensor-core route; the MoE's
+              grouped GEMMs all on ``grouped_mm``), the 'ref' forward
+              where the counted one took flash, ``generate`` (prefill +
+              16 decode steps), peak GB, and the two grouped-GEMM routes
+              timed at each MoE's shapes; then fp32 gates at full width
+              and 4 / 2 / 6 / 6 layers: flash vs ref within 1e-4,
+              prefill + decode vs the forward within 2e-3, ragged vs dense
+              MoE within 2e-4, chunked vs full MLA within 2e-3.
 6. report  -- a ``{"kernels": [...]}`` JSON line (nine kernels; the
               six routed ones with the ``routes`` of their main-path
               launches; the launches are those of [train], [control],
-              the quickstart, [stream] and [ingest]), the card's name and
-              power limit
+              the quickstart, [stream] and [ingest], flash's those of
+              [lm] and [zoo]), the card's name and power limit
               (nvidia-smi), and the final ``{"ok": true, "device":
               {...}}`` line.
 
@@ -2245,9 +2264,10 @@ LM_ARCH, LM_BATCH, LM_SEQ, LM_NEW = "qwen2-7b", 2, 2048, 16
 def phase_flash(seed: int):
     """The flash-attention kernel against its plain version
     (``flash_attention_ref``): bf16 (the tensor-core route) at qwen2-7b's
-    prefill shape in the model's layout (strided (B, H, S, hd) views of
-    (B, S, H, hd) tensors) and contiguous, at head dims 32 / 64 / 128, S
-    under one tile and ragged, GQA groups 1 / 3 / 7 / 8, windows 1 / 16 /
+    and phi3.5-moe's prefill shapes in the model's layout (strided
+    (B, H, S, hd) views of (B, S, H, hd) tensors) and contiguous, at head
+    dims 32 / 64 / 128, S under one tile and ragged, GQA groups
+    1 / 3 / 4 / 7 / 8, windows 1 / 16 /
     100 / 256, non-causal, kv tails and Sq != Sk; fp32 (the CUDA-core
     route) at head dims 32 / 64 / 128 (tolerances the reference's own:
     2e-5 fp32, 2e-2 bf16).  Each case prints the route the library
@@ -2317,6 +2337,19 @@ def phase_flash(seed: int):
          True, None, 900, "bhsd"),
         ("f32 kv tail, non-causal, 1 of 64 keys", 1, 2, 1, 64, None, 32, f32,
          False, None, 1, "bhsd"),
+        # head dims the kernels run zero-padded: zamba2's 80 (-> 128)
+        ("phi3.5-moe prefill, model layout", LM_BATCH, 32, 8, LM_SEQ, None,
+         128, bf, True, None, None, "bshd"),
+        ("zamba2-2.7b shared block, hd 80", LM_BATCH, 32, 32, LM_SEQ, None,
+         80, bf, True, None, None, "bshd"),
+        ("hd 80, group 4, window 100", 1, 8, 2, 777, None, 80, bf, True, 100,
+         None, "bhsd"),
+        ("hd 48, group 3, kv tail 900 of 1024", 1, 6, 2, 1024, None, 48, bf,
+         True, None, 900, "bshd"),
+        ("f32 hd 80, group 1", 2, 4, 4, 515, None, 80, f32, True, None, None,
+         "bshd"),
+        ("f32 hd 80, group 8, window 16", 1, 8, 1, 300, None, 80, f32, True,
+         16, None, "bhsd"),
     ]
 
     def draw(B, H, S, hd, dt, layout):
@@ -2340,8 +2373,11 @@ def phase_flash(seed: int):
         want = ref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         e = float((got.float() - want.float()).abs().max())
+        hp = fa.padded_head_dim(hd)     # the (B, Sq, Hq, hp) buffer's view
         ok = got.dtype == dt and route == [route_of[dt]] and \
-            got.transpose(1, 2).is_contiguous() and torch.allclose(
+            got.shape == (B, Hq, Sq, hd) and got.stride(3) == 1 and \
+            got.stride(2) == Hq * hp and got.stride(1) == hp and \
+            torch.allclose(
                 got.float(), want.float(), rtol=tol[dt], atol=tol[dt])
         print(f"[flash] {label}: ({B}, {Hq}/{Hkv}, {Sq}/{Sk}, {hd}) {dt} "
               f"{layout} causal={causal} window={window} true_seq_k={tsk}: "
@@ -2384,6 +2420,20 @@ def phase_flash(seed: int):
           f"with the split PV ({issued / ms / 1e9:.1f} TFLOP/s), "
           f"{nbytes / 1e6:.1f} MB")
     del q, k, v, qc, kc, vc
+    # zamba2-2.7b's shared block: head dim 80, run zero-padded to 128
+    B, Hq, S, hd = LM_BATCH, 32, LM_SEQ, 80
+    q, k, v = (draw(B, Hq, S, hd, bf, "bshd") for _ in range(3))
+    ms80 = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
+    lib80 = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), iters=10)
+    flops80 = 4 * B * Hq * hd * pairs
+    b80, by80 = bound(2 * 4 * B * Hq * S * hd, flops80, BF16_TC_FLOPS_PER_S)
+    print(f"[flash] flash_attention @ zamba2-2.7b shared block ({B}, "
+          f"{Hq}/{Hq}, {S}, {hd} run at 128) bf16 causal, model layout: "
+          f"{ms80:.4f} ms with the three pad copies (scaled_dot_product_"
+          f"attention {lib80:.4f} ms; kernel / library {ms80 / lib80:.2f}x; "
+          f"bound {b80:.4f} ms by {by80}: {b80 / ms80:.1%} of it)")
+    del q, k, v
     torch.cuda.empty_cache()
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2542,6 +2592,349 @@ def phase_lm(seed: int, counters) -> int:
     return launches
 
 
+# -- phase 5b: the rest of the LM zoo ------------------------------------------
+
+# (architecture, layers kept in the bf16 run (None: all), attn_impl of the
+# counted forward, layers of the fp32 gates).  Full width throughout; the
+# depth cuts keep the bf16 run's peak under ~70 GB of the card's 80:
+# phi3.5-moe 2.62 GB a layer (all 32: 83.7 GB), deepseek-v2 its dense
+# layer + 7 MoE layers of 7.94 GB.
+ZOO = (("phi3.5-moe-42b-a6.6b", 25, "flash", 4),
+       ("deepseek-v2-236b", 8, "flash", 2),
+       ("mamba2-1.3b", None, "ref", 6),
+       ("zamba2-2.7b", None, "flash", 6))
+
+
+def expected_flash(cfg) -> int:
+    """Flash launches of one forward: one a GQA attention layer (MLA has
+    no flash branch), zamba2's shared block once a group."""
+    if cfg.attn_impl != "flash" or cfg.mla or cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_attn_every
+    return cfg.n_layers
+
+
+def with_expert_choices(fn, replay=None):
+    """``fn()`` with ``moe._route`` wrapped; returns its result and, for
+    each MoE layer's call, the ids and the router's gap between its k-th
+    and (k+1)-th probability.  With ``replay`` (such a list from another
+    run) each layer routes to the replayed ids instead, weighted by its
+    own router probabilities at them, renormalised."""
+    import torch
+    from repro_torch.models import moe
+
+    route, seen = moe._route, []
+
+    def wrapped(cfg, p, xf):
+        w, ids, aux = route(cfg, p, xf)
+        probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+        top = torch.topk(probs, cfg.experts_per_token + 1, dim=-1).values
+        if replay is not None:
+            ids = replay[len(seen)][0]
+            w = probs.gather(-1, ids)
+            w = (w / w.sum(-1, keepdim=True)).to(xf.dtype)
+        seen.append((ids, top[:, -2] - top[:, -1]))
+        return w, ids, aux
+
+    moe._route = wrapped
+    try:
+        out = fn()
+    finally:
+        moe._route = route
+    return out, seen
+
+
+def router_flips(model, ref_model, params, tokens) -> None:
+    """Why bf16 flash and ref forwards of a MoE model disagree: the share
+    of tokens whose expert set differs between the two, layer by layer;
+    the router's top-k gap of the first flipped tokens against all
+    tokens'; and the top-1 agreement of the flash forward with the ref
+    forward's expert choices replayed in it."""
+    import torch
+
+    def top1(fn, replay=None):
+        (logits, _), seen = with_expert_choices(fn, replay)
+        return logits.argmax(-1), seen
+
+    top_f, run_f = top1(lambda: model.forward(params, tokens))
+    top_r, run_r = top1(lambda: ref_model.forward(params, tokens))
+    top_p, _ = top1(lambda: model.forward(params, tokens), replay=run_r)
+    flips = [(a.sort(-1).values != b.sort(-1).values).any(-1)
+             for (a, _), (b, _) in zip(run_f, run_r)]
+    share = [float(f.float().mean()) for f in flips]
+    first = next((i for i, f in enumerate(flips) if bool(f.any())), None)
+    agree = [float((x == top_r).float().mean()) for x in (top_f, top_p)]
+    line = (f"[zoo]   router flips, bf16 flash vs ref: expert set differs "
+            f"for {share[0]:.4%} of tokens at MoE layer 0, "
+            f"{share[len(share) // 2]:.4%} at layer {len(share) // 2}, "
+            f"{share[-1]:.4%} at layer {len(share) - 1}")
+    if first is not None:
+        gap = run_r[first][1]
+        line += (f"; first flips at layer {first}: median top-k gap "
+                 f"{float(gap[flips[first]].median()):.3e} over the "
+                 f"{int(flips[first].sum())} flipped tokens, "
+                 f"{float(gap.median()):.3e} over all")
+    print(line + f"; top-1 agreement {agree[0]:.4%}, with the ref's expert "
+          f"choices replayed in the flash forward {agree[1]:.4%}")
+
+
+def time_expert_routes(cfg, params, seed: int) -> None:
+    """The two routes of ``moe.expert_matmul`` at the model's shapes: the
+    first MoE layer's router on LM_BATCH x LM_SEQ random activations
+    gives the group sizes; ``grouped_mm`` (one launch) and the per-expert
+    ``torch.matmul`` loop each run the layer's three GEMMs on the sorted
+    rows, bf16.  The two routes' outputs agree within two bf16 ulps
+    (``rtol = atol = 2**-6``; each rounds an fp32 sum once), then each is
+    timed by CUDA events."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import moe
+
+    p = {k: v[0] for k, v in params["decoder"]["layers"]["moe"].items()
+         if k != "shared"}
+    g = torch.Generator(device="cuda").manual_seed(seed + 11)
+    T, k = LM_BATCH * LM_SEQ, cfg.experts_per_token
+    xf = torch.randn(T, cfg.d_model, generator=g, device="cuda").bfloat16()
+    _, ids, _ = moe._route(cfg, p, xf)
+    flat = ids.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    xs = xf[order // k]
+    sizes = torch.bincount(flat, minlength=cfg.n_experts)
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    h = torch.randn(T * k, cfg.moe_d_ff, generator=g,
+                    device="cuda").bfloat16()
+
+    def lib():
+        return [F.grouped_mm(xs, p["gate"], offs=offs),
+                F.grouped_mm(xs, p["up"], offs=offs),
+                F.grouped_mm(h, p["down"], offs=offs)]
+
+    def loop(keep=False):
+        outs, start = [[], [], []], 0
+        for e, n in enumerate(sizes.tolist()):
+            if n:
+                parts = (xs[start:start + n] @ p["gate"][e],
+                         xs[start:start + n] @ p["up"][e],
+                         h[start:start + n] @ p["down"][e])
+                if keep:
+                    for o, part in zip(outs, parts):
+                        o.append(part)
+            start += n
+        return [torch.cat(o) for o in outs] if keep else None
+
+    worst = 0.0
+    for name, got, want in zip(("gate", "up", "down"), lib(),
+                               loop(keep=True)):
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+        if not torch.allclose(got.float(), want.float(), rtol=2 ** -6,
+                              atol=2 ** -6):
+            raise AssertionError(f"{cfg.name}: grouped_mm and the "
+                                 f"per-expert loop disagree on {name}")
+    print(f"[zoo]   grouped_mm vs per-expert loop, gate / up / down: "
+          f"max|d| {worst:.3e} (rtol = atol = 2**-6)")
+    lib_ms, loop_ms = cuda_ms(lib, iters=10), cuda_ms(loop, iters=10)
+    lib_ms2, loop_ms2 = cuda_ms(lib, iters=10), cuda_ms(loop, iters=10)
+    flops = 3 * 2 * T * k * cfg.d_model * cfg.moe_d_ff
+    used = int((sizes > 0).sum())
+    print(f"[zoo]   grouped GEMMs of one MoE layer ({T} tokens x top-{k} "
+          f"over {cfg.n_experts} experts, {used} used, rows a used expert "
+          f"{int(sizes.min())}-{int(sizes.max())}; d {cfg.d_model}, ff "
+          f"{cfg.moe_d_ff}, bf16, {flops / 1e9:.1f} GFLOP): grouped_mm "
+          f"{lib_ms:.4f} / {lib_ms2:.4f} ms, per-expert loop {loop_ms:.4f} / "
+          f"{loop_ms2:.4f} ms (two turns each; the loop's host sync on the "
+          f"group sizes excluded); grouped_mm at "
+          f"{flops / min(lib_ms, lib_ms2) / 1e9:.1f} TFLOP/s")
+
+
+def phase_zoo(seed: int, counters) -> int:
+    """The zoo's other families on the card (``ZOO``), each in bf16 at full
+    width from random weights, then freed: a LM_BATCH x LM_SEQ forward
+    with every kernel's launch count reset just before it and read just
+    after (flash: one a GQA layer, zamba2's shared block once a group, at
+    head dim 80; none for MLA or mamba2; all on the tensor-core route),
+    an attn_impl='ref' forward where the counted one took 'flash', and
+    ``generate`` (prefill, then LM_NEW greedy decode steps), the forward
+    and the decode steps traced; for the MoE archs the grouped-GEMM route
+    counts and the two routes' times.  Then
+    the reference's tight gates in fp32 at full width and the cut depth
+    of ``ZOO``: flash vs ref forward within 1e-4, prefill of K - 1 tokens
+    and decode of token K vs the forward within 2e-3, ragged vs dense MoE
+    within 2e-4, chunked vs full MLA within 2e-3.  Returns the flash
+    launches of the counted forwards."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+
+    dev = torch.device("cuda")
+    B, S = LM_BATCH, LM_SEQ
+    total = 0
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def close(name, got, want, tol):
+        e = float((got - want).abs().max())
+        print(f"[zoo]     {name}: max|d| {e:.3e} (rtol = atol = {tol:.0e})")
+        if not torch.allclose(got, want, rtol=tol, atol=tol):
+            raise AssertionError(f"{name} beyond {tol}")
+
+    for arch, depth, impl, gate_layers in ZOO:
+        base = get_config(arch)
+        full = dataclasses.replace(base, n_layers=depth or base.n_layers,
+                                   attn_impl=impl)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(full)
+        params, init_ms = timed(lambda: model.init(g))
+        n_params = model.param_count(params)
+        print(f"[zoo] {arch}: {full.n_layers} of {base.n_layers} layers, "
+              f"d_model {full.d_model}, {full.dtype}, attn_impl "
+              f"{full.attn_impl!r}: {n_params:,} params "
+              f"({torch.cuda.memory_allocated() / 1e9:.2f} GB), init "
+              f"{init_ms / 1e3:.2f} s, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        tokens = torch.randint(0, full.vocab_size, (B, S), generator=g,
+                               device=dev)
+        timed(lambda: model.forward(params, tokens))          # warm-up
+        reset_counters(counters)
+        moe.expert_matmul.routes = dict.fromkeys(moe.ROUTES, 0)
+        torch.cuda.reset_peak_memory_stats()
+        (logits, aux), fwd_ms = timed(lambda: model.forward(params, tokens))
+        counts = {name: f.launches for name, f in counters.items()}
+        routes = dict(fa.flash_attention_cuda.routes)
+        gemm_routes = dict(moe.expert_matmul.routes)
+        peak = torch.cuda.max_memory_allocated()
+        want = expected_flash(full)
+        launches = counts["flash_attention"]
+        if launches != want or sum(counts.values()) != launches or \
+                routes != {"cuda_cores": 0, "tensor_cores": want}:
+            raise AssertionError(f"{arch}'s forward launched {counts} "
+                                 f"(flash routes {routes}), not {want} "
+                                 "flash_attention on the tensor cores")
+        if full.n_experts and gemm_routes != {
+                "grouped_mm": 3 * (full.n_layers - full.first_dense_layers),
+                "loop": 0}:
+            raise AssertionError(f"{arch}'s bf16 MoE GEMMs went to "
+                                 f"{gemm_routes}")
+        if logits.shape != (B, S, full.vocab_size) or \
+                not bool(torch.isfinite(logits).all()) or \
+                not bool(torch.isfinite(aux)):
+            raise AssertionError(f"{arch}'s forward is not finite")
+        total += launches
+        line = (f"[zoo]   forward {B}x{S} tokens: {fwd_ms:.1f} ms (host "
+                f"clock, second call), {launches} flash_attention launches "
+                f"(routes {routes}"
+                + (f", head dim {full.resolved_head_dim} run at "
+                   f"{fa.padded_head_dim(full.resolved_head_dim)}"
+                   if launches else "") + f"), peak {peak / 1e9:.2f} GB")
+        if full.n_experts:
+            line += f"; grouped GEMM launches {gemm_routes}, aux {float(aux):.4f}"
+        print(line)
+        if impl == "flash" and launches:
+            ref_model = Model(dataclasses.replace(full, attn_impl="ref"))
+            (logits_r, _), ref_ms = timed(
+                lambda: ref_model.forward(params, tokens))
+            d = float((logits - logits_r).abs().max())
+            top1 = float((logits.argmax(-1) == logits_r.argmax(-1))
+                         .float().mean())
+            print(f"[zoo]   attn_impl='ref' forward: {ref_ms:.1f} ms; bf16 "
+                  f"flash vs ref: max|dlogits| {d:.3e}, top-1 agreement "
+                  f"{top1:.4%} (not gated at bf16)")
+            del logits_r
+        del logits
+        if impl == "flash" and launches and full.n_experts:
+            router_flips(model, ref_model, params, tokens)
+        if full.n_experts:
+            time_expert_routes(full, params, seed)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out, gen_ms = timed(lambda: model.generate(params, tokens,
+                                                   LM_NEW + 1))
+        if out.shape != (B, LM_NEW + 1) or int(out.min()) < 0 or \
+                int(out.max()) >= full.vocab_size:
+            raise AssertionError(f"{arch}: generate gave "
+                                 f"{tuple(out.shape)} tokens")
+        (_, cache), pre_ms = timed(lambda: model.prefill(
+            params, tokens, max_len=S + LM_NEW + 1))
+
+        def steps():
+            t = out[:, 0]
+            for i in range(LM_NEW):
+                lg, _ = model.decode(params, cache, t, S + i)
+                t = lg.argmax(-1)
+            return t
+
+        _, dec_ms = timed(steps)
+        print(f"[zoo]   generate: prefill {B}x{S} + {LM_NEW} greedy decode "
+              f"steps in {gen_ms:.1f} ms; prefill alone {pre_ms:.1f} ms, "
+              f"{LM_NEW} decode steps {dec_ms:.1f} ms ({dec_ms / LM_NEW:.2f} "
+              f"ms a step, {B * LM_NEW / dec_ms * 1e3:.1f} tok/s at batch "
+              f"{B}); peak {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+              f"GB; tokens of seq 0: {out[0].tolist()}")
+        trace_device(lambda: model.forward(params, tokens),
+                     f"{arch} forward {B}x{S} tokens, attn_impl={impl!r}",
+                     top=8)
+        trace_device(steps, f"{arch} {LM_NEW} greedy decode steps at batch "
+                            f"{B} after a {S}-token prefill", top=8)
+        del params, cache, out, model
+        torch.cuda.empty_cache()
+
+        # the tight gates: fp32, full width, gate_layers deep
+        small = dataclasses.replace(base, n_layers=gate_layers,
+                                    dtype="float32", attn_impl=impl)
+        model = Model(small)
+        model_ref = Model(dataclasses.replace(small, attn_impl="ref"))
+        params = model.init(g)
+        print(f"[zoo]   tight gates: {small.n_layers} layers, fp32: "
+              f"{model.param_count(params):,} params")
+        fa.flash_attention_cuda.launches = 0
+        fa.flash_attention_cuda.routes = dict.fromkeys(fa.ROUTES, 0)
+        logits, _ = model.forward(params, tokens)
+        if expected_flash(small):
+            logits_r, _ = model_ref.forward(params, tokens)
+            print(f"[zoo]     {fa.flash_attention_cuda.launches} flash "
+                  f"launches (routes {fa.flash_attention_cuda.routes})")
+            if fa.flash_attention_cuda.launches != expected_flash(small):
+                raise AssertionError("the fp32 flash forward's launches")
+            close("flash vs ref forward logits", logits, logits_r, 1e-4)
+            del logits_r
+        pre, cache = model.prefill(params, tokens[:, :S - 1],
+                                   max_len=S + 4)
+        dec, _ = model.decode(params, cache, tokens[:, S - 1], S - 1)
+        close("prefill vs forward logits", pre, logits[:, S - 2], 2e-3)
+        close("decode vs forward logits", dec, logits[:, S - 1], 2e-3)
+        del cache, logits
+        if small.mla:
+            half = tokens[:, :S // 2]
+            want, _ = model_ref.forward(params, half)
+            got, _ = Model(dataclasses.replace(
+                small, attn_impl="chunked")).forward(params, half)
+            close(f"chunked (attn_chunk {small.attn_chunk}) vs full MLA "
+                  f"logits, {B}x{S // 2} tokens", got, want, 2e-3)
+            del got, want
+        if small.n_experts:
+            # the dense oracle holds (E, T, d) fp32: half the tokens
+            half = tokens[:, :S // 2]
+            want, aux_d = Model(dataclasses.replace(
+                small, moe_impl="dense")).forward(params, half)
+            got, aux_r = model_ref.forward(params, half)
+            close(f"ragged vs dense MoE logits, {B}x{S // 2} tokens", got,
+                  want, 2e-4)
+            close("ragged vs dense MoE aux", aux_r, aux_d, 2e-4)
+            del got, want
+        del params, model, model_ref
+        torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         return _fail(f"no src/repro_torch beside {Path(__file__).name}: run "
@@ -2575,6 +2968,7 @@ def main() -> int:
     launches["aggregate"] += phase_ingest(STREAM_ROUNDS, SEED)
     phase_scale(SEED)
     launches["flash_attention"] = phase_lm(SEED, kernel_counters())
+    launches["flash_attention"] += phase_zoo(SEED, kernel_counters())
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] in routes:

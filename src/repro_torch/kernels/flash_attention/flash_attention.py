@@ -19,9 +19,17 @@ whose base and other strides are 16-byte aligned (what TMA needs), such
 as the model's (B, S, H, hd) projections transposed to (B, H, S, hd).
 The output is written into a (B, S, H, hd) buffer and returned as its
 (B, H, S, hd) transposed view, so the model's layout needs no copy on
-either side.  There is no padding: the kernels mask a ragged S
-themselves, and their tiles are their own choice, not the TPU's block
-sizes.
+either side.  S is not padded: the kernels mask a ragged S themselves,
+and their tiles are their own choice, not the TPU's block sizes.
+
+The kernels are instantiated at head dims 32, 64 and 128 (``HEAD_DIMS``).
+Any other head dim up to 128 (zamba2's 80) runs on the next instantiated
+one: q, k and v are copied into zeroed (B, S, H, hd_pad) buffers
+(``padded_head_dim``, ``pad_head_dim``), the kernel scales the dot
+products by the true ``hd ** -0.5``, and the output is the first hd
+columns of its padded buffer.  The zero columns add nothing to q . k and
+give output columns that are sliced away, so the result is the unpadded
+function's.
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["flash_attention_cuda", "check_shapes", "HEAD_DIMS", "ROUTES"]
+__all__ = ["flash_attention_cuda", "check_shapes", "padded_head_dim",
+           "pad_head_dim", "HEAD_DIMS", "ROUTES"]
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -92,6 +101,26 @@ def check_shapes(q, k, v, window, true_seq_k) -> int:
     return seq_k
 
 
+def padded_head_dim(hd: int) -> int:
+    """The instantiated head dim the kernels run ``hd`` at: the smallest
+    of ``HEAD_DIMS`` that holds it."""
+    for h in HEAD_DIMS:
+        if hd <= h:
+            return h
+    raise ValueError(f"the flash kernel takes head dims up to "
+                     f"{HEAD_DIMS[-1]}, got {hd}")
+
+
+def pad_head_dim(t: torch.Tensor, hd_pad: int) -> torch.Tensor:
+    """(B, H, S, hd) -> its values in the first hd columns of a zeroed
+    (B, S, H, hd_pad) buffer, as that buffer's (B, H, S, hd_pad) view (the
+    model's layout, aligned as the kernels need)."""
+    B, H, S, hd = t.shape
+    buf = t.new_zeros(B, S, H, hd_pad)
+    buf[..., :hd] = t.transpose(1, 2)
+    return buf.transpose(1, 2)
+
+
 def _strides(t: torch.Tensor):
     """(batch, head, row) strides in elements; a size-1 axis (never
     stepped) gets hd, which keeps the kernels' alignment rules."""
@@ -103,13 +132,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          true_seq_k: Optional[int] = None) -> torch.Tensor:
     """q (B, Hq, Sq, hd), k/v (B, Hkv, Sk, hd), fp32 or bf16 strided views
     (``check_shapes``) -> (B, Hq, Sq, hd) in q's dtype, the transposed
-    view of a (B, Sq, Hq, hd)-contiguous buffer.  Keys at or past
-    ``true_seq_k`` are masked; rows and columns are absolute positions.
+    view of a (B, Sq, Hq, hd)-contiguous buffer (of a (B, Sq, Hq,
+    hd_pad) one when hd is padded to ``padded_head_dim(hd)``).  Keys at
+    or past ``true_seq_k`` are masked; rows and columns are absolute
+    positions.
 
     Launches the kernel of q's dtype (``ROUTES``) on the current stream or
     raises: on a CPU tensor (``ops.flash_attention`` sends those to the
-    plain version, ``ref.flash_attention_ref``), a head dim other than
-    32 / 64 / 128, another dtype, a misaligned operand.
+    plain version, ``ref.flash_attention_ref``), a head dim over 128,
+    another dtype, a misaligned operand.
     ``flash_attention_cuda.launches`` counts the launches and
     ``flash_attention_cuda.routes`` counts them by the kernel the library
     reports it launched."""
@@ -120,9 +151,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "CPU")
     B, Hq, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"the flash kernel takes head dims {HEAD_DIMS}, "
-                         f"got {hd}")
+    hd_run = padded_head_dim(hd)
     code = _DTYPES.get(q.dtype)
     if code is None:
         raise TypeError(f"the flash kernel takes float32 or bfloat16, got "
@@ -131,7 +160,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype} on {t.device}; q is "
                              f"{q.dtype} on {q.device}")
-    o = torch.empty(B, Sq, Hq, hd, dtype=q.dtype,
+    if hd_run != hd:
+        q, k, v = (pad_head_dim(t, hd_run) for t in (q, k, v))
+    o = torch.empty(B, Sq, Hq, hd_run, dtype=q.dtype,
                     device=q.device).transpose(1, 2)
     if o.numel() == 0:
         return o
@@ -142,13 +173,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     rc = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides, B,
-        Hq, Hkv, Sq, Sk, hd, seq_k, int(bool(causal)),
+        Hq, Hkv, Sq, Sk, hd_run, seq_k, int(bool(causal)),
         -1 if window is None else int(window), hd ** -0.5, code,
         q.device.index, stream, ctypes.byref(route))
     _build.check(lib, rc, "flash_attention")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.routes[ROUTES[route.value]] += 1
-    return o
+    return o[..., :hd]
 
 
 flash_attention_cuda.launches = 0

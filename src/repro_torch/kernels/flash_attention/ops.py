@@ -4,7 +4,9 @@ the kernel's (B, H, S, hd) one.
 
 The kernel takes the model's tensors as strided (B, H, S, hd) views and
 writes its output into a (B, S, H, hd) buffer, so nothing is copied on
-either side of it and the result is (B, S, H, hd)-contiguous.
+either side of it and the result is (B, S, H, hd)-contiguous.  A head
+dim the kernels are not built at (zamba2's 80) is padded with zeros to
+the next one and sliced back: copies on both sides.
 
 A CPU tensor runs the kernel's plain version
 (``ref.flash_attention_ref``), a CUDA tensor the kernel
@@ -40,13 +42,15 @@ class _FlashForward(torch.autograd.Function):
             check_shapes(q, k, v, window, None)
             out = flash_attention_ref(q, k, v, causal=causal, window=window)
         # the kernel's output is already (B, S, H, hd) in memory: no copy
+        # (unless its head dim was padded)
         return out.transpose(1, 2).contiguous()
 
     @staticmethod
     def backward(ctx, grad_out):
         raise NotImplementedError(
             "flash_attention is forward-only, as the reference's Pallas "
-            "kernel is: train with attn_impl='ref' or 'chunked'")
+            "kernel is: train with attn_impl='ref' or 'chunked' (LM "
+            "training is ROADMAP queue 1 item 12(e))")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,16 +1,24 @@
-"""Decoder blocks and layer stacks (port of ``repro.models.blocks``) for
-the transformer families the port runs: ``dense``, ``audio`` and ``vlm``.
+"""Decoder blocks and layer stacks for every architecture family (port of
+``repro.models.blocks``): the transformer families (``dense``, ``moe``,
+``audio``, ``vlm``; GQA or MLA attention, an MLP or an MoE FFN), the
+attention-free ``ssm`` stack of Mamba2 blocks, and the ``hybrid`` stack
+(zamba2: Mamba2 blocks with one shared transformer block applied after
+every ``hybrid_attn_every`` of them).
 
 Layer parameters are *stacked* (a leading ``n_layers`` axis on every
 leaf, the reference's tree), so parameter trees carry across from the
 JAX package unchanged (``models.convert.params_from_numpy``).  The
 reference's ``jax.lax.scan`` over layers is a Python loop over views of
 the stacked leaves; ``remat`` has no meaning without a backward pass.
-MoE, MLA, ``ssm`` and ``hybrid`` configs raise ``NotImplementedError``.
+Heterogeneous pieces sit outside the stack, as in the reference:
+DeepSeek's leading dense layer(s) (``dense_layers``, a list of per-layer
+trees with caches of their own) and zamba2's shared block (``shared``,
+one tree reused by every group, with one KV cache a group).
 
 Three entry points serve ``model.py``:
-  * ``stack_forward``  -- full-sequence scoring, returns aux loss (0)
-  * ``stack_prefill``  -- forward + per-layer KV entries (stacked)
+  * ``stack_forward``  -- full-sequence scoring, returns the MoE aux loss
+                          summed over the stacked layers (0 without MoE)
+  * ``stack_prefill``  -- forward + per-layer cache entries (stacked)
   * ``stack_decode``   -- one-token step through the per-layer caches
 
 As in the reference, prefill attends with the plain ``_sdpa`` whatever
@@ -27,43 +35,47 @@ import torch
 
 from repro_torch.core.pytree import tree_flatten, tree_map, tree_unflatten
 from . import attention as attn
+from . import mla as mla_mod
+from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import mlp_apply, mlp_init, norm
 
 PyTree = Any
 
 __all__ = ["stack_init", "stack_forward", "stack_prefill", "stack_decode",
-           "transformer_block_init", "check_supported", "FAMILIES"]
-
-FAMILIES = ("dense", "audio", "vlm")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the families the port does not run yet."""
-    if cfg.family not in FAMILIES or cfg.mla or cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: the port's model stack runs the {FAMILIES} "
-            f"transformer families without experts or MLA; "
-            f"{cfg.family!r}{' with MLA' if cfg.mla else ''} is not ported "
-            "yet (ROADMAP queue 1 item 12)")
+           "transformer_block_init", "mamba_block_init"]
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
-def transformer_block_init(gen: torch.Generator, cfg: ModelConfig,
-                           dtype) -> PyTree:
+def transformer_block_init(gen: torch.Generator, cfg: ModelConfig, dtype,
+                           is_moe: bool = False) -> PyTree:
     ones = torch.ones((cfg.d_model,), dtype=dtype, device=gen.device)
-    return {"ln1": ones, "ln2": ones.clone(),
-            "attn": attn.attn_init(gen, cfg, dtype),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype)}
+    p = {"ln1": ones, "ln2": ones.clone()}
+    if cfg.mla:
+        p["mla"] = mla_mod.mla_init(gen, cfg, dtype)
+    else:
+        p["attn"] = attn.attn_init(gen, cfg, dtype)
+    if is_moe:
+        p["moe"] = moe_mod.moe_init(gen, cfg, dtype)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype)
+    return p
+
+
+def mamba_block_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> PyTree:
+    return {"ln1": torch.ones((cfg.d_model,), dtype=dtype,
+                              device=gen.device),
+            "ssm": ssm_mod.ssm_init(gen, cfg, dtype)}
 
 
 def _stacked(n: int, make: Callable[[], PyTree]) -> PyTree:
     """``n`` draws of ``make()`` stacked leaf-wise along a new leading
-    axis, written into the stacked leaves one layer at a time (no second
-    copy of the whole stack)."""
+    axis, written into the stacked leaves one layer at a time: besides
+    the stack, one layer's draw is alive at a time."""
     leaves, treedef = tree_flatten(make())
     out = [torch.empty((n,) + tuple(a.shape), dtype=a.dtype, device=a.device)
            for a in leaves]
@@ -72,49 +84,113 @@ def _stacked(n: int, make: Callable[[], PyTree]) -> PyTree:
             leaves = tree_flatten(make())[0]
         for o, a in zip(out, leaves):
             o[i] = a
+        del leaves
     return tree_unflatten(treedef, out)
 
 
 def stack_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> PyTree:
     """All decoder-layer parameters (embed/head live in model.py)."""
-    check_supported(cfg)
-    return {"layers": _stacked(
-        cfg.n_layers, lambda: transformer_block_init(gen, cfg, dtype))}
+    if cfg.family in ("ssm", "hybrid"):
+        out = {"layers": _stacked(
+            cfg.n_layers, lambda: mamba_block_init(gen, cfg, dtype))}
+        if cfg.family == "hybrid":
+            out["shared"] = transformer_block_init(gen, cfg, dtype)
+        return out
+    out = {}
+    if cfg.first_dense_layers:
+        out["dense_layers"] = [transformer_block_init(gen, cfg, dtype)
+                               for _ in range(cfg.first_dense_layers)]
+    out["layers"] = _stacked(
+        cfg.n_layers - cfg.first_dense_layers,
+        lambda: transformer_block_init(gen, cfg, dtype, cfg.n_experts > 0))
+    return out
 
 
 def _layer(tree: PyTree, i: int) -> PyTree:
     return tree_map(lambda a: a[i], tree)
 
 
+def hybrid_groups(cfg: ModelConfig) -> Tuple[int, int]:
+    """zamba2's layout: (n_groups, every) with n_layers = n_groups * every
+    (the reference reshapes the stacked layers to it)."""
+    every = cfg.hybrid_attn_every
+    n_groups = max(cfg.n_layers // every, 1)
+    if n_groups * every != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
+                         f"multiple of hybrid_attn_every {every}")
+    return n_groups, every
+
+
 # ---------------------------------------------------------------------------
 # Per-layer forward / prefill / decode
 # ---------------------------------------------------------------------------
 
-def _mlp_half(cfg: ModelConfig, p: PyTree, x: torch.Tensor) -> torch.Tensor:
+def _ffn_half(cfg: ModelConfig, p: PyTree, x: torch.Tensor):
+    """x + FFN(norm(x)) -> (x, aux or None): the MoE FFN where the layer
+    has one, else the MLP."""
     h = norm(x, p["ln2"], cfg.norm_type, cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, cfg.mlp_type)
+    if "moe" in p:
+        y, aux = moe_mod.moe_apply(cfg, p["moe"], h)
+        return x + y, aux
+    return x + mlp_apply(p["mlp"], h, cfg.mlp_type), None
 
 
 def _tf_block_forward(cfg: ModelConfig, p: PyTree, x, positions):
     h = norm(x, p["ln1"], cfg.norm_type, cfg.norm_eps)
-    x = x + attn.attention_full(cfg, p["attn"], h, positions)
-    return _mlp_half(cfg, p, x)
+    if cfg.mla:
+        x = x + mla_mod.mla_full(cfg, p["mla"], h, positions)
+    else:
+        x = x + attn.attention_full(cfg, p["attn"], h, positions)
+    return _ffn_half(cfg, p, x)
 
 
 def _tf_block_prefill(cfg: ModelConfig, p: PyTree, x, positions):
     """Returns (x, entry) where entry holds this layer's full-sequence KV
-    (scattered to the ring at model level)."""
+    (GQA: ``k``/``v``; MLA: the latents ``ckv``/``krope``), scattered to
+    the ring at model level."""
     h = norm(x, p["ln1"], cfg.norm_type, cfg.norm_eps)
-    q, k, v = attn._project_qkv(cfg, p["attn"], h, positions)
-    mask = attn._causal_mask(h.shape[1], cfg.sliding_window, h.device)
-    x = x + attn._sdpa(q, k, v, mask, cfg) @ p["attn"]["o"]["w"]
-    return _mlp_half(cfg, p, x), {"k": k, "v": v}
+    if cfg.mla:
+        c_kv, k_rope = mla_mod._latents(cfg, p["mla"], h, positions)
+        x = x + mla_mod.mla_full(cfg, p["mla"], h, positions)
+        entry = {"ckv": c_kv, "krope": k_rope}
+    else:
+        q, k, v = attn._project_qkv(cfg, p["attn"], h, positions)
+        mask = attn._causal_mask(h.shape[1], cfg.sliding_window, h.device)
+        x = x + attn._sdpa(q, k, v, mask, cfg) @ p["attn"]["o"]["w"]
+        entry = {"k": k, "v": v}
+    return _ffn_half(cfg, p, x)[0], entry
 
 
 def _tf_block_decode(cfg: ModelConfig, p: PyTree, x, cache, pos):
     h = norm(x, p["ln1"], cfg.norm_type, cfg.norm_eps)
-    a, cache = attn.attention_decode(cfg, p["attn"], h, cache, pos)
-    return _mlp_half(cfg, p, x + a), cache
+    if cfg.mla:
+        a, cache = mla_mod.mla_decode(cfg, p["mla"], h, cache, pos)
+    else:
+        a, cache = attn.attention_decode(cfg, p["attn"], h, cache, pos)
+    return _ffn_half(cfg, p, x + a)[0], cache
+
+
+def _mamba_block_forward(cfg: ModelConfig, p: PyTree, x):
+    h = norm(x, p["ln1"], cfg.norm_type, cfg.norm_eps)
+    return x + ssm_mod.ssm_forward(cfg, p["ssm"], h)
+
+
+def _mamba_block_prefill(cfg: ModelConfig, p: PyTree, x):
+    h = norm(x, p["ln1"], cfg.norm_type, cfg.norm_eps)
+    y, state, conv_tail = ssm_mod.ssm_prefill(cfg, p["ssm"], h)
+    return x + y, {"state": state, "conv": conv_tail}
+
+
+def _mamba_block_decode(cfg: ModelConfig, p: PyTree, x, cache):
+    h = norm(x, p["ln1"], cfg.norm_type, cfg.norm_eps)
+    y, cache = ssm_mod.ssm_decode(cfg, p["ssm"], h, cache)
+    return x + y, cache
+
+
+def _stack_entries(entries) -> PyTree:
+    """A list of per-layer cache entries -> one dict of stacked leaves."""
+    return {name: torch.stack([e[name] for e in entries])
+            for name in entries[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -124,31 +200,90 @@ def _tf_block_decode(cfg: ModelConfig, p: PyTree, x, cache, pos):
 def stack_forward(cfg: ModelConfig, params: PyTree, x: torch.Tensor,
                   positions: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    check_supported(cfg)
-    for i in range(cfg.n_layers):
-        x = _tf_block_forward(cfg, _layer(params["layers"], i), x, positions)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = params["layers"]
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            x = _mamba_block_forward(cfg, _layer(layers, i), x)
+        return x, aux
+
+    if cfg.family == "hybrid":
+        n_groups, every = hybrid_groups(cfg)
+        for g in range(n_groups):
+            for i in range(g * every, (g + 1) * every):
+                x = _mamba_block_forward(cfg, _layer(layers, i), x)
+            x, _ = _tf_block_forward(cfg, params["shared"], x, positions)
+        return x, aux
+
+    # transformer families (dense / moe / audio / vlm); the aux loss sums
+    # over the stacked layers, as the reference's scan carry does
+    for dp in params.get("dense_layers", []):
+        x, _ = _tf_block_forward(cfg, dp, x, positions)
+    for i in range(cfg.n_layers - cfg.first_dense_layers):
+        x, a = _tf_block_forward(cfg, _layer(layers, i), x, positions)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def stack_prefill(cfg: ModelConfig, params: PyTree, x, positions):
-    """Returns (x, caches): ``caches["layers"]`` holds ``k``/``v`` of
-    shape (n_layers, B, S, Hkv, hd)."""
-    check_supported(cfg)
+    """Returns (x, caches): ``caches["layers"]`` holds the stacked layers'
+    entries (leaves (L, B, ...)); ``caches["shared"]`` zamba2's shared
+    block's, one a group (leaves (n_groups, B, S, ...)); and
+    ``caches["dense_layers"]`` a list of the leading dense layers'."""
+    layers = params["layers"]
+    if cfg.family in ("ssm", "hybrid"):
+        n_groups, every = ((1, cfg.n_layers) if cfg.family == "ssm"
+                           else hybrid_groups(cfg))
+        m_entries, s_entries = [], []
+        for g in range(n_groups):
+            for i in range(g * every, (g + 1) * every):
+                x, e = _mamba_block_prefill(cfg, _layer(layers, i), x)
+                m_entries.append(e)
+            if cfg.family == "hybrid":
+                x, e = _tf_block_prefill(cfg, params["shared"], x, positions)
+                s_entries.append(e)
+        caches = {"layers": _stack_entries(m_entries)}
+        if s_entries:
+            caches["shared"] = _stack_entries(s_entries)
+        return x, caches
+
+    caches: PyTree = {}
+    dense = []
+    for dp in params.get("dense_layers", []):
+        x, e = _tf_block_prefill(cfg, dp, x, positions)
+        dense.append(e)
     entries = []
-    for i in range(cfg.n_layers):
-        x, e = _tf_block_prefill(cfg, _layer(params["layers"], i), x,
-                                 positions)
+    for i in range(cfg.n_layers - cfg.first_dense_layers):
+        x, e = _tf_block_prefill(cfg, _layer(layers, i), x, positions)
         entries.append(e)
-    return x, {"layers": {name: torch.stack([e[name] for e in entries])
-                          for name in ("k", "v")}}
+    caches["layers"] = _stack_entries(entries)
+    if dense:
+        caches["dense_layers"] = dense
+    return x, caches
 
 
 def stack_decode(cfg: ModelConfig, params: PyTree, caches: PyTree,
                  x: torch.Tensor, pos):
     """x (B,1,D); caches as produced by model.init_cache/prefill, updated
     in place (each layer's slice is a view of the stacked leaves)."""
-    check_supported(cfg)
-    for i in range(cfg.n_layers):
-        x, _ = _tf_block_decode(cfg, _layer(params["layers"], i), x,
-                                _layer(caches["layers"], i), pos)
+    layers, lc = params["layers"], caches["layers"]
+    if cfg.family in ("ssm", "hybrid"):
+        n_groups, every = ((1, cfg.n_layers) if cfg.family == "ssm"
+                           else hybrid_groups(cfg))
+        for g in range(n_groups):
+            for i in range(g * every, (g + 1) * every):
+                x, _ = _mamba_block_decode(cfg, _layer(layers, i), x,
+                                           _layer(lc, i))
+            if cfg.family == "hybrid":
+                x, _ = _tf_block_decode(cfg, params["shared"], x,
+                                        _layer(caches["shared"], g), pos)
+        return x, caches
+
+    for dp, dc in zip(params.get("dense_layers", []),
+                      caches.get("dense_layers", [])):
+        x, _ = _tf_block_decode(cfg, dp, x, dc, pos)
+    for i in range(cfg.n_layers - cfg.first_dense_layers):
+        x, _ = _tf_block_decode(cfg, _layer(layers, i), x, _layer(lc, i),
+                                pos)
     return x, caches

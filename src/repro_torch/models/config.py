@@ -5,8 +5,8 @@ Mamba2/SSD, Zamba2-style hybrids, and the audio/VLM decoder backbones.
 Reduced "smoke" variants (2 layers, d_model <= 512, <= 4 experts) are
 produced by ``ModelConfig.reduced()`` for CPU tests.  A copy of
 ``repro.models.config`` (pure Python, kept whole so that the port never
-imports the reference); the port's model stack runs the dense, audio and
-vlm families, at full size on the GPU.
+imports the reference); the port's model stack runs every family, at
+full width on the GPU.
 """
 
 from __future__ import annotations

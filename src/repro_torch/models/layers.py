@@ -35,14 +35,17 @@ def _normal(gen: torch.Generator, shape) -> torch.Tensor:
                        dtype=torch.float32)
 
 
+# in place: one fp32 draw alive at a time (an expert stack of deepseek-v2
+# is 5 GB in fp32)
+
 def lecun_normal(gen: torch.Generator, shape, dtype=torch.float32):
     fan_in = shape[0] if len(shape) >= 1 else 1
-    return (_normal(gen, shape) / math.sqrt(fan_in)).to(dtype)
+    return _normal(gen, shape).div_(math.sqrt(fan_in)).to(dtype)
 
 
 def he_normal(gen: torch.Generator, shape, dtype=torch.float32):
     fan_in = shape[0] if len(shape) >= 1 else 1
-    return (_normal(gen, shape) * math.sqrt(2.0 / fan_in)).to(dtype)
+    return _normal(gen, shape).mul_(math.sqrt(2.0 / fan_in)).to(dtype)
 
 
 def dense_init(gen: torch.Generator, d_in, d_out, dtype=torch.float32,

@@ -1,11 +1,14 @@
-"""Unified model API (port of ``repro.models.model``) for the transformer
-families the port runs (``dense``, ``audio``, ``vlm``).
+"""Unified model API over all architecture families (port of
+``repro.models.model``): ``dense``, ``moe`` (phi3.5-moe; with MLA,
+deepseek-v2), ``ssm`` (mamba2), ``hybrid`` (zamba2), ``audio`` and
+``vlm``.
 
 ``Model`` holds no parameters: ``init`` builds the reference's parameter
 tree (stacked layer leaves, the same keys) on the model's device from an
 explicit ``torch.Generator``; ``forward``/``loss`` run full sequences
-(scoring; ``cfg.attn_impl == 'flash'`` runs the hand-written CUDA
-flash-attention kernel), ``prefill`` + ``decode`` cached inference and
+(scoring; with ``cfg.attn_impl == 'flash'`` GQA attention runs the
+hand-written CUDA flash-attention kernel; MLA has no flash branch, as in
+the reference), ``prefill`` + ``decode`` cached inference and
 ``generate`` greedy decoding.  The audio/VLM frontends are the
 reference's stub: precomputed frame/patch embeddings enter through a
 learned projector and occupy the first ``frontend_len`` positions.
@@ -14,7 +17,8 @@ A model runs on ``cuda`` unless built with ``device='cpu'``.  On the card
 it sets the port's fp32 policy (``fl.engine.set_fp32_policy``): no TF32,
 and bf16 matmuls reduce in fp32, as the reference accumulates them.
 Training through the flash kernel is not a path (the kernel is
-forward-only); ``loss`` returns the value.
+forward-only; LM training is ROADMAP queue 1 item 12(e)); ``loss``
+returns the value, with ``router_aux_weight`` times the MoE aux loss.
 """
 
 from __future__ import annotations
@@ -23,10 +27,12 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.core.pytree import tree_leaves
+from repro_torch.core.pytree import tree_leaves, tree_map
 from repro_torch.fl.engine import resolve_device, set_fp32_policy
 from . import attention as attn_mod
 from . import blocks
+from . import mla as mla_mod
+from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import lecun_normal, norm
 
@@ -44,7 +50,6 @@ def _dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 class Model:
     def __init__(self, cfg: ModelConfig, device=None):
-        blocks.check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -142,9 +147,25 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int) -> PyTree:
         """Decode cache sized ``max_len`` (pass min(context, window))."""
-        return {"layers": attn_mod.make_kv_cache(
-            self.cfg, batch, max_len, self.cfg.n_layers,
-            _dtype_of(self.cfg), self.device)}
+        cfg, dt, dev = self.cfg, _dtype_of(self.cfg), self.device
+        if cfg.family in ("ssm", "hybrid"):
+            out = {"layers": ssm_mod.make_ssm_cache(cfg, batch, cfg.n_layers,
+                                                    dt, dev)}
+            if cfg.family == "hybrid":
+                out["shared"] = attn_mod.make_kv_cache(
+                    cfg, batch, max_len, blocks.hybrid_groups(cfg)[0], dt,
+                    dev)
+            return out
+        maker = mla_mod.make_mla_cache if cfg.mla else attn_mod.make_kv_cache
+        out = {"layers": maker(cfg, batch, max_len,
+                               cfg.n_layers - cfg.first_dense_layers, dt,
+                               dev)}
+        if cfg.first_dense_layers:
+            out["dense_layers"] = [
+                tree_map(lambda a: a[0], maker(cfg, batch, max_len, 1, dt,
+                                               dev))
+                for _ in range(cfg.first_dense_layers)]
+        return out
 
     def _scatter_ring(self, full: torch.Tensor, W: int, axis_seq: int = 2
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -193,12 +214,31 @@ class Model:
         x, entries = blocks.stack_prefill(cfg, params["decoder"], x,
                                           positions)
         logits = self._logits(params, x[:, -1:])[:, 0]
-        layers = {}
-        for name, full in entries["layers"].items():
-            layers[name], kpos = self._scatter_ring(full, max_len, axis_seq=2)
-        # a real (L, W) tensor: decode writes each layer's row in place
-        layers["kpos"] = kpos.expand(cfg.n_layers, max_len).contiguous()
-        return logits, {"layers": layers}
+
+        def ring(e):
+            """Full-sequence entries, leaves (L, B, S, ...) -> ring
+            buffers (L, B, W, ...) and a real (L, W) ``kpos``, whose rows
+            decode writes in place."""
+            out = {}
+            for name, full in e.items():
+                out[name], kpos = self._scatter_ring(full, max_len,
+                                                     axis_seq=2)
+                L = full.shape[0]
+            out["kpos"] = kpos.expand(L, max_len).contiguous()
+            return out
+
+        if cfg.family in ("ssm", "hybrid"):
+            cache = {"layers": entries["layers"]}       # state, conv tail
+            if cfg.family == "hybrid":
+                cache["shared"] = ring(entries["shared"])
+            return logits, cache
+        cache = {"layers": ring(entries["layers"])}
+        if "dense_layers" in entries:
+            cache["dense_layers"] = [
+                tree_map(lambda a: a[0],
+                         ring(tree_map(lambda a: a[None], e)))
+                for e in entries["dense_layers"]]
+        return logits, cache
 
     # ---------------------------------------------------------------- decode
 

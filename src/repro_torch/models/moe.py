@@ -1,0 +1,199 @@
+"""Mixture-of-Experts FFN: top-k router + grouped expert GEMMs (port of
+``repro.models.moe``).
+
+Two compute paths with the reference's semantics:
+
+* ``ragged`` -- sort the (token, slot) pairs by expert (a stable sort, as
+  the reference's ``jnp.argsort``) and run the three SwiGLU GEMMs over
+  the expert-sorted rows, each expert on its own rows only
+  (``expert_matmul``).  No token is dropped.  ``moe_chunk`` runs the
+  dispatch a chunk of tokens at a time after routing all of them.
+* ``dense`` -- the oracle: every expert on every token, combined with the
+  routing weights.
+
+The reference's ``jax.lax.ragged_dot`` is a library GEMM, not a Pallas
+kernel; ``expert_matmul`` picks one of two library routes by a fixed rule
+on dtype and device (``expert_route``): ``grouped_mm``
+(``torch.nn.functional.grouped_mm``, one launch over all experts with
+device-side offsets) for bf16 on the card, else ``loop`` (one
+``torch.matmul`` per non-empty expert over its rows).  Both count their
+launches in ``expert_matmul.routes``.
+
+The combine does not scatter-add: the weighted expert rows are un-sorted
+back to (T, k, d) and summed over the k slots in slot order, one add at a
+time in the activation dtype, so a call's result does not depend on the
+order in which atomics land (``index_add_`` on the card), and a replay is
+bitwise.
+
+The reference's expert-parallel path (``_moe_expert_parallel``, GShard
+capacity dispatch over a mesh axis) needs a mesh; without one the
+reference takes the ragged path even with ``moe_sharding='expert'``, and
+so does the port (ROADMAP queue 1 item 13).
+
+Shared experts (DeepSeek-V2) are a plain always-on SwiGLU branch.  The
+auxiliary load-balance loss is the Switch/GShard form
+``E * sum_e f_e * P_e``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .layers import lecun_normal, mlp_apply, mlp_init
+
+PyTree = Any
+
+__all__ = ["moe_init", "moe_apply", "expert_matmul", "expert_route",
+           "ROUTES"]
+
+ROUTES = ("grouped_mm", "loop")
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> PyTree:
+    d, ff, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+
+    def experts(shape, fan_in):
+        # lecun_normal normalizes by shape[0] = E; the reference rescales
+        # to fan-in d / ff in the parameter dtype
+        return lecun_normal(gen, shape, dtype).mul_(torch.tensor(
+            math.sqrt(E / fan_in), dtype=torch.float32).to(dtype))
+
+    p = {
+        "router": lecun_normal(gen, (d, E), torch.float32),
+        "gate": experts((E, d, ff), d),
+        "up": experts((E, d, ff), d),
+        "down": experts((E, ff, d), ff),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_init(gen, d, cfg.n_shared_experts * ff, "swiglu",
+                               dtype)
+    return p
+
+
+def _route(cfg: ModelConfig, p: PyTree, xf: torch.Tensor):
+    """xf (T, d) -> weights (T, k) in xf's dtype, ids (T, k), aux_loss
+    (fp32 scalar)."""
+    E, k = cfg.n_experts, cfg.experts_per_token
+    logits = xf.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    w, ids = torch.topk(probs, k, dim=-1)
+    w = w / w.sum(dim=-1, keepdim=True)
+    # Switch-style load balance: f_e = E * token fraction routed to e
+    # (the one-hot mean of the reference), P_e = mean router probability
+    f = _counts(ids, E).float() / ids.numel() * E
+    aux = (f * probs.mean(dim=0)).sum()
+    return w.to(xf.dtype), ids, aux
+
+
+def _counts(ids: torch.Tensor, E: int) -> torch.Tensor:
+    """Slots routed to each expert, int64 (E,).  A scatter-add of ones:
+    integer sums in any order are exact, and unlike ``bincount`` or
+    ``one_hot`` on the card it does not sync the host."""
+    flat = ids.reshape(-1)
+    return torch.zeros(E, dtype=torch.int64, device=ids.device) \
+        .scatter_add_(0, flat, torch.ones_like(flat))
+
+
+def expert_route(dtype: torch.dtype, device: torch.device) -> str:
+    """The grouped GEMM's route, fixed by dtype and device:
+    ``grouped_mm`` for bf16 on the card (the library's grouped kernel
+    takes bf16 only), ``loop`` otherwise."""
+    if device.type == "cuda" and dtype == torch.bfloat16:
+        return "grouped_mm"
+    return "loop"
+
+
+def expert_matmul(xs: torch.Tensor, w: torch.Tensor, sizes: torch.Tensor,
+                  offsets: torch.Tensor) -> torch.Tensor:
+    """Grouped GEMM: rows ``xs`` (N, K) sorted by expert, ``sizes[e]``
+    rows for expert e (int64, on xs's device) ending at ``offsets[e]``
+    (int32 cumsum) -> (N, M) with rows of expert e times ``w[e]`` (K, M),
+    in xs's dtype.  The reference's ``jax.lax.ragged_dot``."""
+    route = expert_route(xs.dtype, xs.device)
+    if route == "grouped_mm":
+        out = F.grouped_mm(xs, w, offs=offsets)
+        expert_matmul.routes[route] += 1
+        return out
+    parts, start = [], 0
+    for e, n in enumerate(sizes.tolist()):     # one host sync a call
+        if n:
+            parts.append(xs[start:start + n] @ w[e])
+            expert_matmul.routes[route] += 1
+        start += n
+    return torch.cat(parts)
+
+
+expert_matmul.routes = dict.fromkeys(ROUTES, 0)
+
+
+def _experts_ragged(p: PyTree, xs, sizes, offsets, dtype) -> torch.Tensor:
+    """Grouped SwiGLU over expert-sorted rows xs (Tk, d)."""
+    g = expert_matmul(xs, p["gate"], sizes, offsets)
+    u = expert_matmul(xs, p["up"], sizes, offsets)
+    h = (F.silu(g) * u).to(dtype)
+    return expert_matmul(h, p["down"], sizes, offsets)
+
+
+def _dispatch_ragged(cfg: ModelConfig, p: PyTree, xf, w, ids) -> torch.Tensor:
+    """Expert dispatch + grouped GEMMs + combine for pre-routed tokens."""
+    T, d = xf.shape
+    k, E = cfg.experts_per_token, cfg.n_experts
+    flat_ids = ids.reshape(-1)                           # (T*k,)
+    order = torch.argsort(flat_ids, stable=True)
+    xs = xf[order // k]                                  # (T*k, d)
+    sizes = _counts(flat_ids, E)
+    offsets = torch.cumsum(sizes, 0).to(torch.int32)
+    ys = _experts_ragged(p, xs, sizes, offsets, xf.dtype)
+    ys = ys * w.reshape(-1)[order][:, None].to(xf.dtype)
+    # un-sort to (T, k, d) and add the k slots in a fixed order
+    yk = torch.empty_like(ys)
+    yk[order] = ys
+    yk = yk.view(T, k, d)
+    out = yk[:, 0]
+    for j in range(1, k):
+        out = out + yk[:, j]
+    return out
+
+
+def _moe_ragged(cfg: ModelConfig, p: PyTree, xf: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    T = xf.shape[0]
+    w, ids, aux = _route(cfg, p, xf)                     # router on all tokens
+    C = cfg.moe_chunk
+    if not (C and T > C and T % C == 0):
+        return _dispatch_ragged(cfg, p, xf, w, ids), aux
+    # token-chunked dispatch: the (T*k, d) / (T*k, ff) buffers exist one
+    # chunk at a time; routing is global, so this is exact
+    outs = [_dispatch_ragged(cfg, p, xf[i:i + C], w[i:i + C], ids[i:i + C])
+            for i in range(0, T, C)]
+    return torch.cat(outs, dim=0), aux
+
+
+def _moe_dense(cfg: ModelConfig, p: PyTree, xf: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    E = cfg.n_experts
+    w, ids, aux = _route(cfg, p, xf)
+    onehot = F.one_hot(ids, E).to(xf.dtype)              # (T, k, E)
+    combine = torch.einsum("tk,tke->te", w, onehot)      # (T, E)
+    ys = torch.stack([(F.silu(xf @ p["gate"][e]) * (xf @ p["up"][e]))
+                      @ p["down"][e] for e in range(E)])  # (E, T, d)
+    return torch.einsum("te,etd->td", combine, ys), aux
+
+
+def moe_apply(cfg: ModelConfig, p: PyTree, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (y (B, S, d), aux_loss fp32 scalar)."""
+    B, S, d = x.shape
+    xf = x.reshape(B * S, d)
+    if cfg.moe_impl == "ragged":
+        out, aux = _moe_ragged(cfg, p, xf)
+    else:
+        out, aux = _moe_dense(cfg, p, xf)
+    if cfg.n_shared_experts:
+        out = out + mlp_apply(p["shared"], xf, "swiglu")
+    return out.reshape(B, S, d), aux

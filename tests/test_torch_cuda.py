@@ -28,8 +28,13 @@ the quantized 'einsum' oracle and replay bitwise when scanned.  The
 flash-attention kernel is held against its plain version at fp32 (the
 CUDA-core route) and bf16 (the tensor-core route), GQA, windows,
 non-causal, masked kv tails, Sq != Sk and strided views (the reference's
-tolerances, 2e-5 / 2e-2), and a reduced qwen2-7b on the card must launch
-it once a layer and agree with the 'ref' attention path.  The two GEMVs
+tolerances, 2e-5 / 2e-2), at head dims it runs zero-padded to the next
+instantiated one (zamba2's 80, and 48), and a reduced qwen2-7b on the
+card must launch it once a layer and agree with the 'ref' attention
+path, as must a reduced zamba2 at head dim 80 once a group.  The MoE's
+grouped GEMM route (``grouped_mm`` for bf16 on the card) agrees with
+the per-expert loop, and a bf16 top-6 MoE layer gives the same bits on
+two calls.  The two GEMVs
 (aggregate, aggregate_dequant) split tall payloads into row groups (G >
 1) and still agree with their plain versions and with themselves from
 call to call, an unaligned payload sums in the aligned one's order, the
@@ -896,10 +901,9 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     from repro_torch.kernels.flash_attention import flash_attention as fa
 
     q = torch.randn(1, 2, 8, 32, device=cuda)
-    with pytest.raises(ValueError):                       # head dim 16
-        fa.flash_attention_cuda(q[..., :16].contiguous(),
-                                q[..., :16].contiguous(),
-                                q[..., :16].contiguous())
+    wide = torch.randn(1, 2, 8, 160, device=cuda)
+    with pytest.raises(ValueError, match="up to 128"):    # head dim 160
+        fa.flash_attention_cuda(wide, wide, wide)
     with pytest.raises(TypeError):
         fa.flash_attention_cuda(q.half(), q.half(), q.half())
     with pytest.raises(ValueError):                       # mixed devices
@@ -1013,3 +1017,118 @@ def test_ingest_wall_run_on_the_card_replays_bitwise(cuda):
     assert eng.last_payload_ready == dict.fromkeys(range(K), True)
     assert eng.last_recording.verify(loss, params, batches,
                                      backend="fused", device=cuda) == []
+
+
+@pytest.mark.parametrize("hd,dtype,window,layout", [
+    (80, BFLOAT, None, "bshd"), (80, FLOAT, None, "bshd"),
+    (80, BFLOAT, 100, "bhsd"), (48, BFLOAT, None, "bshd"),
+    (48, FLOAT, 16, "bhsd")])
+def test_flash_kernel_pads_head_dims_it_does_not_instantiate(
+        cuda, hd, dtype, window, layout):
+    """A head dim between the instantiated ones runs the kernel of the
+    next one on zero-padded operands with the true scale: one launch on
+    the dtype's route, the plain version's result within 2e-5 / 2e-2,
+    the first hd columns of a (B, S, H, hd_pad) buffer."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    B, Hq, Hkv, S = 2, 8, 4, 333
+
+    def draw(H):
+        if layout == "bshd":
+            return torch.randn(B, S, H, hd, generator=g,
+                               device=cuda).to(dtype).transpose(1, 2)
+        return torch.randn(B, H, S, hd, generator=g, device=cuda).to(dtype)
+
+    q, k, v = draw(Hq), draw(Hkv), draw(Hkv)
+    route = "tensor_cores" if dtype == BFLOAT else "cuda_cores"
+    before = fa.flash_attention_cuda.launches
+    routes = dict(fa.flash_attention_cuda.routes)
+    got = fa.flash_attention_cuda(q, k, v, window=window)
+    assert fa.flash_attention_cuda.launches == before + 1
+    assert fa.flash_attention_cuda.routes[route] == routes[route] + 1
+    assert got.shape == (B, Hq, S, hd) and got.stride(3) == 1
+    assert got.stride(2) == Hq * fa.padded_head_dim(hd)
+    want = ref.flash_attention_ref(q, k, v, window=window)
+    tol = 2e-5 if dtype == FLOAT else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), window=window)
+    assert out.is_contiguous()
+    torch.testing.assert_close(out, got.transpose(1, 2), rtol=0, atol=0)
+
+
+def test_model_zamba2_flash_at_head_dim_80_on_the_card(cuda):
+    """A reduced zamba2 at its full head dim 80, fp32: attn_impl='flash'
+    launches the kernel once a group and gives the 'ref' forward's logits
+    (1e-4); prefill + decode match the forward (2e-3)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config("zamba2-2.7b", reduced=True),
+                              head_dim=80, attn_impl="flash")
+    model, model_ref = Model(cfg), Model(dataclasses.replace(
+        cfg, attn_impl="ref"))
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 96), device=cuda)
+    fa.flash_attention_cuda.launches = 0
+    logits, _ = model.forward(params, toks)
+    assert fa.flash_attention_cuda.launches == \
+        cfg.n_layers // cfg.hybrid_attn_every
+    want, _ = model_ref.forward(params, toks)
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+    pre, cache = model.prefill(params, toks[:, :95], max_len=100)
+    torch.testing.assert_close(pre, logits[:, 94], rtol=2e-3, atol=2e-3)
+    dec, _ = model.decode(params, cache, toks[:, 95], 95)
+    torch.testing.assert_close(dec, logits[:, 95], rtol=2e-3, atol=2e-3)
+
+
+def test_moe_grouped_gemm_route_matches_the_per_expert_loop(cuda):
+    """``expert_matmul`` takes ``grouped_mm`` for bf16 on the card (one
+    launch), the loop for fp32; on the same rows (empty experts among
+    them) the two agree within two bf16 ulps (each rounds an fp32 sum
+    once), and the fp32 loop within 1e-5 of an fp32 matmul per expert."""
+    from repro_torch.models import moe
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    sizes = torch.tensor([37, 0, 129, 5, 0, 300, 1, 64], device=cuda)
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    xs = torch.randn(int(sizes.sum()), 256, generator=g, device=cuda)
+    w = torch.randn(8, 256, 384, generator=g, device=cuda) / 16
+    before = dict(moe.expert_matmul.routes)
+    lib = moe.expert_matmul(xs.bfloat16(), w.bfloat16(), sizes, offs)
+    assert moe.expert_matmul.routes["grouped_mm"] == \
+        before["grouped_mm"] + 1
+    loop = torch.cat([xs[a:b].bfloat16() @ w[e].bfloat16() for e, (a, b)
+                      in enumerate(zip([0] + offs[:-1].tolist(),
+                                       offs.tolist())) if b > a])
+    torch.testing.assert_close(lib.float(), loop.float(), rtol=2 ** -6,
+                               atol=2 ** -6)
+    f32 = moe.expert_matmul(xs, w, sizes, offs)
+    assert moe.expert_matmul.routes["loop"] == before["loop"] + 6
+    torch.testing.assert_close(f32, torch.cat([
+        xs[a:b] @ w[e] for e, (a, b) in enumerate(zip(
+            [0] + offs[:-1].tolist(), offs.tolist())) if b > a]),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_moe_top6_bf16_layer_is_bitwise_reproducible_on_the_card(cuda):
+    """A bf16 MoE layer at deepseek-v2's routing (160 experts, top-6, 2
+    shared) on 2 x 512 tokens: two calls give the same bits (the combine
+    adds the six slots in a fixed order, no atomics)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"), d_model=512,
+                              moe_d_ff=256, moe_impl="ragged")
+    p = moe.moe_init(torch.Generator(device=cuda).manual_seed(0), cfg,
+                     torch.bfloat16)
+    x = torch.randn(2, 512, 512, device=cuda).bfloat16()
+    y1, a1 = moe.moe_apply(cfg, p, x)
+    y2, a2 = moe.moe_apply(cfg, p, x)
+    assert torch.equal(y1, y2) and torch.equal(a1, a2)
+    assert bool(torch.isfinite(y1.float()).all())

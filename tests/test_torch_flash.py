@@ -67,9 +67,11 @@ def _both_ways(js, ts, dtype, **kw):
 
 
 # the reference's shapes (test_kernels.py:75-78: ragged S 130 and 200,
-# GQA groups 1-4 and 8) plus hd 128 with a ragged S and group 3
+# GQA groups 1-4 and 8) plus hd 128 with a ragged S and group 3, and
+# zamba2's head dim 80
 SHAPES = [(1, 128, 4, 4, 64), (2, 256, 4, 2, 32), (1, 130, 8, 1, 64),
-          (1, 64, 2, 2, 128), (2, 200, 6, 3, 32), (1, 130, 6, 2, 128)]
+          (1, 64, 2, 2, 128), (2, 200, 6, 3, 32), (1, 130, 6, 2, 128),
+          (1, 130, 4, 4, 80)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -107,6 +109,39 @@ def test_kernel_plain_version_matches_pallas_kv_tail(causal, window, seq_k):
     _close(got, want, "float32")
     if seq_k == 0:
         assert not got.any()
+
+
+def test_head_dims_run_at_the_next_instantiated_one():
+    assert fa.HEAD_DIMS == (32, 64, 128)
+    assert [fa.padded_head_dim(h) for h in (8, 32, 48, 64, 80, 96, 128)] \
+        == [32, 32, 64, 64, 128, 128, 128]
+    with pytest.raises(ValueError, match="up to 128"):
+        fa.padded_head_dim(160)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,window", [(80, None), (80, 40), (48, None)])
+def test_zero_padded_head_dim_gives_the_unpadded_function(hd, window, dtype):
+    """What ``flash_attention_cuda`` launches at a head dim it pads: the
+    kernel's plain version on the zero-padded operands, with q scaled by
+    ``(hd_pad / hd) ** 0.5`` so that its ``hd_pad ** -0.5`` gives the
+    true ``hd ** -0.5``, its first hd columns, equals the plain version
+    on the unpadded ones (2e-5 fp32, 2e-2 bf16) and the reference's
+    Pallas kernel; the padded operands are views of (B, S, H, hd_pad)
+    buffers, the model's layout."""
+    js, ts = _qkv(hd + (window or 0), 2, 128, 4, 2, hd, dtype,
+                  layout="bhsd")
+    hp = fa.padded_head_dim(hd)
+    padded = [fa.pad_head_dim(t, hp) for t in ts]
+    for t, p in zip(ts, padded):
+        assert p.shape[3] == hp and p.transpose(1, 2).is_contiguous()
+        assert torch.equal(p[..., :hd], t) and not p[..., hd:].any()
+    pq, pk, pv = padded
+    got = ref.flash_attention_ref(pq * (hp / hd) ** 0.5, pk, pv,
+                                  window=window)[..., :hd]
+    _close(got, ref.flash_attention_ref(*ts, window=window), dtype)
+    _close(got, j_pallas(*js, window=window, bq=64, bk=64, interpret=True),
+           dtype)
 
 
 def test_entry_point_runs_the_plain_version_on_the_cpu():
