@@ -203,13 +203,46 @@ Phases (each raises on failure; nothing is caught):
               and 4 / 2 / 6 / 6 layers: flash vs ref within 1e-4,
               prefill + decode vs the forward within 2e-3, ragged vs dense
               MoE within 2e-4, chunked vs full MLA within 2e-3.
+   lmtrain -- federated LM training (``LMT_*``): stablelm-1.6b at its
+              published widths and full depth in bf16 from random
+              weights, trained through ``FederatedServer(execution=
+              ExecutionConfig(model_cfg=...))`` with per-layer remat,
+              chunked attention and a chunked loss: n = 4 clients in c =
+              2 clusters, T = 5, one 4,096-token sequence a client a
+              step from ``make_token_stream`` / ``lm_batches``, 2 rounds
+              each on 'einsum', 'fused' (-> aggregate) and 'fused' with
+              record_mixed (-> mix_aggregate, staged), launches counted
+              from 0 a run; the kernel backends' change from the init
+              params against einsum's after round 0 and after the last
+              (CHANGE_REL), einsum moving
+              at least MOVED_MIN of the values; round ms, tokens/s, peak
+              GB.  One 'aggregate' round timed in its two calls (local
+              SGD's share of it); both kernels on that round's payload
+              ((4, ~1.645e9) bf16) against their plain versions in
+              column chunks (agg within AGG_REL of sum |w_i X_i|, mixed
+              within MIXED_ULPS bf16 ulp of each value), timed beside
+              them, their byte bounds and ``torch.matmul``; one traced
+              round; fp32 pins at full
+              width and 2 layers (1,024 tokens): the kernel backends
+              within rtol 2e-4 / atol 2e-5 of einsum, scanned ==
+              sequential, all-ones active == None, remat on == off, all
+              bitwise.
+   mesh    -- the mesh runtime (``fl/distributed.py``) on a world-size-1
+              NCCL group in this process, mesh (1, 1, 1), the same model
+              (1,024 tokens a step): each of the five schedules 2 rounds
+              sequential and scanned (bitwise), against LocalEngine's
+              round function at n = 1 (the change from init within
+              CHANGE_REL[0]); 'fused' launches
+              aggregate once a round.
 6. report  -- a ``{"kernels": [...]}`` JSON line (nine kernels; the
               six routed ones with the ``routes`` of their main-path
               launches; the launches are those of [train], [control],
-              the quickstart, [stream] and [ingest], flash's those of
-              [lm] and [zoo]), the card's name and power limit
-              (nvidia-smi), and the final ``{"ok": true, "device":
-              {...}}`` line.
+              the quickstart, [stream], [ingest], [lmtrain] and [mesh],
+              flash's those of [lm] and [zoo]; aggregate's and
+              mix_aggregate's rows also carry ``lm_payload``, their
+              numbers at [lmtrain]'s payload), the card's name and power
+              limit (nvidia-smi), and the final ``{"ok": true,
+              "device": {...}}`` line.
 
 It imports only ``torch``, numpy and ``repro_torch`` (never JAX), and
 exits non-zero without a result when no CUDA card is present or when run
@@ -1420,9 +1453,9 @@ def device_events(prof):
     return raw, events, busy_us
 
 
-def trace_device(fn, what: str, top: int = 12):
+def trace_device(fn, what: str, top: int = 12, warm: bool = True):
     """Trace ``fn()`` (``what``) with ``torch.profiler``, device activity
-    only, after one untraced call, and print the device events (kernels,
+    only, after one untraced call (unless ``warm`` is False), and print the device events (kernels,
     copies, sets) by total time and the device's busy share of the traced
     wall time.  Events are read from the exported trace and kept once per
     correlation id (one per launch); the busy time is the union of their
@@ -1430,7 +1463,8 @@ def trace_device(fn, what: str, top: int = 12):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()                                     # warm: cuDNN / vmap set-up
+    if warm:
+        fn()                                 # warm: cuDNN / vmap set-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2935,6 +2969,571 @@ def phase_zoo(seed: int, counters) -> int:
     return total
 
 
+# -- phase 5b: federated LM training, one host and the mesh -------------------
+
+# stablelm-1.6b at its published widths (src/repro/configs/stablelm_1_6b.py,
+# hf: stabilityai/stablelm-2-1_6b), trained as the reference's example
+# does: n = 4 clients in c = 2 clusters, T = 5 (launch/shapes.py
+# DEFAULT_T), one sequence of train_4k's 4,096 tokens a client a step
+LMT_ARCH, LMT_N, LMT_C, LMT_T, LMT_B, LMT_S = "stablelm-1.6b", 4, 2, 5, 1, 4096
+LMT_ROUNDS, LMT_LOSS_CHUNK, LMT_ETA = 2, 1024, 0.05
+# the fp32 pins at full width and 2 layers, and the mesh phase, take
+# sequences of 1,024 tokens: the width is the test, the length only time
+LMT_PIN_LAYERS, LMT_PIN_S, MESH_S = 2, 1024, 1024
+# bf16 runs against each other are held by their change from the init
+# params, d = params - init, in norm: ||d - d_einsum|| / ||d_einsum||
+# (most bf16 steps round away, so the params themselves differ little
+# whatever the D2S update did; a dropped update gives 1).  After round 0
+# the backends have started from the same params with the same local
+# SGD: 'einsum' rounds the mixed deltas to bf16 before the D2S sum and
+# the one-pass kernels do not, so only a rare final add rounds to the
+# other neighbour (CHANGE_REL[0]; 2.7e-4 on an H100, 0.011% of values).
+# Each such value changes the next round's gradients everywhere, so
+# after the last round the runs have drifted apart further
+# (CHANGE_REL[1]; 0.17 on an H100, 0.92% of values): that gate only
+# says the change is mostly einsum's.  The mesh at n = 1 is the same
+# computation as LocalEngine's but for vmap (bitwise on an H100), held
+# at CHANGE_REL[0].  einsum must move at least MOVED_MIN of the values
+# (5.7% after round 0 on an H100), or the gates see too little.
+CHANGE_REL, MOVED_MIN = (0.01, 0.5), 0.01
+# the kernels at the LM payload against their plain versions: the fp32
+# row within AGG_REL of sum_i |w_i X_i|, the bf16 mixed output within
+# one bf16 ulp of each value
+AGG_REL, MIXED_ULPS = 1e-5, 1
+ORACLE_F32 = dict(rtol=2e-4, atol=2e-5)
+
+
+def lm_train_config(**changes):
+    """stablelm-1.6b with the training settings: per-layer remat,
+    query-chunked attention (the flash kernel is forward-only),
+    sequence-chunked head and loss."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(LMT_ARCH), remat=True,
+                               attn_impl="chunked",
+                               loss_chunk=LMT_LOSS_CHUNK, **changes)
+
+
+def lm_train_data(cfg, seed: int, S: int, n: int = LMT_N):
+    """A token stream from the seed (``make_token_stream``) and a sampler
+    drawing each round's (x, y) batches (``lm_batches``, CPU int32, (n,
+    T, B, S))."""
+    from repro_torch.data import lm_batches, make_token_stream
+    stream = make_token_stream(n_tokens=max(1 << 15, 4 * n * (S + 2)),
+                               vocab=cfg.vocab_size, seed=seed)
+    return lambda rng, t: lm_batches(stream, rng, n, LMT_T, LMT_B, S)
+
+
+def _lm_server(cfg, params, sampler, seed, **execution):
+    from repro_torch import topology
+    from repro_torch.core.server import FederatedServer, ServerConfig
+    from repro_torch.fl.engine import ExecutionConfig
+    network = topology.make_spec("k_regular", n=LMT_N, c=LMT_C,
+                                 k_range=(1, 2), p_fail=0.0).build()
+    scfg = ServerConfig(T=LMT_T, t_max=LMT_ROUNDS, phi_max=1.0,
+                        bound_kind="regular", seed=seed,
+                        eta=lambda t: LMT_ETA)
+    return FederatedServer(network, None, params, sampler, scfg,
+                           execution=ExecutionConfig(model_cfg=cfg,
+                                                     **execution))
+
+
+def _ulp_of(v):
+    """One bf16 ulp at each value of the fp32 tensor ``v`` (2^-133 below
+    the least normal, so a zero admits no other value)."""
+    import torch
+    _, e = torch.frexp(v.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(v), e - 8)
+
+
+def _change_stats(got, want, init, device):
+    """Two bf16 runs from the same ``init`` (trees; a leaf of ``want`` may
+    lie on the host, and is moved to ``device`` one leaf at a time): the
+    change ``got - init`` against ``want - init``.  Returns ``rel``
+    ||dgot - dwant|| / ||dwant|| over all values, ``moved`` the share of
+    values ``want`` moved, ``moved_ulps`` the mean and ``max_moved_ulps``
+    the largest |dwant| there in bf16 ulps of max(|init|, |want|),
+    ``differ``
+    the share of values where got != want, and ``max_ulps`` the largest
+    |got - want| in bf16 ulps of max(|got|, |want|, |init|) (a sum that
+    cancels rounds at its operands' ulp, not at its result's)."""
+    import torch
+    from repro_torch.core.pytree import tree_flatten
+    num = den = 0.0
+    moved = differ = total = 0
+    sum_ulps = max_moved = max_ulps = 0.0
+    for a, b, i in zip(tree_flatten(got)[0], tree_flatten(want)[0],
+                       tree_flatten(init)[0]):
+        a32, b32 = a.to(device).float(), b.to(device).float()
+        i32 = i.to(device).float()
+        if not torch.isfinite(a32).all():
+            raise AssertionError("non-finite params")
+        dw = b32 - i32
+        num += float((a32 - b32).double().square().sum())
+        den += float(dw.double().square().sum())
+        on = dw != 0
+        moved_ulps = dw.abs()[on] / _ulp_of(torch.maximum(i32.abs(),
+                                                          b32.abs())[on])
+        moved += int(on.sum())
+        if moved_ulps.numel():
+            sum_ulps += float(moved_ulps.double().sum())
+            max_moved = max(max_moved, float(moved_ulps.max()))
+        differ += int((a32 != b32).sum())
+        mag = torch.maximum(torch.maximum(a32.abs(), b32.abs()), i32.abs())
+        max_ulps = max(max_ulps, float(((a32 - b32).abs()
+                                        / _ulp_of(mag)).max()))
+        total += a32.numel()
+        del a32, b32, i32, dw, on, moved_ulps, mag
+    return dict(rel=(num / den) ** 0.5 if den else float(num > 0) * 1e9,
+                moved=moved / total,
+                moved_ulps=sum_ulps / moved if moved else 0.0,
+                max_moved_ulps=max_moved, differ=differ / total,
+                max_ulps=max_ulps)
+
+
+def _leaves_close(name, got, want, tol):
+    """Every leaf finite and allclose within ``tol``; returns max |got -
+    want| and the share of values that differ."""
+    import torch
+    from repro_torch.core.pytree import tree_flatten
+    worst, off, total = 0.0, 0, 0
+    for a, b in zip(tree_flatten(got)[0], tree_flatten(want)[0]):
+        a32, b32 = a.float(), b.float()
+        if not torch.isfinite(a32).all():
+            raise AssertionError(f"{name}: non-finite params")
+        d = float((a32 - b32).abs().max())
+        if not torch.allclose(a32, b32, **tol):
+            raise AssertionError(
+                f"{name}: params differ by {d:.3e}, beyond rtol "
+                f"{tol['rtol']:.2e} / atol {tol['atol']:.1e}")
+        worst = max(worst, d)
+        off += int((a32 != b32).sum())
+        total += a32.numel()
+    return worst, off / total
+
+
+def _bitwise(name, a, b):
+    import torch
+    from repro_torch.core.pytree import tree_flatten
+    if not all(torch.equal(x, y) for x, y in zip(tree_flatten(a)[0],
+                                                  tree_flatten(b)[0])):
+        raise AssertionError(f"{name}: not bitwise equal")
+
+
+def phase_lmtrain(seed: int, counters):
+    """Federated training of stablelm-1.6b through Algorithm 1 on one
+    card.  (a) bf16 at full width and depth: 2 rounds on 'einsum', on
+    'fused' (-> aggregate) and on 'fused' with record_mixed (->
+    mix_aggregate) through ``FederatedServer`` with ``model_cfg``, the
+    launch counts reset before each and read after; round ms, tokens/s,
+    peak GB; the kernel backends' change from init against einsum's
+    (``_change_stats``) after round 0 and after the last.  (b) one
+    'aggregate' round timed by CUDA events in its two calls (local SGD's
+    share), and the two kernels on its payload (packed deltas, (4,
+    ~1.645e9) bf16) against their plain versions computed in column
+    chunks, timed beside the plain versions, their byte bounds and
+    ``torch.matmul``.  (c) one traced 'aggregate' round.  (d) fp32 pins
+    at full width, 2 layers: the kernel backends within rtol 2e-4 / atol
+    2e-5 of einsum, scanned == sequential, all-ones active == None and
+    remat on == off, bitwise.  Returns ``({kernel: launches in (a)},
+    {kernel: row fields at this payload})``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.core.rounds import (_mix_and_update, client_deltas,
+                                         make_round_fn)
+    from repro_torch.fl import packing
+    from repro_torch.kernels.mixing import ref
+    from repro_torch.kernels.mixing.ops import combine_weights
+    from repro_torch.models.model import Model
+
+    dev = torch.device("cuda")
+    cfg = lm_train_config()
+    model = Model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    n_params = model.param_count(params)
+    sampler = lm_train_data(cfg, seed, LMT_S)
+    tokens = LMT_N * LMT_T * LMT_B * LMT_S
+    print(f"[lmtrain] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}, {n_params:,} params "
+          f"({n_params * 2 / 1e9:.2f} GB); remat {cfg.remat}, attn "
+          f"{cfg.attn_impl}, loss_chunk {cfg.loss_chunk}; n {LMT_N}, c "
+          f"{LMT_C}, T {LMT_T}, B {LMT_B}, S {LMT_S}: {tokens:,} tokens a "
+          f"round, {LMT_ROUNDS} rounds a run")
+
+    def run(backend, record_mixed=False, **kw):
+        starts, ends, first = [], [], []
+
+        def eval_fn(p):
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+            if not first:          # round 0's params to the host, unclocked
+                first.append(tree_map(lambda x: x.to("cpu"), p))
+            starts.append(time.perf_counter())
+            return {}
+
+        server = _lm_server(cfg, params, sampler, seed, backend=backend,
+                            record_mixed=record_mixed, **kw)
+        reset_counters(counters)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        hist = server.run(eval_fn=eval_fn)
+        ms = [(b - a) * 1e3 for a, b in zip(starts, ends)]
+        counts = {k: f.launches for k, f in counters.items() if f.launches}
+        routes = {k: dict(f.routes) for k, f in counters.items()
+                  if f.launches and hasattr(f, "routes")}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        return server, hist, ms, counts, routes, peak, first[0]
+
+    def cols(h):
+        return [(r.t, r.m, r.m_actual, r.d2s, r.d2d, r.psi_bound, r.eta)
+                for r in h.records]
+
+    ref_server, ref_hist, ms, counts, _, peak, ref_first = run("einsum")
+    if counts:
+        raise AssertionError(f"einsum launched kernels: {counts}")
+    print(f"[lmtrain] einsum: round ms {[round(x, 1) for x in ms]}, "
+          f"{tokens / (ms[-1] / 1e3):,.0f} tokens/s (round 1), peak "
+          f"{peak:.2f} GB; m(t) {[r.m_actual for r in ref_hist.records]}")
+    launches, rows, round_ms = {}, {}, {}
+    for backend, record_mixed, effective, kernel in (
+            ("fused", False, "aggregate", "aggregate"),
+            ("fused", True, "fused", "mix_aggregate")):
+        server, hist, ms, counts, routes, peak, first = run(backend,
+                                                           record_mixed)
+        if server.effective_backend != effective:
+            raise AssertionError(f"{backend} dispatched "
+                                 f"{server.effective_backend}")
+        if counts != {kernel: LMT_ROUNDS}:
+            raise AssertionError(f"{effective}: launches {counts}, not "
+                                 f"{{{kernel!r}: {LMT_ROUNDS}}}")
+        if kernel in routes and routes[kernel] != {"generic": 0,
+                                                   "staged": LMT_ROUNDS}:
+            raise AssertionError(f"{kernel}: routes {routes[kernel]}")
+        if cols(hist) != cols(ref_hist):
+            raise AssertionError(f"{effective}: History differs from einsum")
+        # the change from init on this backend against einsum's: after
+        # round 0 (same start, same local SGD) and after the last round
+        r0 = _change_stats(first, ref_first, params, dev)
+        r1 = _change_stats(server.params, ref_server.params, params, dev)
+        del first
+        launches[kernel] = counts[kernel]
+        round_ms[effective] = ms[-1]
+        print(f"[lmtrain] {backend} record_mixed={record_mixed} -> "
+              f"{effective}: {counts[kernel]} {kernel} launches"
+              + (f" (routes {routes[kernel]})" if kernel in routes else "")
+              + f", round ms {[round(x, 1) for x in ms]}, "
+              f"{tokens / (ms[-1] / 1e3):,.0f} tokens/s, peak {peak:.2f} "
+              f"GB")
+        for t, r in ((0, r0), (LMT_ROUNDS - 1, r1)):
+            print(f"[lmtrain]   after round {t}: einsum moved "
+                  f"{r['moved']:.3%} of values from init, by "
+                  f"{r['moved_ulps']:.2f} bf16 ulps on average (max "
+                  f"{r['max_moved_ulps']:.1f}); {effective}'s change vs "
+                  f"einsum's: ||d - d_einsum|| / ||d_einsum|| "
+                  f"{r['rel']:.4e} (gate {CHANGE_REL[t > 0]}), "
+                  f"{r['differ']:.4%} of values differ, by at most "
+                  f"{r['max_ulps']:.2f} bf16 ulps of the value")
+        if r0["moved"] < MOVED_MIN or r1["moved"] < MOVED_MIN:
+            raise AssertionError(
+                f"einsum moved {r0['moved']:.3%} / {r1['moved']:.3%} of "
+                f"values, under {MOVED_MIN:.0%}: the gates below see "
+                "too little")
+        if r0["rel"] > CHANGE_REL[0] or r1["rel"] > CHANGE_REL[1]:
+            raise AssertionError(f"{effective} vs einsum (bf16): change "
+                                 f"off by {r0['rel']:.3e} / {r1['rel']:.3e}")
+        del server, hist
+        torch.cuda.empty_cache()
+    del ref_server, ref_first
+    torch.cuda.empty_cache()
+
+    # (b) one 'aggregate' round timed by CUDA events in the two calls
+    # make_round_fn's round makes (local SGD, then pack + aggregate +
+    # apply), so local SGD's share is of that one round; then both
+    # kernels on that round's payload
+    batch = tuple(b.to(dev) for b in sampler(np.random.default_rng(seed),
+                                             0))
+    eta = torch.tensor(LMT_ETA, device=dev)
+    A = torch.tensor([[.5, .5, 0, 0], [.5, .5, 0, 0], [0, 0, .5, .5],
+                      [0, 0, .5, .5]], device=dev)
+    tau = torch.tensor([1., 0., 1., 1.], device=dev)
+    m3 = torch.tensor(3., device=dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    deltas = client_deltas(model.loss, params, batch, eta)
+    ev[1].record()
+    new, _ = _mix_and_update(params, deltas, A, tau, m3,
+                             mixing_backend="aggregate")
+    ev[2].record()
+    torch.cuda.synchronize()
+    sgd_ms, rest_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    del new
+    spec = packing.pack_spec(deltas)
+    X = packing.pack(deltas, spec)[0]
+    del deltas
+    torch.cuda.empty_cache()
+    n, p = X.shape
+    chunk = 1 << 27
+    nonzero = sum(int((X[:, c:c + chunk] != 0).sum())
+                  for c in range(0, p, chunk))
+    x_max = max(float(X[:, c:c + chunk].abs().max())
+                for c in range(0, p, chunk))
+    print(f"[lmtrain] one 'aggregate' round, CUDA events: "
+          f"{sgd_ms + rest_ms:.1f} ms, local SGD (client_deltas, {LMT_N} "
+          f"clients x {LMT_T} steps, vmap(grad)) {sgd_ms:.1f} ms = "
+          f"{sgd_ms / (sgd_ms + rest_ms):.2%} of it, pack + aggregate + "
+          f"apply {rest_ms:.1f} ms; its payload X {tuple(X.shape)} "
+          f"{str(X.dtype).split('.')[1]}, {X.numel() * 2 / 1e9:.2f} GB, "
+          f"{spec.n_groups} dtype group: {nonzero / X.numel():.3%} of "
+          f"values nonzero, max|X| {x_max:.3e}")
+    w = combine_weights(A, tau, m3).contiguous()
+    absw = w.abs()
+    f32, bf = 4, 2
+
+    def plain_aggregate():
+        return torch.cat([ref.aggregate_ref(w, X[:, c:c + chunk])
+                          for c in range(0, p, chunk)])
+
+    def plain_mix_aggregate():
+        parts = [ref.mix_aggregate_ref(A, w, X[:, c:c + chunk])
+                 for c in range(0, p, chunk)]
+        return (torch.cat([m for m, _ in parts], dim=1),
+                torch.cat([a for _, a in parts]))
+
+    def agg_err(name, got, want, c):
+        """max |got - want| on columns c+ of the fp32 row, absolute and
+        over sum_i |w_i X_i| (fp32 sums of n = 4 products in two orders
+        differ by a few 2^-24 of it; AGG_REL allows 2^7 of those, and
+        where that sum is 0 both must be 0)."""
+        scale = absw @ X[:, c:c + chunk].float().abs()
+        err = (got - want).abs()
+        if bool((err > AGG_REL * scale).any()):
+            raise AssertionError(f"{name} at the LM payload, columns {c}+: "
+                                 f"agg off by more than {AGG_REL:.0e} of "
+                                 f"sum |w_i X_i| (max |err| "
+                                 f"{float(err.max()):.3e})")
+        return (float(err.max()),
+                float((err / scale.clamp_min(2.0 ** -126)).max()))
+
+    from repro_torch.kernels.mixing import fused
+    got = fused.aggregate_cuda(w, X)
+    e_agg = r_agg = 0.0
+    for c in range(0, p, chunk):
+        e, r = agg_err("aggregate", got[c:c + chunk],
+                       ref.aggregate_ref(w, X[:, c:c + chunk]), c)
+        e_agg, r_agg = max(e_agg, e), max(r_agg, r)
+    del got
+    ms_k = cuda_ms(lambda: fused.aggregate_cuda(w, X), iters=10)
+    ms_p = cuda_ms(plain_aggregate, iters=2, warmup=1)
+    wb = w.to(torch.bfloat16)
+    ms_l = cuda_ms(lambda: torch.matmul(wb, X), iters=10)
+    b_ms, b_by = bound(n * p * bf + n * f32 + p * f32, 2 * n * p)
+    rows["aggregate"] = dict(ms=ms_k, plain_ms=ms_p, library_ms=ms_l,
+                             bound_ms=b_ms, bound_by=b_by, max_abs_err=e_agg)
+    print(f"[lmtrain] aggregate @ LM payload ({n}, {p}) bf16, G "
+          f"{fused.aggregate_row_groups(X)}: {ms_k:.4f} ms (plain, in "
+          f"column chunks, {ms_p:.4f} ms, torch.matmul in bf16 "
+          f"{ms_l:.4f} ms, bound {b_ms:.4f} ms by {b_by}: {b_ms / ms_k:.1%}"
+          f" of it; max|err| {e_agg:.3e}, at most {r_agg:.3e} of "
+          f"sum |w_i X_i| (gate {AGG_REL:.0e}))")
+    (mixed, agg), route = routed(fused.mix_aggregate_cuda, A, w, X)
+    # against the plain version a column chunk at a time (an fp32 copy
+    # of the whole mixed payload would be 26 GB).  mixed: both round the
+    # fp32 A @ X to bf16, so they may differ by one bf16 ulp of the value
+    # where the two fp32 sums round to either side of a midpoint, and a
+    # zero must stay zero
+    e_mix = e_ma = r_ma = u_mix = m_max = 0.0
+    same = 0
+    for c in range(0, p, chunk):
+        want_m, want_a = ref.mix_aggregate_ref(A, w, X[:, c:c + chunk])
+        got_m, want_m = mixed[:, c:c + chunk].float(), want_m.float()
+        d = (got_m - want_m).abs()
+        e_mix = max(e_mix, float(d.max()))
+        u_mix = max(u_mix, float((d / _ulp_of(want_m)).max()))
+        m_max = max(m_max, float(want_m.abs().max()))
+        same += int((d == 0).sum())
+        if u_mix > MIXED_ULPS:
+            raise AssertionError(f"mix_aggregate at the LM payload, columns "
+                                 f"{c}+: mixed off by {u_mix:.2f} bf16 ulps "
+                                 f"of the value (max |err| {e_mix:.3e})")
+        e, r = agg_err("mix_aggregate", agg[c:c + chunk], want_a, c)
+        e_ma, r_ma = max(e_ma, e), max(r_ma, r)
+        del want_m, want_a, got_m, d
+    del mixed, agg
+    torch.cuda.empty_cache()
+    ms_k = cuda_ms(lambda: fused.mix_aggregate_cuda(A, w, X), iters=5)
+    ms_p = cuda_ms(plain_mix_aggregate, iters=1, warmup=1)
+    Bb = torch.cat([A, w[None]]).to(torch.bfloat16)
+    ms_l = cuda_ms(lambda: torch.matmul(Bb, X), iters=5)
+    b_ms, b_by = bound(2 * n * p * bf + p * f32 + (n + 1) * n * f32,
+                       2 * (n + 1) * n * p)
+    rows["mix_aggregate"] = dict(ms=ms_k, plain_ms=ms_p, library_ms=ms_l,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 max_abs_err=max(e_mix, e_ma))
+    print(f"[lmtrain] mix_aggregate @ LM payload ({n}, {p}) bf16, route "
+          f"{route}: {ms_k:.4f} ms (plain, in column chunks, {ms_p:.4f} "
+          f"ms, torch.matmul in bf16 {ms_l:.4f} ms, bound {b_ms:.4f} ms by "
+          f"{b_by}: {b_ms / ms_k:.1%} of it; mixed: max|mixed| "
+          f"{m_max:.3e}, {same / X.numel():.4%} of values equal to the "
+          f"plain version's, max|err| {e_mix:.3e} = {u_mix:.2f} bf16 ulps "
+          f"of the value (gate {MIXED_ULPS}); agg max|err| {e_ma:.3e}, at "
+          f"most {r_ma:.3e} of sum |w_i X_i| (gate {AGG_REL:.0e}))")
+    del X, Bb, wb
+    torch.cuda.empty_cache()
+
+    # (c) where a round's time goes: one traced 'aggregate' round
+    round_fn = make_round_fn(model.loss, "aggregate")
+    args = (A, tau, m3, eta)
+    reset_counters(counters)
+    trace_device(lambda: round_fn(params, batch, *args),
+                 f"{cfg.name} bf16, one 'aggregate' round ({LMT_N} x "
+                 f"{LMT_T} x {LMT_S} tokens; warm from the runs above)",
+                 top=14, warm=False)
+    del params, model, batch, round_fn
+    torch.cuda.empty_cache()
+
+    # (d) the fp32 pins at full width, 2 layers
+    cfg32 = lm_train_config(n_layers=LMT_PIN_LAYERS, dtype="float32")
+    m32 = Model(cfg32)
+    p32 = m32.init(torch.Generator(device=dev).manual_seed(seed + 1))
+    s32 = lm_train_data(cfg32, seed, LMT_PIN_S)
+    einsum32 = _lm_server(cfg32, p32, s32, seed, backend="einsum")
+    einsum32.run()
+    for backend, record_mixed, scan in (("fused", False, False),
+                                        ("fused", True, False),
+                                        ("fused", False, True)):
+        srv = _lm_server(cfg32, p32, s32, seed, backend=backend,
+                         record_mixed=record_mixed, scan=scan)
+        srv.run()
+        worst, _ = _leaves_close(f"fp32 {srv.effective_backend}",
+                                 srv.params, einsum32.params, ORACLE_F32)
+        print(f"[lmtrain] fp32 pin, {cfg32.n_layers} layers, S "
+              f"{LMT_PIN_S}: {srv.effective_backend}"
+              f"{' scanned' if scan else ''} vs einsum max|d| {worst:.3e} "
+              f"(rtol 2e-4, atol 2e-5)")
+        if scan:
+            seq = _lm_server(cfg32, p32, s32, seed, backend=backend)
+            seq.run()
+            _bitwise("fp32 scanned vs sequential", srv.params, seq.params)
+            print("[lmtrain] fp32 pin: scanned == sequential bitwise")
+            del seq
+        del srv
+    batch32 = tuple(b.to(dev) for b in s32(np.random.default_rng(seed), 0))
+    for backend in ("aggregate", "fused", "einsum"):
+        fn = make_round_fn(m32.loss, backend)
+        _bitwise(f"fp32 all-ones active on {backend}",
+                 fn(p32, batch32, *args, torch.ones(n, device=dev))[0],
+                 fn(p32, batch32, *args)[0])
+    print("[lmtrain] fp32 pin: all-ones active == None bitwise on "
+          "aggregate, fused, einsum")
+    off = make_round_fn(Model(dataclasses.replace(cfg32, remat=False))
+                        .loss, "aggregate")(p32, batch32, *args)[0]
+    on = make_round_fn(m32.loss, "aggregate")(p32, batch32, *args)[0]
+    _bitwise("fp32 remat on vs off", on, off)
+    print("[lmtrain] fp32 pin: remat on == off bitwise")
+    del einsum32, p32, m32, batch32, on, off
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+def phase_mesh(seed: int, counters) -> int:
+    """The mesh runtime (``fl/distributed.py``) on the card: a world-size-1
+    NCCL group in this process (a file store in a temporary directory),
+    mesh (1, 1, 1), stablelm-1.6b bf16 at full width and depth, one
+    client of MESH_S tokens a step.  Each of the five schedules runs
+    LMT_ROUNDS rounds sequentially and scanned (bitwise equal) and is
+    held against ``LocalEngine``'s round function at n = 1 on the same
+    inputs (the change from init, ``_change_stats``, within
+    CHANGE_REL[0]); 'fused' must launch aggregate once a round.
+    Returns fused's aggregate launches."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.rounds import make_round_fn
+    from repro_torch.fl import distributed as D
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import Model
+
+    dev = torch.device("cuda")
+    torch.cuda.set_device(0)
+    cfg = lm_train_config()
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed + 2))
+    sampler = lm_train_data(cfg, seed, MESH_S, n=1)
+    rng = np.random.default_rng(seed)
+    xs, ys = zip(*(sampler(rng, t) for t in range(LMT_ROUNDS)))
+    xs, ys = torch.stack(xs).to(dev), torch.stack(ys).to(dev)
+    toks = torch.cat([xs, ys[..., -1:]], dim=-1)      # (K, 1, T, B, S+1)
+    A = torch.ones(LMT_ROUNDS, 1, 1, device=dev)
+    tau = torch.ones(LMT_ROUNDS, 1, device=dev)
+    m = torch.ones(LMT_ROUNDS, device=dev)
+    eta = torch.full((LMT_ROUNDS,), LMT_ETA, device=dev)
+    local = make_round_fn(model.loss, "einsum")
+    want = params
+    for t in range(LMT_ROUNDS):
+        want, _ = local(want, (xs[t], ys[t]), A[t], tau[t], m[t], eta[t])
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_debug_mesh((1, 1, 1))
+            print(f"[mesh] {dist.get_backend()} world size "
+                  f"{dist.get_world_size()}, mesh "
+                  f"{tuple(mesh.shape)} {mesh.mesh_dim_names}; "
+                  f"{cfg.name} bf16 {cfg.n_layers} layers, T {LMT_T}, S "
+                  f"{MESH_S}, {LMT_ROUNDS} rounds a run")
+            fused_launches = 0
+            for mixing in D.MIXINGS:
+                step = D.make_train_step(cfg, mesh, mixing=mixing)
+                reset_counters(counters)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p = params
+                for t in range(LMT_ROUNDS):
+                    p = step(p, toks[t], A[t], tau[t], m[t], eta[t])
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / LMT_ROUNDS
+                counts = {k: f.launches for k, f in counters.items()
+                          if f.launches}
+                wanted = {"aggregate": LMT_ROUNDS} if mixing == "fused" \
+                    else {}
+                if counts != wanted:
+                    raise AssertionError(f"[mesh] {mixing}: launches "
+                                         f"{counts}, not {wanted}")
+                fused_launches += counts.get("aggregate", 0)
+                scanned = D.make_scanned_train_steps(cfg, mesh, LMT_ROUNDS,
+                                                     mixing=mixing)
+                final, seq = scanned(params, toks, A, tau, m, eta)
+                del seq
+                _bitwise(f"[mesh] {mixing} scanned vs sequential", final, p)
+                r = _change_stats(p, want, params, dev)
+                print(f"[mesh] {mixing}: {ms:.1f} ms a round, launches "
+                      f"{counts or 'none'}; scanned == sequential bitwise; "
+                      f"vs LocalEngine (n = 1): LocalEngine moved "
+                      f"{r['moved']:.3%} of values from init, the change "
+                      f"off by ||d - d_local|| / ||d_local|| "
+                      f"{r['rel']:.4e} (gate {CHANGE_REL[0]}), "
+                      f"{r['differ']:.4%} of values differ")
+                if r["moved"] < MOVED_MIN or r["rel"] > CHANGE_REL[0]:
+                    raise AssertionError(
+                        f"[mesh] {mixing} vs LocalEngine: moved "
+                        f"{r['moved']:.3%}, change off by {r['rel']:.3e}")
+                del p, final
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    del params, want, model
+    torch.cuda.empty_cache()
+    return fused_launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         return _fail(f"no src/repro_torch beside {Path(__file__).name}: run "
@@ -2969,7 +3568,14 @@ def main() -> int:
     phase_scale(SEED)
     launches["flash_attention"] = phase_lm(SEED, kernel_counters())
     launches["flash_attention"] += phase_zoo(SEED, kernel_counters())
+    lm_launches, lm_rows = phase_lmtrain(SEED, kernel_counters())
+    for kernel, count in lm_launches.items():
+        launches[kernel] += count
+    routes["mix_aggregate"]["staged"] += lm_launches["mix_aggregate"]
+    launches["aggregate"] += phase_mesh(SEED, kernel_counters())
     for row in rows:
+        if row["name"] in lm_rows:
+            row["lm_payload"] = lm_rows[row["name"]]
         row["launches"] = launches[row["name"]]
         if row["name"] in routes:
             row["routes"] = routes[row["name"]]

@@ -72,7 +72,8 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 from torch.func import grad, vmap
 
-from repro_torch.core.pytree import tree_leaves, tree_map
+from repro_torch.core.pytree import tree_flatten, tree_leaves, tree_map, \
+    tree_unflatten
 from repro_torch.fl import packing
 from repro_torch.kernels.mixing.ops import (
     aggregate_grouped, aggregate_grouped_q, mix_aggregate_grouped,
@@ -125,9 +126,22 @@ def local_sgd(loss_fn: LossFn, params: PyTree, batches: PyTree,
     for t in range(tree_leaves(batches)[0].shape[0]):
         g = grad_fn(params, tree_map(lambda b: b[t], batches))
         # keep each leaf at its own dtype: the step is taken in fp32
-        # (eta is fp32) and cast back, so bf16 params never promote
-        params = tree_map(lambda x, gg: (x.float() - eta * gg.float())
-                          .to(x.dtype), params, g)
+        # (eta is fp32) and cast back, so bf16 params never promote.
+        # The old params and the grads are dropped a leaf at a time, so a
+        # step holds one tree of each plus one leaf, not two trees of
+        # params (an LM's per-client copies are GBs)
+        leaves, treedef = tree_flatten(params)
+        grads = tree_leaves(g)
+        del g, params
+        neg_eta = -eta
+        for i, x in enumerate(leaves):
+            # x + (-eta) * g in fp32, the sum in place on the fresh
+            # product: the two roundings of x - eta * g
+            step = grads[i].float().mul(neg_eta)
+            grads[i] = None
+            leaves[i] = step.add_(x).to(x.dtype)
+            del step
+        params = tree_unflatten(treedef, leaves)
     return params
 
 

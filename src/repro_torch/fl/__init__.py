@@ -1,3 +1,5 @@
 """Federated runtime of the port: packed delta layout (``packing``), round
-plans (``plan``), fault models (``faults``) and the single-host engine
-(``engine``).  Import the submodules directly."""
+plans (``plan``), fault models (``faults``), the engines (``engine``), the
+semi-async runtime (``stream``) and the mesh runtime over
+``torch.distributed`` (``distributed``).  Import the submodules
+directly."""

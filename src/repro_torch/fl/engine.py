@@ -10,19 +10,27 @@
                       ``device="cpu"``; ``execute`` runs a plan,
                       ``execute_controlled`` a ``repro_torch.control``
                       loop (the closed loop, one round at a time).
+    MeshEngine        the mesh runtime over ``repro_torch.fl.distributed``
+                      (``make_train_step`` / ``make_scanned_train_steps``):
+                      one client a rank of a ``torch.distributed`` mesh
+                      (``mesh`` and ``model_cfg``).
     make_engine       ExecutionConfig -> the engine: ``LocalEngine``,
+                      ``MeshEngine`` (``mesh``),
                       ``repro_torch.fl.stream.StreamEngine`` (``stream``)
                       or ``repro_torch.runtime.IngestEngine`` (``stream``
                       and ``runtime``).
 
 Backend selection::
 
-    backends                           record_mixed                 scan
-    ---------------------------------  ---------------------------  ----
-    einsum | pallas | fused            False upgrades pallas/fused  yes
-    | aggregate                        -> 'aggregate'
-    sparse | sparse_aggregate          False upgrades sparse ->     yes
-                                       'sparse_aggregate'
+    runtime      backends                   record_mixed             scan
+    -----------  -------------------------  -----------------------  ----
+    LocalEngine  einsum | pallas | fused    False upgrades           yes
+                 | aggregate                pallas/fused ->
+                                            'aggregate'
+                 sparse | sparse_aggregate  False upgrades sparse    yes
+                                            -> 'sparse_aggregate'
+    MeshEngine   ring | gather | einsum     unsupported              yes
+                 | fused | fused_rs
 
 The sparse backends take any plan: a sparse (CSR) plan's ``A_t`` goes to
 the device as (K, n, d_max) ELL columns without densifying, a dense plan
@@ -31,15 +39,18 @@ The stream runtime (``ExecutionConfig.stream``, a ``StreamConfig``) takes
 the dense backends only: 'pallas' and 'fused' resolve to 'aggregate'
 (stale cohorts aggregate through combine rows), and quant, scan,
 record_mixed and the sparse backends are refused, as is ``runtime``
-without ``stream``.  The reference's mesh runtime raises
-``NotImplementedError`` until its slice of the port (ROADMAP queue 1).
+without ``stream``.  The mesh runtime needs ``model_cfg`` (its steps
+train ``Model(model_cfg).loss``; the server's ``loss_fn`` is unused) and
+takes per-round token arrays ``(n, T, B_local, S+1)`` as its batches;
+what the data-parallel port leaves out (a 'model' axis above 1) raises
+``NotImplementedError`` naming ROADMAP queue 1 item 13b.
 
 Quantized payloads: ``ExecutionConfig.quant`` (or, when it is None, the
 plan's ``quant``) quantizes every client upload (``QuantSpec``); the
-*effective* backend must be one of ``QUANT_BACKENDS``, so 'fused' that
-upgraded to 'aggregate' quantizes while 'pallas' kept by
-``record_mixed`` is rejected.  Both drivers thread the quantizer state
-from round to round.
+*effective* backend must be one of ``QUANT_BACKENDS`` ('fused' /
+'fused_rs' on the mesh), so 'fused' that upgraded to 'aggregate'
+quantizes while 'pallas' kept by ``record_mixed`` is rejected.  Both
+drivers thread the quantizer state from round to round.
 
 Straggler masks: when ``plan.has_dropout`` the per-round ``active_t``
 column is threaded into the round functions; all-ones plans skip the mask
@@ -65,7 +76,7 @@ from repro_torch.core.server import History, RoundRecord
 from . import packing
 from .plan import RoundPlan, _check_quant_type
 
-__all__ = ["ExecutionConfig", "LocalEngine", "make_engine",
+__all__ = ["ExecutionConfig", "LocalEngine", "MeshEngine", "make_engine",
            "resolve_backend", "resolve_device", "set_fp32_policy"]
 
 PyTree = Any
@@ -86,13 +97,16 @@ class ExecutionConfig:
     (a ``repro_torch.fl.stream.StreamConfig``) selects the event-driven
     semi-async runtime instead of the synchronous one; ``runtime`` (a
     ``repro_torch.runtime.RuntimeConfig``, requires ``stream``) upgrades
-    it to the wall-clock ingestion engine.  ``mesh`` raises until its
-    slice of the port.
+    it to the wall-clock ingestion engine.  ``mesh`` (a ``DeviceMesh``,
+    ``repro_torch.launch.mesh.make_debug_mesh``) with ``model_cfg``
+    selects the mesh runtime, whose ``backend`` is one of
+    ``repro_torch.fl.distributed.MIXINGS``.
     """
     backend: str = "einsum"
     scan: bool = False
     record_mixed: bool = False
     mesh: Any = None
+    model_cfg: Any = None
     stream: Any = None
     quant: Any = None
     runtime: Any = None
@@ -110,9 +124,7 @@ def resolve_backend(cfg: ExecutionConfig) -> str:
     if cfg.stream is not None:
         return _resolve_stream_backend(cfg)
     if cfg.mesh is not None:
-        raise NotImplementedError(
-            "ExecutionConfig.mesh is not yet ported to repro_torch "
-            "(ROADMAP queue 1 item 13)")
+        return _resolve_mesh_backend(cfg)
     check_backend(cfg.backend)
     if cfg.record_mixed and cfg.backend in ("aggregate", "sparse_aggregate"):
         raise ValueError(
@@ -159,6 +171,30 @@ def _resolve_stream_backend(cfg: ExecutionConfig) -> str:
     # stale cohorts always take the aggregate-only combine-row path
     if cfg.backend in ("pallas", "fused"):
         return "aggregate"
+    return cfg.backend
+
+
+def _resolve_mesh_backend(cfg: ExecutionConfig) -> str:
+    """The mesh runtime's part of the matrix (``resolve_backend``); a
+    'model' axis above 1 raises ``NotImplementedError`` (item 13b)."""
+    from .distributed import MIXINGS, check_mesh
+
+    if cfg.model_cfg is None:
+        raise ValueError("mesh runtime requires model_cfg")
+    if cfg.backend not in MIXINGS:
+        raise ValueError(f"mesh mixing must be one of {MIXINGS}")
+    if cfg.record_mixed:
+        raise ValueError(
+            "record_mixed is not supported on the mesh runtime: "
+            "the mesh train step never returns mixed deltas")
+    if cfg.quant is not None:
+        _check_quant_type(cfg.quant)
+        if cfg.backend not in ("fused", "fused_rs"):
+            raise ValueError(
+                "quantized payloads on the mesh runtime require the "
+                f"one-pass 'fused' or 'fused_rs' schedules, got "
+                f"{cfg.backend!r}")
+    check_mesh(cfg.mesh)
     return cfg.backend
 
 
@@ -291,16 +327,23 @@ class LocalEngine:
     fp32 on the card (``set_fp32_policy``)."""
 
     def __init__(self, loss_fn, cfg: ExecutionConfig, device=None):
+        if cfg.mesh is not None:
+            raise ValueError("LocalEngine does not take a mesh; use "
+                             "MeshEngine (or make_engine)")
         if cfg.stream is not None:
             raise ValueError("LocalEngine is synchronous; use "
                              "StreamEngine (or make_engine) for "
                              "cfg.stream")
         self.cfg = cfg
-        self.loss_fn = loss_fn
         self.backend = resolve_backend(cfg)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_fp32_policy()
+        if loss_fn is None and cfg.model_cfg is not None:
+            # an LM plan: the loss of the configured model on this device
+            from repro_torch.models.model import Model
+            loss_fn = Model(cfg.model_cfg, device=self.device).loss
+        self.loss_fn = loss_fn
         # filled by execute_controlled: the realized RoundPlan artifact
         self.last_realized_plan = None
 
@@ -433,11 +476,77 @@ class LocalEngine:
         return params, history
 
 
+class MeshEngine:
+    """Mesh runtime: ``repro_torch.fl.distributed`` train steps on this
+    rank of ``cfg.mesh`` (its device: the CPU on gloo, the rank's card on
+    NCCL).  ``batches`` entries are per-round token arrays
+    ``(n_clients, T, B_local, S+1)``; every rank executes the same plan
+    and returns the same params and History."""
+
+    def __init__(self, cfg: ExecutionConfig):
+        from .distributed import mesh_device
+
+        if cfg.mesh is None:
+            raise ValueError("MeshEngine requires cfg.mesh")
+        if cfg.stream is not None:
+            raise ValueError("MeshEngine is synchronous; cfg.stream is "
+                             "unsupported on the mesh runtime")
+        self.cfg = cfg
+        self.backend = resolve_backend(cfg)
+        self.device = mesh_device(cfg.mesh)
+
+    def execute(self, plan, params, batches, *, eval_fn=None, eval_every=1,
+                energy_ratio=0.1):
+        from .distributed import (init_rank_quant_state,
+                                  make_scanned_train_steps, make_train_step)
+
+        _check_batches(plan, batches)
+        cfg, K, device = self.cfg, plan.n_rounds, self.device
+        A_seq, tau_seq, m_seq, eta_seq, active_seq = _device_columns(
+            plan, device)
+        history = History(algorithm=plan.algorithm,
+                          ledger=CommLedger(energy_ratio=energy_ratio))
+        params = _to_device(params, device)
+        batches = [_to_device(b, device) for b in batches]
+        quant = cfg.quant if cfg.quant is not None else plan.quant
+        qstate = None
+        if quant is not None:
+            _check_quant_type(quant)
+            qstate = init_rank_quant_state(params, quant, cfg.mesh,
+                                           self.backend)
+
+        if cfg.scan:
+            scanned = make_scanned_train_steps(
+                cfg.model_cfg, cfg.mesh, K, mixing=self.backend,
+                quant=quant)
+            out = scanned(params, torch.stack(batches), A_seq, tau_seq,
+                          m_seq, eta_seq, active_seq=active_seq,
+                          qstate=qstate)
+            params, params_seq = out[0], out[1]
+            for t in range(K):
+                _append_record(
+                    plan, history, t,
+                    lambda tt=t: tree_map(lambda x: x[tt], params_seq),
+                    eval_fn, eval_every)
+            return params, history
+
+        step = make_train_step(cfg.model_cfg, cfg.mesh,
+                               mixing=self.backend, quant=quant)
+        for t in range(K):
+            active = None if active_seq is None else active_seq[t]
+            out = step(params, batches[t], A_seq[t], tau_seq[t], m_seq[t],
+                       eta_seq[t], active=active, qstate=qstate)
+            params, qstate = out if quant is not None else (out, None)
+            _append_record(plan, history, t, lambda p=params: p,
+                           eval_fn, eval_every)
+        return params, history
+
+
 def make_engine(cfg: ExecutionConfig, loss_fn=None, device=None):
     """ExecutionConfig -> the engine that implements it on ``device``:
     ``IngestEngine`` (``stream`` and ``runtime``), ``StreamEngine``
-    (``stream``) or ``LocalEngine``; the mesh engine raises until its
-    slice."""
+    (``stream``), ``MeshEngine`` (``mesh``: the mesh decides its device, and
+    ``device`` is not used) or ``LocalEngine``."""
     if cfg.stream is not None:
         # deferred: both import back into this module
         if cfg.runtime is not None:
@@ -445,4 +554,6 @@ def make_engine(cfg: ExecutionConfig, loss_fn=None, device=None):
             return IngestEngine(loss_fn, cfg, device=device)
         from .stream import StreamEngine
         return StreamEngine(loss_fn, cfg, device=device)
+    if cfg.mesh is not None:
+        return MeshEngine(cfg)
     return LocalEngine(loss_fn, cfg, device=device)

@@ -400,12 +400,18 @@ def _unpack_nibbles(q: torch.Tensor) -> torch.Tensor:
 
 
 def _group_generator(key: Tuple[int, int], group: int,
-                     device: torch.device) -> torch.Generator:
+                     device: torch.device,
+                     client: Optional[int] = None) -> torch.Generator:
     """The stochastic-rounding generator of one group in one round:
-    ``key = (seed, counter)`` and the group index, mixed into one 64-bit
-    seed by numpy's ``SeedSequence`` (module docstring)."""
+    ``key = (seed, counter)`` and the group index -- and, for one
+    client's row quantized alone (the mesh runtime), the client index --
+    mixed into one 64-bit seed by numpy's ``SeedSequence`` (module
+    docstring)."""
     seed, counter = key
-    state = np.random.SeedSequence([int(seed), int(counter), int(group)])
+    words = [int(seed), int(counter), int(group)]
+    if client is not None:
+        words.append(int(client))
+    state = np.random.SeedSequence(words)
     g = torch.Generator(device=device)
     g.manual_seed(int(state.generate_state(1, np.uint64)[0]))
     return g
@@ -467,13 +473,15 @@ def dequantize_group(stored: torch.Tensor, scales: torch.Tensor,
 
 def quantize_packed(bufs: Sequence[torch.Tensor], spec: GroupedPackSpec,
                     residuals: Optional[Sequence[torch.Tensor]] = None,
-                    key: Optional[Tuple[int, int]] = None):
+                    key: Optional[Tuple[int, int]] = None,
+                    client: Optional[int] = None):
     """Quantize every packed group buffer under ``spec.quant``.
 
     ``residuals`` (per-group fp32 ``(n, P_pad_g)``, or None) is the
     error-feedback state: when given, each group quantizes
     ``x + residual``.  ``key = (seed, counter)`` seeds stochastic
-    rounding, one generator per group.  Returns ``(stored, scales,
+    rounding, one generator per group (and per ``client`` when one
+    client's row is quantized alone).  Returns ``(stored, scales,
     new_residuals)`` with ``new_residuals[g] = (x_g + r_g) -
     dequant(stored_g)`` -- the exact fp32 round-trip error, always
     computed so the caller decides whether to carry it."""
@@ -487,7 +495,7 @@ def quantize_packed(bufs: Sequence[torch.Tensor], spec: GroupedPackSpec,
         if residuals is not None:
             x = x + residuals[i]
         gen = (None if key is None
-               else _group_generator(key, i, x.device))
+               else _group_generator(key, i, x.device, client))
         s, sc = quantize_group(x, quant, gen)
         stored.append(s)
         scales.append(sc)

@@ -17,7 +17,9 @@ padding of S to block multiples (the kernel masks a ragged S), no
 
 The kernel is forward-only, as the Pallas one is (it has no
 ``custom_vjp``), so a backward pass through ``flash_attention`` raises
-instead of differentiating the plain version.
+instead of differentiating the plain version, and a call inside a
+``torch.func`` transform raises at once: training attends with ``ref``
+or ``chunked``.
 """
 
 from __future__ import annotations
@@ -47,14 +49,22 @@ class _FlashForward(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "flash_attention is forward-only, as the reference's Pallas "
-            "kernel is: train with attn_impl='ref' or 'chunked' (LM "
-            "training is ROADMAP queue 1 item 12(e))")
+        raise NotImplementedError(_FORWARD_ONLY)
+
+
+_FORWARD_ONLY = ("flash_attention is forward-only, as the reference's "
+                 "Pallas kernel is: training attends with attn_impl='ref' "
+                 "or 'chunked', as the reference's does")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
-    """q (B,S,Hq,hd), k/v (B,S,Hkv,hd) -> (B,S,Hq,hd), contiguous."""
+    """q (B,S,Hq,hd), k/v (B,S,Hkv,hd) -> (B,S,Hq,hd), contiguous.
+    Refused inside a ``torch.func`` transform (``grad`` / ``vmap``, the
+    federated training path)."""
+    from torch._C._functorch import get_interpreter_stack
+
+    if get_interpreter_stack():
+        raise NotImplementedError(_FORWARD_ONLY)
     return _FlashForward.apply(q, k, v, causal, window)

@@ -22,6 +22,7 @@ import torch
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from .config import ModelConfig
 from .layers import apply_rope, dense_init, rms_norm, rope_angles
+from .remat import remat
 
 PyTree = Any
 
@@ -120,7 +121,14 @@ def _chunked_sdpa(q, k, v, window: Optional[int], cfg: ModelConfig):
         if window is not None:
             ok = ok & ((i - j) < window)
         mask = torch.where(ok, 0.0, NEG_INF)
-        outs.append(_attend(qg[:, :, :, i0:i0 + C], k, v, mask, q.dtype))
+        args = (qg[:, :, :, i0:i0 + C], k, v, mask)
+        if cfg.remat:
+            # recomputed in the backward pass: one chunk's fp32 scores
+            # and their grads live at a time (models/remat.py)
+            out, = remat(lambda _, *a: (_attend(*a, q.dtype),), (), *args)
+        else:
+            out = _attend(*args, q.dtype)
+        outs.append(out)
     return torch.cat(outs, dim=1)
 
 

@@ -9,7 +9,10 @@ Layer parameters are *stacked* (a leading ``n_layers`` axis on every
 leaf, the reference's tree), so parameter trees carry across from the
 JAX package unchanged (``models.convert.params_from_numpy``).  The
 reference's ``jax.lax.scan`` over layers is a Python loop over views of
-the stacked leaves; ``remat`` has no meaning without a backward pass.
+the stacked leaves.  ``cfg.remat`` checkpoints each stacked layer's body
+(zamba2: each group's body), as the reference's ``jax.checkpoint`` does
+(``models.remat``: only a body's inputs are kept, and the body is
+recomputed in the backward pass).
 Heterogeneous pieces sit outside the stack, as in the reference:
 DeepSeek's leading dense layer(s) (``dense_layers``, a list of per-layer
 trees with caches of their own) and zamba2's shared block (``shared``,
@@ -40,6 +43,7 @@ from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import mlp_apply, mlp_init, norm
+from .remat import remat
 
 PyTree = Any
 
@@ -108,6 +112,16 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> PyTree:
 
 def _layer(tree: PyTree, i: int) -> PyTree:
     return tree_map(lambda a: a[i], tree)
+
+
+def _unstacked(tree: PyTree):
+    """The per-layer trees of stacked leaves, by ``torch.unbind``: its
+    backward stacks the layers' grads once, where indexing layer by layer
+    would give each layer's grad a zero-filled copy of the whole stack (a
+    full stacked leaf per layer and leaf under ``grad``)."""
+    leaves, treedef = tree_flatten(tree)
+    cols = [torch.unbind(a, 0) for a in leaves]
+    return [tree_unflatten(treedef, list(layer)) for layer in zip(*cols)]
 
 
 def hybrid_groups(cfg: ModelConfig) -> Tuple[int, int]:
@@ -200,29 +214,53 @@ def _stack_entries(entries) -> PyTree:
 def stack_forward(cfg: ModelConfig, params: PyTree, x: torch.Tensor,
                   positions: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """With ``cfg.remat`` each stacked layer's body (zamba2: each group's
+    Mamba blocks and its shared block) is rematerialised (``remat``), as
+    the reference checkpoints its scan bodies; the leading dense layers
+    are not, as there."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = params["layers"]
+
+    def run(body, p, *xs):
+        return remat(body, p, *xs) if cfg.remat else body(p, *xs)
+
     if cfg.family == "ssm":
-        for i in range(cfg.n_layers):
-            x = _mamba_block_forward(cfg, _layer(layers, i), x)
+        def mamba(p, h):
+            return (_mamba_block_forward(cfg, p, h),)
+
+        for lp in _unstacked(layers):
+            x, = run(mamba, lp, x)
         return x, aux
 
     if cfg.family == "hybrid":
         n_groups, every = hybrid_groups(cfg)
+        per_layer = _unstacked(layers)
+
+        def group(p, h, pos):
+            for lp in p["mamba"]:
+                h = _mamba_block_forward(cfg, lp, h)
+            return (_tf_block_forward(cfg, p["shared"], h, pos)[0],)
+
         for g in range(n_groups):
-            for i in range(g * every, (g + 1) * every):
-                x = _mamba_block_forward(cfg, _layer(layers, i), x)
-            x, _ = _tf_block_forward(cfg, params["shared"], x, positions)
+            gp = {"mamba": per_layer[g * every:(g + 1) * every],
+                  "shared": params["shared"]}
+            x, = run(group, gp, x, positions)
         return x, aux
 
     # transformer families (dense / moe / audio / vlm); the aux loss sums
     # over the stacked layers, as the reference's scan carry does
     for dp in params.get("dense_layers", []):
         x, _ = _tf_block_forward(cfg, dp, x, positions)
-    for i in range(cfg.n_layers - cfg.first_dense_layers):
-        x, a = _tf_block_forward(cfg, _layer(layers, i), x, positions)
-        if a is not None:
-            aux = aux + a
+
+    def layer(p, h, pos):
+        h, a = _tf_block_forward(cfg, p, h, pos)
+        return (h,) if a is None else (h, a)
+
+    for lp in _unstacked(layers):
+        out = run(layer, lp, x, positions)
+        x = out[0]
+        if len(out) > 1:
+            aux = aux + out[1]
     return x, aux
 
 

@@ -16,9 +16,11 @@ learned projector and occupy the first ``frontend_len`` positions.
 A model runs on ``cuda`` unless built with ``device='cpu'``.  On the card
 it sets the port's fp32 policy (``fl.engine.set_fp32_policy``): no TF32,
 and bf16 matmuls reduce in fp32, as the reference accumulates them.
-Training through the flash kernel is not a path (the kernel is
-forward-only; LM training is ROADMAP queue 1 item 12(e)); ``loss``
-returns the value, with ``router_aux_weight`` times the MoE aux loss.
+``loss`` returns the value, with ``router_aux_weight`` times the MoE aux
+loss; its gradient (``torch.func.grad``, batched over clients by
+``vmap`` in ``core.rounds``) is how the LMs train.  Training attends
+with ``ref`` or ``chunked``: the flash kernel is forward-only, as the
+reference's Pallas kernel is.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from . import mla as mla_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import lecun_normal, norm
+from .remat import remat
 
 PyTree = Any
 
@@ -131,16 +134,23 @@ class Model:
             return nll + cfg.router_aux_weight * aux
 
         # seq-chunked head+loss: the fp32 logits exist only (B, C, V) at a
-        # time, never (B, S, V)
+        # time, never (B, S, V); with cfg.remat each chunk is recomputed
+        # in the backward pass too, so no chunk's logits are kept for it
         x = self._embed_inputs(params, tokens, prefix)
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux = blocks.stack_forward(cfg, params["decoder"], x, positions)
         x = norm(x[:, P:], params["final_norm"], cfg.norm_type, cfg.norm_eps)
         head = self._head(params)
+
+        def chunk_nll(h, xc, tc):
+            return (nll_of((xc @ h).float(), tc),)
+
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i0 in range(0, S, C):
-            logits = (x[:, i0:i0 + C] @ head).float()
-            total = total + nll_of(logits, targets[:, i0:i0 + C])
+            args = (head, x[:, i0:i0 + C], targets[:, i0:i0 + C])
+            nll, = (remat(chunk_nll, *args) if cfg.remat
+                    else chunk_nll(*args))
+            total = total + nll
         return total / targets.numel() + cfg.router_aux_weight * aux
 
     # ----------------------------------------------------------------- cache

@@ -12,12 +12,16 @@ Two compute paths with the reference's semantics:
   routing weights.
 
 The reference's ``jax.lax.ragged_dot`` is a library GEMM, not a Pallas
-kernel; ``expert_matmul`` picks one of two library routes by a fixed rule
-on dtype and device (``expert_route``): ``grouped_mm``
+kernel; ``expert_matmul`` picks one of two library routes by a fixed
+rule on dtype and device (``expert_route``): ``grouped_mm``
 (``torch.nn.functional.grouped_mm``, one launch over all experts with
 device-side offsets) for bf16 on the card, else ``loop`` (one
 ``torch.matmul`` per non-empty expert over its rows).  Both count their
-launches in ``expert_matmul.routes``.
+launches in ``expert_matmul.routes``.  Inside ``torch.func.vmap``
+(federated training batches the clients) neither can run --
+``grouped_mm`` has no batching rule and the loop's row counts are
+data-dependent shapes -- so there ``moe_apply`` takes the dense oracle
+whatever ``moe_impl`` says.
 
 The combine does not scatter-add: the weighted expert rows are un-sorted
 back to (T, k, d) and summed over the k slots in slot order, one add at a
@@ -91,18 +95,33 @@ def _route(cfg: ModelConfig, p: PyTree, xf: torch.Tensor):
 
 
 def _counts(ids: torch.Tensor, E: int) -> torch.Tensor:
-    """Slots routed to each expert, int64 (E,).  A scatter-add of ones:
-    integer sums in any order are exact, and unlike ``bincount`` or
-    ``one_hot`` on the card it does not sync the host."""
+    """Slots routed to each expert, int64 (E,).  An out-of-place
+    scatter-add of ones (``vmap`` batches it; the in-place form cannot
+    take a batched index into an unbatched buffer): integer sums in any
+    order are exact, and unlike ``bincount`` or ``one_hot`` on the card
+    it does not sync the host."""
     flat = ids.reshape(-1)
     return torch.zeros(E, dtype=torch.int64, device=ids.device) \
-        .scatter_add_(0, flat, torch.ones_like(flat))
+        .scatter_add(0, flat, torch.ones_like(flat))
+
+
+def _under_vmap() -> bool:
+    """True inside a ``torch.func.vmap`` (at any nesting depth), read
+    from functorch's interpreter stack: ``torch.func`` has no public
+    query for it."""
+    from torch._C._functorch import TransformType, get_interpreter_stack
+
+    return any(i.key() == TransformType.Vmap
+               for i in get_interpreter_stack() or ())
 
 
 def expert_route(dtype: torch.dtype, device: torch.device) -> str:
     """The grouped GEMM's route, fixed by dtype and device:
     ``grouped_mm`` for bf16 on the card (the library's grouped kernel
-    takes bf16 only), ``loop`` otherwise."""
+    takes bf16 only), ``loop`` otherwise.  A batched input (inside
+    ``torch.func.vmap``) takes neither: ``moe_apply`` sends it to the
+    dense oracle, since ``grouped_mm`` has no batching rule and the
+    loop's row counts are data-dependent shapes."""
     if device.type == "cuda" and dtype == torch.bfloat16:
         return "grouped_mm"
     return "loop"
@@ -178,7 +197,10 @@ def _moe_dense(cfg: ModelConfig, p: PyTree, xf: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     E = cfg.n_experts
     w, ids, aux = _route(cfg, p, xf)
-    onehot = F.one_hot(ids, E).to(xf.dtype)              # (T, k, E)
+    # the one-hot by comparison: ``F.one_hot`` checks its ids on the
+    # host, which ``vmap`` cannot batch
+    onehot = (ids[..., None] == torch.arange(E, device=ids.device)) \
+        .to(xf.dtype)                                    # (T, k, E)
     combine = torch.einsum("tk,tke->te", w, onehot)      # (T, E)
     ys = torch.stack([(F.silu(xf @ p["gate"][e]) * (xf @ p["up"][e]))
                       @ p["down"][e] for e in range(E)])  # (E, T, d)
@@ -187,10 +209,12 @@ def _moe_dense(cfg: ModelConfig, p: PyTree, xf: torch.Tensor
 
 def moe_apply(cfg: ModelConfig, p: PyTree, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (y (B, S, d), aux_loss fp32 scalar)."""
+    """x (B, S, d) -> (y (B, S, d), aux_loss fp32 scalar).  The ragged
+    path unless ``cfg.moe_impl`` is 'dense' or this runs inside
+    ``torch.func.vmap`` (``expert_route``)."""
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
-    if cfg.moe_impl == "ragged":
+    if cfg.moe_impl == "ragged" and not _under_vmap():
         out, aux = _moe_ragged(cfg, p, xf)
     else:
         out, aux = _moe_dense(cfg, p, xf)

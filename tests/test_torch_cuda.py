@@ -1132,3 +1132,46 @@ def test_moe_top6_bf16_layer_is_bitwise_reproducible_on_the_card(cuda):
     y2, a2 = moe.moe_apply(cfg, p, x)
     assert torch.equal(y1, y2) and torch.equal(a1, a2)
     assert bool(torch.isfinite(y1.float()).all())
+
+
+def test_lm_rounds_on_the_card(cuda):
+    """A reduced bf16 stablelm trained one round through 'aggregate' (the
+    'fused' upgrade) launches the kernel once (one dtype group) and
+    agrees with 'einsum' within two bf16 ulps of the value or of its
+    leaf's RMS, whichever is larger (einsum rounds the mixed deltas to
+    bf16, the kernel never does, and the add to the params can cancel);
+    remat on and off give the same bits."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.core.rounds import make_round_fn
+    from repro_torch.kernels.mixing import fused
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config("stablelm-1.6b", reduced=True),
+                              dtype="bfloat16", remat=True,
+                              attn_impl="chunked", attn_chunk=8,
+                              loss_chunk=8)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 2, 2, 17), generator=g)
+    batch = (toks[..., :-1].to(cuda), toks[..., 1:].to(cuda))
+    A = torch.full((4, 4), 0.25, device=cuda)
+    args = (A, torch.tensor([1., 0., 1., 1.], device=cuda),
+            torch.tensor(3., device=cuda), torch.tensor(0.05, device=cuda))
+    outs = {}
+    for remat in (True, False):
+        m = Model(dataclasses.replace(cfg, remat=remat))
+        p = m.init(torch.Generator(device=cuda).manual_seed(0))
+        outs[remat] = make_round_fn(m.loss, "aggregate")(p, batch, *args)[0]
+    ref = make_round_fn(m.loss, "einsum")(p, batch, *args)[0]
+    before = fused.aggregate_cuda.launches
+    got = make_round_fn(m.loss, "aggregate")(p, batch, *args)[0]
+    assert fused.aggregate_cuda.launches == before + 1
+    for a, b, c in zip(tree_leaves(got), tree_leaves(ref),
+                       tree_leaves(outs[True])):
+        a32, b32 = a.float(), b.float()
+        scale = torch.maximum(b32.abs(), b32.square().mean().sqrt())
+        assert bool(((a32 - b32).abs() <= 2 ** -7 * scale).all())
+        assert torch.equal(a, c)
+    for a, b in zip(tree_leaves(outs[True]), tree_leaves(outs[False])):
+        assert torch.equal(a, b)

@@ -6,6 +6,7 @@ plans, and the pending knobs and invalid configs raise.
 import ast
 import json
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -79,7 +80,10 @@ def test_cuda_engine_sets_the_fp32_policy(monkeypatch, device, fp32):
     (ExecutionConfig(backend="pallas", record_mixed=True, quant=QuantSpec()),
      ValueError),
     (ExecutionConfig(backend="sparse", quant="int8"), ValueError),
-    (ExecutionConfig(mesh=object()), NotImplementedError),
+    # the mesh runtime's pending half: a 'model' axis above 1 (item 13b)
+    (ExecutionConfig(mesh=SimpleNamespace(
+        shape=(1, 2, 2), mesh_dim_names=("pod", "data", "model")),
+        model_cfg=object()), NotImplementedError),
     (ExecutionConfig(stream=StreamConfig(), scan=True), ValueError),
     (ExecutionConfig(backend="aggregate", record_mixed=True), ValueError),
     (ExecutionConfig(backend="nope"), ValueError),
