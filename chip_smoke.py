@@ -234,11 +234,32 @@ Phases (each raises on failure; nothing is caught):
               round function at n = 1 (the change from init within
               CHANGE_REL[0]); 'fused' launches
               aggregate once a round.
+   tp      -- tensor parallelism inside a client (``models/sharding.py``):
+              two ranks spawned on the card (gloo, which takes CUDA
+              tensors for all_reduce / broadcast; NCCL refuses two ranks
+              on one device), mesh (1, 1, 2).  (a) The same model and
+              inputs as [mesh] on 'fused' and 'ring', a rank's launches
+              counted from 0 ('fused': aggregate once a round on its
+              shard), scanned == sequential bitwise, the gathered
+              params' change from init after every round within
+              TP_CHANGE_REL of LocalEngine's round function's; fp32 pins
+              at 2 layers against the one-rank round (rtol 2e-4 / atol
+              2e-5).  (b) qwen2-7b bf16 at full size served through the
+              mesh prefill / decode steps (2 x 2,048 prompt, 16 decode
+              steps; 14 q / 2 kv heads a rank, every flash launch on the
+              tensor-core route, and the kernel held against its plain
+              version on each rank's own layer-0 q / k / v), max|dlogits| and
+              top-1 agreement against the one-device path, then fp32 at
+              4 layers within 2e-4 of it.  GB a rank, ms a round,
+              prefill ms, decode ms a step.  ``phase_tp`` takes the mesh
+              shapes and the backend (four cards: NCCL at (2, 1, 2) with
+              zero on 'ring', qwen3-32b at (1, 1, 4)).
 6. report  -- a ``{"kernels": [...]}`` JSON line (nine kernels; the
               six routed ones with the ``routes`` of their main-path
               launches; the launches are those of [train], [control],
-              the quickstart, [stream], [ingest], [lmtrain] and [mesh],
-              flash's those of [lm] and [zoo]; aggregate's and
+              the quickstart, [stream], [ingest], [lmtrain], [mesh] and
+              [tp] (every rank's), flash's those of [lm], [zoo] and
+              [tp]; aggregate's and
               mix_aggregate's rows also carry ``lm_payload``, their
               numbers at [lmtrain]'s payload), the card's name and power
               limit (nvidia-smi), and the final ``{"ok": true,
@@ -2298,7 +2319,8 @@ LM_ARCH, LM_BATCH, LM_SEQ, LM_NEW = "qwen2-7b", 2, 2048, 16
 def phase_flash(seed: int):
     """The flash-attention kernel against its plain version
     (``flash_attention_ref``): bf16 (the tensor-core route) at qwen2-7b's
-    and phi3.5-moe's prefill shapes in the model's layout (strided
+    and phi3.5-moe's prefill shapes, and at a [tp] rank's heads (qwen2-7b
+    14 / 2, qwen3-32b 16 / 2), in the model's layout (strided
     (B, H, S, hd) views of (B, S, H, hd) tensors) and contiguous, at head
     dims 32 / 64 / 128, S under one tile and ragged, GQA groups
     1 / 3 / 4 / 7 / 8, windows 1 / 16 /
@@ -2374,6 +2396,11 @@ def phase_flash(seed: int):
         # head dims the kernels run zero-padded: zamba2's 80 (-> 128)
         ("phi3.5-moe prefill, model layout", LM_BATCH, 32, 8, LM_SEQ, None,
          128, bf, True, None, None, "bshd"),
+        # a rank's heads under [tp]: qwen2-7b at m = 2, qwen3-32b at m = 4
+        ("qwen2-7b prefill, a rank's heads at m = 2", LM_BATCH, 14, 2,
+         LM_SEQ, None, 128, bf, True, None, None, "bshd"),
+        ("qwen3-32b prefill, a rank's heads at m = 4", LM_BATCH, 16, 2,
+         LM_SEQ, None, 128, bf, True, None, None, "bshd"),
         ("zamba2-2.7b shared block, hd 80", LM_BATCH, 32, 32, LM_SEQ, None,
          80, bf, True, None, None, "bshd"),
         ("hd 80, group 4, window 100", 1, 8, 2, 777, None, 80, bf, True, 100,
@@ -3534,6 +3561,519 @@ def phase_mesh(seed: int, counters) -> int:
     return fused_launches
 
 
+# -- phase 5c: tensor parallelism inside a client ------------------------------
+
+# The default run: two ranks on the one card (gloo takes CUDA tensors for
+# all_reduce / broadcast; NCCL refuses two ranks on one device), mesh (1,
+# 1, 2).  (a) stablelm-1.6b as [mesh] trains it, on 'fused' and 'ring';
+# (b) qwen2-7b served whole through the mesh prefill / decode steps at m =
+# 2: 28 q / 4 kv heads, 14 / 2 a rank, flash on the tensor-core route.
+TP_SHAPE, TP_BACKEND, TP_MIXINGS = (1, 1, 2), "gloo", ("fused", "ring")
+TP_SERVE_ARCH, TP_SERVE_LAYERS, TP_SERVE_TOL = "qwen2-7b", 4, 2e-4
+# flash on a rank's own layer-0 q / k / v against its plain version, bf16
+# ([flash]'s tolerance)
+TP_FLASH_TOL = 2e-2
+# a collective that waits this long has lost a rank
+TP_TIMEOUT_S = 300
+# The bf16 run is held to LocalEngine's by the change from init after
+# every round.  A tensor-parallel layer's all_reduce rounds the ranks' bf16
+# partial sums once more than one GEMM does (as the reference's GSPMD
+# does), from the first step on, and bf16 local SGD amplifies that, so
+# CHANGE_REL[0] ([mesh]'s gate for a run bitwise LocalEngine's in local
+# SGD) cannot hold.  The gate lies between a sound run's readings and those
+# of a run whose D2S add is scaled by 0.75, on an H100 at mesh (1, 1, 2):
+# 0.151 / 0.155 and 0.285 / 0.293 after rounds 0 / 1 (0.215 after round 1
+# at (2, 1, 2) on four cards).
+TP_CHANGE_REL = 0.25
+
+
+def layered_params(cfg, seed: int, place=None):
+    """Random weights for ``cfg`` drawn on the card a layer at a time (the
+    embeddings, head and layer 0 from generator ``seed``, layer i from
+    ``seed + i``), each tree kept whole or passed through ``place`` (a
+    tree -> this rank's shards) as it is drawn: beside what is kept, one
+    whole layer is alive at a time (qwen3-32b's 65.5 GB never are)."""
+    import dataclasses
+    import torch
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.models import blocks
+    from repro_torch.models.model import Model
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    one = dataclasses.replace(cfg, n_layers=1)
+    keep = place or (lambda tree: tree)
+    top = keep(Model(one, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed)))
+    layers = [top["decoder"]["layers"]]
+    for i in range(1, cfg.n_layers):
+        d = blocks.stack_init(torch.Generator(device=dev).manual_seed(seed + i),
+                              one, top["final_norm"].dtype)
+        layers.append(keep({"decoder": d})["decoder"]["layers"])
+    top["decoder"]["layers"] = tree_map(lambda *xs: torch.cat(xs), *layers)
+    return top
+
+
+def _placer(cfg, mesh):
+    """A tree -> this rank's shards of it (``sharding.placement_specs``),
+    for any subtree of the model's params."""
+    from repro_torch.core.pytree import tree_flatten, tree_unflatten
+    from repro_torch.models import sharding
+
+    m = int(mesh.shape[mesh.mesh_dim_names.index("model")])
+    r = int(mesh.get_local_rank("model"))
+
+    def place(tree):
+        leaves, treedef = tree_flatten(tree)
+        specs = sharding.spec_leaves(sharding.placement_specs(tree, cfg, m))
+        return tree_unflatten(treedef, [sharding.local_shard(x, s, r, m)
+                                        for x, s in zip(leaves, specs)])
+    return place
+
+
+def _tp_rank(rank, tmp, shape, backend, zero, serve_arch, serve_shape, seed):
+    """One rank of ``phase_tp`` (a spawned process): (a) and (b) on its
+    shards, its numbers to ``tmp/rank{rank}.json``.  Rank 0 also runs
+    LocalEngine's round function on the whole params and holds the
+    gathered params' change from init to it (``_change_stats``), so no
+    params leave the card."""
+    import faulthandler
+    from datetime import timedelta
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.pytree import tree_leaves, tree_map
+    from repro_torch.core.rounds import make_round_fn
+    from repro_torch.fl import distributed as D
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import Model
+
+    # a rank stuck outside a collective (which times out by itself)
+    # prints where it is
+    faulthandler.dump_traceback_later(2 * TP_TIMEOUT_S)
+    world = 1
+    for k in shape:
+        world *= k
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=TP_TIMEOUT_S),
+                            **({"device_id": dev} if backend == "nccl"
+                               else {}))
+    try:
+        counters = kernel_counters()
+        out = {"rank": rank, "device": str(dev)}
+        mesh = make_debug_mesh(shape)
+        inp = torch.load(Path(tmp) / "train.pt")
+        toks, A, tau, m, eta = (inp[k].to(dev) for k in
+                                ("toks", "A", "tau", "m", "eta"))
+        cfg = lm_train_config()
+        model = Model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed + 2))
+        if rank == 0:
+            local_round = make_round_fn(model.loss, "einsum")
+            refs, ref = [], params
+            for t in range(LMT_ROUNDS):
+                ref, _ = local_round(ref, (toks[t][..., :-1],
+                                           toks[t][..., 1:]),
+                                     A[t], tau[t], m[t], eta[t])
+                refs.append(ref)
+            del local_round, ref
+            torch.cuda.empty_cache()
+        for mixing in TP_MIXINGS:
+            z = zero and mixing == "ring"
+            local = D.shard_params(params, cfg, mesh, zero=z)
+            if mixing == TP_MIXINGS[-1] and rank:
+                del params
+            step = D.make_train_step(cfg, mesh, mixing=mixing, zero=z)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            reset_counters(counters)
+            t0 = time.perf_counter()
+            p = local
+            for t in range(LMT_ROUNDS):
+                p = step(p, toks[t], A[t], tau[t], m[t], eta[t])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / LMT_ROUNDS
+            counts = {k: f.launches for k, f in counters.items()
+                      if f.launches}
+            want = {"aggregate": LMT_ROUNDS} if mixing == "fused" else {}
+            if counts != want:
+                raise AssertionError(f"[tp] rank {rank} {mixing}: launches "
+                                     f"{counts}, not {want}")
+            final, seq = D.make_scanned_train_steps(
+                cfg, mesh, LMT_ROUNDS, mixing=mixing, zero=z)(
+                    local, toks, A, tau, m, eta)
+            _bitwise(f"[tp] rank {rank} {mixing} scanned vs sequential",
+                     final, p)
+            out[mixing] = dict(
+                ms=ms, counts=counts,
+                local_gb=sum(x.numel() * x.element_size()
+                             for x in tree_leaves(p)) / 1e9,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            # the change from init after each round (row t of the scanned
+            # run, bitwise the sequential one), read and printed by rank 0
+            # as it comes, so a run that fails later still shows it
+            for t in range(LMT_ROUNDS):
+                whole = D.gather_params(tree_map(lambda x: x[t], seq), cfg,
+                                        mesh, zero=z)
+                if rank == 0:
+                    r = _change_stats(whole, refs[t], params, dev)
+                    out[f"change/{mixing}/r{t}"] = r
+                    print(f"[tp]   {mixing}{' zero' if z else ''} after "
+                          f"round {t}: LocalEngine (n = {world // shape[-1]})"
+                          f" moved {r['moved']:.3%} of values from init; "
+                          f"the change off by ||d - d_local|| / ||d_local||"
+                          f" {r['rel']:.4e} (gate {TP_CHANGE_REL}), "
+                          f"{r['differ']:.4%} of values differ", flush=True)
+                del whole
+            del local, p, final, seq
+            torch.cuda.empty_cache()
+
+        if rank == 0:
+            del params, refs
+        torch.cuda.empty_cache()
+
+        # fp32 pins: one round on each schedule against the one-rank
+        # round function (LocalEngine's) on the whole params
+        cfg32 = lm_train_config(n_layers=LMT_PIN_LAYERS, dtype="float32")
+        m32 = Model(cfg32)
+        p32 = m32.init(torch.Generator(device=dev).manual_seed(seed + 3))
+        x32 = inp["toks32"].to(dev)
+        want = make_round_fn(m32.loss, "einsum")(
+            p32, (x32[..., :-1], x32[..., 1:]), A[0], tau[0], m[0],
+            eta[0])[0]
+        for mixing in TP_MIXINGS:
+            z = zero and mixing == "ring"
+            got = D.gather_params(D.make_train_step(
+                cfg32, mesh, mixing=mixing, zero=z)(
+                    D.shard_params(p32, cfg32, mesh, zero=z), x32, A[0],
+                    tau[0], m[0], eta[0]), cfg32, mesh, zero=z)
+            out[f"pin32/{mixing}"] = _leaves_close(
+                f"[tp] rank {rank} fp32 {mixing} vs the one-rank round",
+                got, want, ORACLE_F32)
+            del got
+        del p32, want, m32
+        torch.cuda.empty_cache()
+
+        # (b) serving through the mesh steps; the whole batch on every
+        # client of serve_shape (no batch axis)
+        out["serve"] = _tp_serve(rank, serve_arch, serve_shape, seed,
+                                 counters)
+        with open(Path(tmp) / f"rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        dist.destroy_process_group()
+
+
+def _first_flash_call(fn):
+    """``fn()`` with ``ops.flash_attention`` wrapped to keep its first
+    call's arguments: (q, k, v, options), the model's (B, S, H, hd)
+    tensors."""
+    from repro_torch.kernels.flash_attention import ops
+
+    seen, plain = [], ops.flash_attention
+
+    def keep(q, k, v, **kw):
+        if not seen:
+            seen.append((q, k, v, kw))
+        return plain(q, k, v, **kw)
+
+    ops.flash_attention = keep
+    try:
+        fn()
+    finally:
+        ops.flash_attention = plain
+    if not seen:
+        raise AssertionError("[tp] the serve steps never called flash")
+    return seen[0]
+
+
+def _flash_on_rank(q, k, v, kw) -> dict:
+    """The flash kernel against ``flash_attention_ref`` on one rank's own
+    attention inputs (its heads, in the model's strided layout, as
+    ``ops.flash_attention`` hands them over), bf16 at TP_FLASH_TOL, on the
+    tensor-core route.  Every rank of the group learns whether any
+    disagreed (an all-reduce), so all fail together."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))     # (B, H, S, hd)
+    before = dict(fa.flash_attention_cuda.routes)
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    route = [r for r in before
+             if fa.flash_attention_cuda.routes[r] != before[r]]
+    want = flash_attention_ref(q, k, v, **kw)
+    err = float((got.float() - want.float()).abs().max())
+    ok = route == ["tensor_cores"] and torch.allclose(
+        got.float(), want.float(), rtol=TP_FLASH_TOL, atol=TP_FLASH_TOL)
+    bad = torch.tensor([0.0 if ok else 1.0], device=q.device)
+    dist.all_reduce(bad, op=dist.ReduceOp.MAX)
+    res = dict(shape=[q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                      q.shape[3]], dtype=str(q.dtype), route=route,
+               max_abs_err=err)
+    if bad.item():
+        raise AssertionError(f"[tp] flash on a rank's own q / k / v "
+                             f"disagrees with flash_attention_ref or took "
+                             f"another route (this rank: {res})")
+    return res
+
+
+def _tp_serve(rank, arch, shape, seed, counters):
+    """(b) of ``phase_tp`` on one rank: ``arch`` in bf16 at full width
+    and depth on mesh ``shape`` through ``make_prefill_step`` /
+    ``make_decode_step``, LM_BATCH x LM_SEQ prompt tokens and LM_NEW
+    greedy decode steps, launches counted from 0; the flash kernel held
+    against its plain version on the rank's own layer-0 q / k / v (from
+    the warm-up, ``_flash_on_rank``); against the one-device
+    ``Model.prefill`` / ``decode`` on the same weights where the whole
+    model fits beside the shards; then the fp32 gate at TP_SERVE_LAYERS
+    layers."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.fl import distributed as D
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import Model
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_debug_mesh(shape)
+    cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
+    B, S, new = LM_BATCH, LM_SEQ, LM_NEW
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device=dev)
+    out = {}
+
+    def run(c, local, n_new):
+        prefill = D.make_prefill_step(c, mesh, (), S + n_new)
+        decode = D.make_decode_step(c, mesh, ())
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        logits, cache = prefill(local, tokens)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        steps = [logits]
+        t0 = time.perf_counter()
+        for i in range(n_new - 1):
+            lg, cache = decode(local, cache, steps[-1].argmax(-1), S + i)
+            steps.append(lg)
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) * 1e3 / max(n_new - 1, 1)
+        return torch.stack(steps, 1), pre_ms, dec_ms
+
+    place = _placer(cfg, mesh)
+    local = layered_params(cfg, seed + 10, place)
+    # warm-up; its first flash call's q / k / v are the rank's layer 0
+    q, k, v, kw = _first_flash_call(lambda: run(cfg, local, 2))
+    out["flash"] = _flash_on_rank(q, k, v, kw)
+    del q, k, v
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(counters)
+    logits, pre_ms, dec_ms = run(cfg, local, new)
+    counts = {k: f.launches for k, f in counters.items() if f.launches}
+    routes = dict(fa.flash_attention_cuda.routes)
+    if counts != {"flash_attention": cfg.n_layers} or \
+            routes != {"cuda_cores": 0, "tensor_cores": cfg.n_layers}:
+        raise AssertionError(f"[tp] rank {rank} serve: launches {counts}, "
+                             f"routes {routes}, not {cfg.n_layers} "
+                             "flash_attention on the tensor-core route")
+    if logits.shape != (B, new, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[tp] rank {rank}: the served logits are not "
+                             "finite full-vocab rows")
+    out.update(prefill_ms=pre_ms, decode_ms=dec_ms, counts=counts,
+               routes=routes, heads=(
+                   local["decoder"]["layers"]["attn"]["q"]["w"].shape[-1]
+                   // cfg.resolved_head_dim,
+                   local["decoder"]["layers"]["attn"]["k"]["w"].shape[-1]
+                   // cfg.resolved_head_dim),
+               local_gb=sum(x.numel() * x.element_size()
+                            for x in tree_leaves(local)) / 1e9,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    whole_gb = out["local_gb"] * int(shape[-1])
+    del local
+    torch.cuda.empty_cache()
+    if rank == 0 and whole_gb < 30:
+        # the one-device path on the same weights, fed the same tokens
+        model = Model(cfg)
+        whole = layered_params(cfg, seed + 10)
+        with torch.no_grad():
+            lg, cache = model.prefill(whole, tokens, max_len=S + new)
+            ref = [lg]
+            for i in range(new - 1):
+                lg, cache = model.decode(whole, cache,
+                                         logits[:, i].argmax(-1), S + i)
+                ref.append(lg)
+        ref = torch.stack(ref, 1)
+        out["vs_one_device"] = dict(
+            max_abs=float((logits - ref).abs().max()),
+            top1=float((logits.argmax(-1) == ref.argmax(-1)).float().mean()))
+        del whole, cache, ref, lg
+        torch.cuda.empty_cache()
+    del logits
+
+    small = dataclasses.replace(cfg, n_layers=TP_SERVE_LAYERS,
+                                dtype="float32")
+    local = layered_params(small, seed + 20, _placer(small, mesh))
+    got, _, _ = run(small, local, 2)
+    del local
+    if rank == 0:
+        model = Model(small)
+        whole = layered_params(small, seed + 20)
+        with torch.no_grad():
+            lg, cache = model.prefill(whole, tokens, max_len=S + 2)
+            dec, _ = model.decode(whole, cache, got[:, 0].argmax(-1), S)
+        want = torch.stack([lg, dec], 1)
+        d = float((got - want).abs().max())
+        out["fp32_gate"] = d
+        if not torch.allclose(got, want, rtol=TP_SERVE_TOL,
+                              atol=TP_SERVE_TOL):
+            raise AssertionError(
+                f"[tp] fp32 serve at {TP_SERVE_LAYERS} layers: max|d| "
+                f"{d:.3e} against the one-device prefill / decode, beyond "
+                f"{TP_SERVE_TOL}")
+        del whole, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp(seed: int, shape=TP_SHAPE, backend=TP_BACKEND,
+             zero: bool = False, serve_arch: str = TP_SERVE_ARCH,
+             serve_shape=None) -> dict:
+    """Tensor parallelism inside a client (``models/sharding.py``, the
+    'model' axis of ``fl/distributed.py``): ``prod(shape)`` ranks spawned
+    on the cards (rank r on card r % count; two on one card take gloo),
+    mesh ``shape``.  (a) stablelm-1.6b bf16 at full width and depth as
+    [mesh] trains it (MESH_S tokens a step, LMT_T steps, LMT_ROUNDS
+    rounds) on each of TP_MIXINGS ('ring' with ``zero``): every rank's
+    launches counted from 0 ('fused': one aggregate a round on each rank,
+    on its shard), scanned == sequential bitwise, ms a round, GB a rank;
+    the gathered params' change from init after every round within
+    TP_CHANGE_REL of LocalEngine's round function at the same n on the
+    same inputs (what [mesh] holds its world-size-1 run to); fp32 pins at
+    LMT_PIN_LAYERS layers and LMT_PIN_S tokens within rtol 2e-4 / atol
+    2e-5 of the one-rank round.  (b) ``serve_arch`` bf16, full width and
+    depth, on mesh ``serve_shape`` (default ``shape``) through the mesh
+    prefill / decode steps (``_tp_serve``).  Each rank counts its own
+    launches (``kernel_counters`` in its process).  Returns the launches
+    of the main paths summed over the ranks: {"aggregate": ..,
+    "flash_attention": ..}."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    serve_shape = tuple(serve_shape or shape)
+    world = int(np.prod(shape))
+    if int(np.prod(serve_shape)) != world:
+        raise ValueError(f"serve mesh {serve_shape} is not {world} ranks")
+    n = int(np.prod(shape[:-1]))
+    cfg = lm_train_config()
+    rng = np.random.default_rng(seed)
+    sampler = lm_train_data(cfg, seed, MESH_S, n=n)
+    xs, ys = zip(*(sampler(rng, t) for t in range(LMT_ROUNDS)))
+    toks = torch.cat([torch.stack(xs), torch.stack(ys)[..., -1:]],
+                     dim=-1)                       # (K, n, T, B, S+1)
+    x32, y32 = lm_train_data(cfg, seed + 1, LMT_PIN_S, n=n)(rng, 0)
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.split("\n")
+    print(f"[tp] {backend}, {world} ranks on {torch.cuda.device_count()} "
+          f"card(s) ({'; '.join(c for c in cards if c)}); (a) mesh "
+          f"{tuple(shape)}: {cfg.name} bf16 "
+          f"{cfg.n_layers} layers, {n} client(s), T {LMT_T}, S {MESH_S}, "
+          f"{LMT_ROUNDS} rounds a run on {TP_MIXINGS}"
+          f"{' (ring with zero)' if zero else ''}; (b) mesh {serve_shape}: "
+          f"{serve_arch} bf16, {LM_BATCH}x{LM_SEQ} prompt, {LM_NEW} decode "
+          "steps", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(dict(toks=toks,
+                        A=torch.eye(n).expand(LMT_ROUNDS, n, n).contiguous(),
+                        tau=torch.ones(LMT_ROUNDS, n),
+                        m=torch.full((LMT_ROUNDS,), float(n)),
+                        eta=torch.full((LMT_ROUNDS,), LMT_ETA),
+                        toks32=torch.cat([x32, y32[..., -1:]], dim=-1)),
+                   Path(tmp) / "train.pt")    # A = I: one client a pod
+        ctx = mp.start_processes(
+            _tp_rank, args=(tmp, tuple(shape), backend, zero, serve_arch,
+                            serve_shape, seed),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.time() + 3 * TP_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.time() > deadline:
+                    raise AssertionError("[tp] the ranks did not finish")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        ranks = []
+        for r in range(world):
+            with open(Path(tmp) / f"rank{r}.json") as f:
+                ranks.append(json.load(f))
+    for mixing in TP_MIXINGS:
+        per = [x[mixing] for x in ranks]
+        rel = [ranks[0][f"change/{mixing}/r{t}"]["rel"]
+               for t in range(LMT_ROUNDS)]
+        print(f"[tp] {mixing}{' zero' if zero and mixing == 'ring' else ''}"
+              f": {max(x['ms'] for x in per):.1f} ms a round (slowest "
+              f"rank), launches a rank "
+              f"{[x['counts'] or 'none' for x in per]}; scanned == "
+              f"sequential bitwise; shards "
+              f"{[round(x['local_gb'], 3) for x in per]} GB a rank, peak "
+              f"{[round(x['peak_gb'], 2) for x in per]} GB; the change "
+              f"off LocalEngine's (n = {n}) by "
+              f"{' / '.join(f'{x:.4e}' for x in rel)} after rounds "
+              f"{' / '.join(map(str, range(LMT_ROUNDS)))} "
+              f"(gate {TP_CHANGE_REL}); fp32 pin ({LMT_PIN_LAYERS} "
+              f"layers, S {LMT_PIN_S}) max|d| "
+              f"{max(x[f'pin32/{mixing}'][0] for x in ranks):.3e}")
+        moved = ranks[0][f"change/{mixing}/r{LMT_ROUNDS - 1}"]["moved"]
+        if moved < MOVED_MIN or max(rel) > TP_CHANGE_REL:
+            raise AssertionError(
+                f"[tp] {mixing} vs LocalEngine: moved {moved:.3%}, the "
+                f"change off by {rel} after each round, gate "
+                f"{TP_CHANGE_REL}")
+    sv = [x["serve"] for x in ranks]
+    line = (f"[tp] serve {serve_arch}: heads a rank (q, kv) "
+            f"{sv[0]['heads']}; prefill {LM_BATCH}x{LM_SEQ} "
+            f"{max(x['prefill_ms'] for x in sv):.1f} ms, decode "
+            f"{max(x['decode_ms'] for x in sv):.2f} ms a step (slowest "
+            f"rank); {sum(x['counts']['flash_attention'] for x in sv)} "
+            f"flash launches, all tensor-core; weights "
+            f"{[round(x['local_gb'], 2) for x in sv]} GB a rank, peak "
+            f"{[round(x['peak_gb'], 2) for x in sv]} GB")
+    if "vs_one_device" in sv[0]:
+        v = sv[0]["vs_one_device"]
+        line += (f"; vs one device: max|dlogits| {v['max_abs']:.3e}, "
+                 f"top-1 agreement {v['top1']:.4%} (not gated at bf16)")
+    print(line)
+    f = [x["flash"] for x in sv]
+    print(f"[tp]   flash on each rank's layer-0 q / k / v {tuple(f[0]['shape'])}"
+          f" (B, Hq, Hkv, S, hd) {f[0]['dtype']}, route {f[0]['route']}: "
+          f"max|err| {[x['max_abs_err'] for x in f]} against "
+          f"flash_attention_ref (rtol = atol = {TP_FLASH_TOL})")
+    print(f"[tp]   fp32 at {TP_SERVE_LAYERS} layers: max|d| "
+          f"{sv[0]['fp32_gate']:.3e} against the one-device prefill / "
+          f"decode (rtol = atol = {TP_SERVE_TOL})")
+    return {"aggregate": sum(x["fused"]["counts"].get("aggregate", 0)
+                             for x in ranks),
+            "flash_attention": sum(x["counts"]["flash_attention"]
+                                   for x in sv)}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         return _fail(f"no src/repro_torch beside {Path(__file__).name}: run "
@@ -3573,6 +4113,8 @@ def main() -> int:
         launches[kernel] += count
     routes["mix_aggregate"]["staged"] += lm_launches["mix_aggregate"]
     launches["aggregate"] += phase_mesh(SEED, kernel_counters())
+    for kernel, count in phase_tp(SEED).items():
+        launches[kernel] += count
     for row in rows:
         if row["name"] in lm_rows:
             row["lm_payload"] = lm_rows[row["name"]]

@@ -1,22 +1,26 @@
-"""Mesh-distributed semi-decentralized FL round (Algorithm 1) on
-``torch.distributed`` (port of ``repro.fl.distributed``, its data-parallel
-half).
+"""Mesh-distributed semi-decentralized FL round (Algorithm 1) and the
+sharded inference steps on ``torch.distributed`` (port of
+``repro.fl.distributed``).
 
 Mapping, as in the reference: client i = one (pod, data) mesh index,
 ``i = pod * n_data + data`` (``repro_torch.launch.mesh``); a D2D cluster
-is one pod; ``A`` (block-diagonal over pods for the 'ring' and 'gather'
-schedules, which only mix inside a pod), ``tau``, ``m``, ``eta`` and
-``active`` are runtime inputs, so one step serves every round of
-Algorithm 1, FedAvg (A = I) and COLREL.
+is one pod; the 'model' axis carries tensor parallelism inside every
+client (``models.sharding``).  ``A`` (block-diagonal over pods for the
+'ring' and 'gather' schedules, which only mix inside a pod), ``tau``,
+``m``, ``eta`` and ``active`` are runtime inputs, so one step serves
+every round of Algorithm 1, FedAvg (A = I) and COLREL.
 
-Every rank runs the same program on its own client (SPMD): it holds the
-replicated global params and its own client's tokens, runs its T local
-SGD steps (``core.rounds.local_sgd``: ``torch.func.grad`` of
-``Model.loss``), and joins the collectives of one mixing schedule.  The
-reference's ``client_impl`` 'vmap' (GSPMD batching of the client axis)
-and 'shardmap' (one client a shard) are the same computation at one
-client a rank, so both run that.  The schedules (``_mix_and_aggregate``)
-move the rank's delta as its packed per-dtype rows (``fl.packing``), one
+Every rank runs the same program (SPMD).  It holds its shards of the
+global params (``shard_params``: the slices of its 'model' index, the
+whole leaves at a 'model' axis of 1) and reads its own client's tokens,
+runs its T local SGD steps (``core.rounds.local_sgd``: ``torch.func.grad``
+of ``Model.loss``) with the model group's collectives, and joins the
+collectives of one mixing schedule over the clients of its own 'model'
+index -- the ranks that hold the same shards.  The reference's
+``client_impl`` 'vmap' (GSPMD batching of the client axis) and
+'shardmap' (one client a shard) are the same computation at one client
+a rank, so both run that.  The schedules (``_mix_and_aggregate``) move
+the rank's delta as its packed per-dtype rows (``fl.packing``), one
 collective a dtype group:
 
   'einsum'   -- ``all_gather`` every client's row, then the single-host
@@ -42,30 +46,44 @@ D2S arithmetic is the reference's: 'ring' and 'gather' reduce
 by m in fp32; the materializing schedules zero dropped clients' rows,
 the one-pass ones fold ``active`` into ``w``.  An all-ones ``active`` is
 bitwise ``None``.  Quantized payloads ('fused' / 'fused_rs') keep each
-rank's own error-feedback residual ``(1, P_pad_g)``; stochastic rounding
-seeds a rank's generator with its client index too
+rank's own error-feedback residual ``(1, P_pad_g)`` of its own shards;
+stochastic rounding seeds a rank's generator with its client index too
 (``packing.quantize_packed(client=)``).
 
-Collectives run on the mesh's process groups: gloo ranks on the CPU,
-NCCL ranks one card each.  fp8 containers travel as their bytes; every
-other row in its own dtype, and sums run in the payload's own dtype.
+``zero=True`` ('ring' only, as in the reference): the global copy keeps
+1/n_data of each leaf along its first unsharded dim that 'data' divides
+(``zero_specs``); an ``all_gather`` over 'data' starts the round, and the
+D2S reduce-scatters each such leaf over 'data' and all-reduces it over
+'pod' before the fp32 ``/ m``.
 
-Left for ROADMAP queue 1 item 13b, each a ``NotImplementedError``: a
-'model' axis larger than 1 (tensor parallelism, ``models/sharding.py``),
-``zero=True``, and the sharded inference steps ``make_prefill_step`` /
-``make_decode_step`` (item 12(f)).
+``make_prefill_step`` / ``make_decode_step`` run ``Model.prefill`` /
+``decode`` on a rank's rows of the batch (``batch_rows`` over
+``batch_axes``) and its shards of the weights; the logits come back
+full-vocab and the cache holds the rank's rows and kv heads.
+
+Collectives run on the mesh's process groups: gloo ranks on the CPU,
+NCCL ranks one card each, or gloo ranks sharing a card (gloo takes CUDA
+tensors for ``all_reduce`` and ``broadcast``; a one-rank group's gather
+is the row itself).  fp8 containers travel as their bytes; every other
+row in its own dtype, and sums run in the payload's own dtype.
+
+Left for ROADMAP queue 1 item 13b-ii, each a ``NotImplementedError`` at a
+'model' axis above 1 (``check_mesh``): MLA, the SSD (mamba2) and hybrid
+families, the expert-parallel MoE, and sequence-parallel activations
+(SP-MLP).
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+import weakref
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.core.adjacency import network_matrix
-from repro_torch.core.pytree import tree_map
+from repro_torch.core.pytree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.core.rounds import global_update, local_sgd, \
     mask_clients, mix_deltas
 from repro_torch.kernels.mixing.ops import aggregate_grouped, \
@@ -73,6 +91,7 @@ from repro_torch.kernels.mixing.ops import aggregate_grouped, \
 from repro_torch.launch.mesh import (client_axes, client_index,
                                      data_axis_size, model_axis_size,
                                      n_clients_of)
+from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
 from . import packing
@@ -82,29 +101,149 @@ PyTree = Any
 __all__ = ["make_train_step", "make_scanned_train_steps",
            "make_prefill_step", "make_decode_step",
            "build_topology_inputs", "init_rank_quant_state", "check_mesh",
-           "mesh_device", "MIXINGS"]
+           "mesh_device", "zero_specs", "param_layout", "shard_params",
+           "gather_params", "batch_rows", "MIXINGS"]
 
 MIXINGS = ("ring", "gather", "einsum", "fused", "fused_rs")
 
-_13B = "ROADMAP queue 1 item 13b"
-
 
 def mesh_device(mesh) -> torch.device:
-    """This rank's device: the CPU for a gloo mesh, its current card for
-    an NCCL one."""
+    """This rank's device: the CPU for a gloo mesh on the CPU, its
+    current card otherwise."""
     if mesh.device_type == "cpu":
         return torch.device("cpu")
     return torch.device(mesh.device_type, torch.cuda.current_device())
 
 
-def check_mesh(mesh) -> None:
-    """Raise ``NotImplementedError`` for what the data-parallel runtime
-    does not run: a 'model' axis larger than 1 (item 13b)."""
-    if model_axis_size(mesh) != 1:
+def check_mesh(mesh, cfg: Optional[ModelConfig] = None) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run at a
+    'model' axis above 1 (ROADMAP queue 1 item 13b-ii): MLA, the SSD and
+    hybrid families, the expert-parallel MoE."""
+    msize = model_axis_size(mesh)
+    if msize == 1 or cfg is None:
+        return
+    what = None
+    if cfg.family in ("ssm", "hybrid"):
+        what = f"the {cfg.family} family (SSD blocks)"
+    elif cfg.mla:
+        what = "MLA attention"
+    elif cfg.n_experts and (cfg.moe_sharding == "expert"
+                            or sharding.moe_expert_parallel()):
+        what = "the expert-parallel MoE"
+    if what is not None:
         raise NotImplementedError(
-            f"a 'model' mesh axis of size {model_axis_size(mesh)} "
-            "(tensor parallelism inside a client, models/sharding.py) is "
-            f"not ported; the mesh runtime takes 'model' = 1 ({_13B})")
+            f"{what} at a 'model' mesh axis of {msize} (tensor "
+            f"parallelism) is not ported ({sharding.ITEM_13B_II})")
+
+
+def zero_specs(specs: PyTree, params: PyTree, data_size: int) -> PyTree:
+    """ZeRO-style global-parameter sharding: 'data' on each leaf's first
+    dim that is unsharded, divisible by ``data_size`` and at least as
+    large (the reference's rule; a spec tree in, a spec tree out)."""
+    def one(spec, leaf):
+        for i, s in enumerate(spec):
+            if s is None and leaf.shape[i] % data_size == 0 \
+                    and leaf.shape[i] >= data_size:
+                return spec[:i] + ("data",) + spec[i + 1:]
+        return spec
+
+    leaves, treedef = tree_flatten(params)
+    return tree_unflatten(treedef, [one(s, x) for s, x in
+                                    zip(sharding.spec_leaves(specs), leaves)])
+
+
+def param_layout(cfg: ModelConfig, mesh, zero: bool = False) -> List[Tuple]:
+    """The spec of each leaf of ``Model(cfg)``'s params on ``mesh``, in
+    ``tree_flatten`` order: 'model' on the dim a rank holds a slice of
+    (``sharding.placement_specs``), and with ``zero`` 'data' on the dim
+    the global copy is split over.  The shapes come from an init under
+    ``FakeTensorMode`` (no storage)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        whole = Model(cfg, device="cpu").init(torch.Generator())
+    specs = sharding.placement_specs(whole, cfg, model_axis_size(mesh))
+    if zero:
+        specs = zero_specs(specs, whole, data_axis_size(mesh))
+    return sharding.spec_leaves(specs)
+
+
+def _data_rank(mesh) -> int:
+    return int(mesh.get_local_rank(client_axes(mesh)[-1]))
+
+
+def _model_rank(mesh) -> int:
+    return int(mesh.get_local_rank("model"))
+
+
+def shard_params(params: PyTree, cfg: ModelConfig, mesh,
+                 zero: bool = False) -> PyTree:
+    """The whole global params -> this rank's shards, the layout the
+    train step takes (``param_layout``); the params themselves at a
+    'model' axis of 1 without ``zero``."""
+    msize = model_axis_size(mesh)
+    if msize == 1 and not zero:
+        return params
+    leaves, treedef = tree_flatten(params)
+    out = []
+    for x, spec in zip(leaves, param_layout(cfg, mesh, zero)):
+        x = sharding.local_shard(x, spec, _model_rank(mesh), msize)
+        if "data" in spec:
+            x = x.chunk(data_axis_size(mesh), spec.index("data"))[
+                _data_rank(mesh)].contiguous()
+        out.append(x)
+    return tree_unflatten(treedef, out)
+
+
+def gather_params(local: PyTree, cfg: ModelConfig, mesh,
+                  zero: bool = False) -> PyTree:
+    """Inverse of ``shard_params``: the whole tree, equal on every rank,
+    bit for bit."""
+    msize = model_axis_size(mesh)
+    if msize == 1 and not zero:
+        return local
+    leaves, treedef = tree_flatten(local)
+    model_group = mesh.get_group("model") if msize > 1 else None
+    out = []
+    for x, spec in zip(leaves, param_layout(cfg, mesh, zero)):
+        if "data" in spec:
+            x = _all_gather_dim(x, spec.index("data"),
+                                mesh.get_group(client_axes(mesh)[-1]),
+                                data_axis_size(mesh))
+        out.append(sharding.gather_shard(x, spec, model_group, msize))
+    return tree_unflatten(treedef, out)
+
+
+def batch_rows(mesh, batch_axes, batch: int) -> slice:
+    """The rows of a ``batch``-row batch this rank serves: the batch split
+    evenly over ``batch_axes`` (an axis name or a tuple of them,
+    outermost first), ranks that share their indices there serving the
+    same rows."""
+    axes = (batch_axes,) if isinstance(batch_axes, str) else tuple(batch_axes)
+    idx, size = 0, 1
+    for a in axes:
+        n = int(mesh.shape[mesh.mesh_dim_names.index(a)])
+        idx, size = idx * n + int(mesh.get_local_rank(a)), size * n
+    if batch % size:
+        raise ValueError(f"a batch of {batch} rows does not split over "
+                         f"{axes} ({size} ways)")
+    rows = batch // size
+    return slice(idx * rows, (idx + 1) * rows)
+
+
+# the clients of each 'model' index, one group each, made once a mesh:
+# every rank must create every group, in the same order
+_CLIENT_GROUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _clients_group(mesh):
+    """The group of the ranks that hold the same shards as this one (its
+    'model' index), client order."""
+    if mesh not in _CLIENT_GROUPS:
+        ranks = mesh.mesh.reshape(-1, model_axis_size(mesh))
+        _CLIENT_GROUPS[mesh] = [dist.new_group(ranks[:, j].tolist())
+                                for j in range(ranks.shape[1])]
+    return _CLIENT_GROUPS[mesh][_model_rank(mesh)]
 
 
 class _Axes:
@@ -117,15 +256,21 @@ class _Axes:
         self.me = client_index(mesh)
         self.pod = self.me // self.n_data
         self.data = self.me % self.n_data
+        self.msize = model_axis_size(mesh)
         self.data_group = mesh.get_group(axes[-1])
         self.pod_group = mesh.get_group(axes[0]) if len(axes) > 1 else None
-        # with a 'model' axis of 1 the clients are the ranks of the
-        # default group (group=None below), rank i being client i
-        if dist.get_world_size() != self.n:
+        if dist.get_world_size() != self.n * self.msize:
             raise ValueError(
-                f"the mesh has {self.n} clients but the process group "
-                f"{dist.get_world_size()} ranks: build it over the whole "
+                f"the mesh has {self.n * self.msize} ranks but the process "
+                f"group {dist.get_world_size()}: build it over the whole "
                 "group")
+        # at a 'model' axis of 1 the clients are the ranks of the default
+        # group (group None), rank i being client i
+        self.clients = None
+        self.model_group = None
+        if self.msize > 1:
+            self.clients = _clients_group(mesh)
+            self.model_group = mesh.get_group("model")
 
 
 # fp8 containers travel as their bytes (not every backend gathers fp8)
@@ -134,12 +279,32 @@ _WIRE = {torch.float8_e4m3fn: torch.uint8}
 
 def _all_gather_rows(row: torch.Tensor, group, size: int) -> torch.Tensor:
     """(1, P) -> (size, P), rows in group-rank order, bit for bit."""
+    if size == 1:
+        return row
     wire = _WIRE.get(row.dtype)
     send = (row if wire is None else row.view(wire)).contiguous()
     out = torch.empty((size,) + tuple(send.shape[1:]), dtype=send.dtype,
                       device=send.device)
     dist.all_gather_into_tensor(out, send, group=group)
     return out if wire is None else out.view(row.dtype)
+
+
+def _all_gather_dim(x: torch.Tensor, dim: int, group, size: int
+                    ) -> torch.Tensor:
+    """The group's slices of a leaf, concatenated along ``dim``."""
+    rows = _all_gather_rows(x.movedim(dim, 0).reshape(1, -1), group, size)
+    whole = rows.reshape((size * x.shape[dim],)
+                         + tuple(x.movedim(dim, 0).shape[1:]))
+    return whole.movedim(0, dim).contiguous()
+
+
+def _reduce_scatter_dim(x: torch.Tensor, dim: int, group, size: int
+                        ) -> torch.Tensor:
+    """The sum over the group of ``x``, this rank's slice along ``dim``."""
+    front = x.movedim(dim, 0).contiguous()
+    part = front.new_empty((front.shape[0] // size,) + front.shape[1:])
+    dist.reduce_scatter_tensor(part, front, group=group)
+    return part.movedim(0, dim)
 
 
 def _own_rows(delta: PyTree, **spec_kw):
@@ -181,18 +346,42 @@ def _permute_ring(row: torch.Tensor, ax: _Axes) -> torch.Tensor:
     return recv if wire is None else recv.view(row.dtype)
 
 
+def _zero_aggregate(ax: _Axes, contrib_rows, spec, global_params: PyTree,
+                    zero_dims: List[int], m: torch.Tensor) -> PyTree:
+    """ZeRO D2S: each leaf of ``tau_i * mixed_i`` (unpacked from the
+    rows) reduce-scattered over 'data' along its zero dim and all-reduced
+    over 'pod', added in fp32 ``/ m`` to the rank's slice of the global
+    leaf; a leaf without one all-reduced over the clients."""
+    contrib = tree_flatten(packing.unpack_row(contrib_rows, spec))[0]
+    gl, treedef = tree_flatten(global_params)
+    out = []
+    for g, c, zd in zip(gl, contrib, zero_dims):
+        if zd >= 0:
+            part = _reduce_scatter_dim(c, zd, ax.data_group, ax.n_data)
+            if ax.pod_group is not None:
+                part = part.contiguous()
+                dist.all_reduce(part, group=ax.pod_group)
+        else:
+            part = c.contiguous()
+            dist.all_reduce(part, group=ax.clients)
+        out.append((g + part.float() / m).to(g.dtype))
+    return tree_unflatten(treedef, out)
+
+
 def _mix_and_aggregate(ax: _Axes, mixing: str, delta: PyTree,
                        A: torch.Tensor, tau: torch.Tensor, m: torch.Tensor,
                        global_params: PyTree,
                        active: Optional[torch.Tensor] = None,
-                       quant=None, qstate=None):
+                       quant=None, qstate=None, zero_dims=None):
     """new_global = global + (1/m) sum_i tau_i (A @ deltas)_i, from this
-    rank's ``delta`` (no client axis) and the collectives of ``mixing``.
-    With ``quant`` returns ``(new_global, new_qstate)``."""
+    rank's ``delta`` (no client axis; the rank's shards) and the
+    collectives of ``mixing`` over the clients of its 'model' index.
+    With ``quant`` returns ``(new_global, new_qstate)``; ``zero_dims``
+    (ring only): the ZeRO split dim of each global leaf, -1 for none."""
     i = ax.me
     if mixing == "einsum":
         spec, bufs = _own_rows(delta)
-        X = packing.unpack(tuple(_all_gather_rows(b, None, ax.n)
+        X = packing.unpack(tuple(_all_gather_rows(b, ax.clients, ax.n)
                                  for b in bufs), spec)
         if active is not None:
             X = mask_clients(X, active)
@@ -204,16 +393,16 @@ def _mix_and_aggregate(ax: _Axes, mixing: str, delta: PyTree,
             spec, bufs = _own_rows(delta, quant=quant)
             stored, scales, new_qstate = _quantize_own(bufs, spec, qstate,
                                                        i)
-            stored = tuple(_all_gather_rows(s, None, ax.n)
+            stored = tuple(_all_gather_rows(s, ax.clients, ax.n)
                            for s in stored)
-            scales = tuple(_all_gather_rows(s, None, ax.n)
+            scales = tuple(_all_gather_rows(s, ax.clients, ax.n)
                            for s in scales)
             rows = aggregate_grouped_q(A, tau, m, stored, scales,
                                        quant=quant, active=active)
             return (packing.apply_aggregate_row(global_params, rows, spec),
                     new_qstate)
         spec, bufs = _own_rows(delta)
-        X = tuple(_all_gather_rows(b, None, ax.n) for b in bufs)
+        X = tuple(_all_gather_rows(b, ax.clients, ax.n) for b in bufs)
         rows = aggregate_grouped(A, tau, m, X, active=active)
         return packing.apply_aggregate_row(global_params, rows, spec)
 
@@ -260,10 +449,13 @@ def _mix_and_aggregate(ax: _Axes, mixing: str, delta: PyTree,
             pod_rows = _all_gather_rows(b, ax.data_group, ax.n_data)
             arow = A[i, start:start + ax.n_data]
             mixed.append(arow.to(b.dtype) @ pod_rows)
+    contribs = [tau[i].to(x.dtype) * x for x in mixed]
+    if zero_dims is not None:
+        return _zero_aggregate(ax, contribs, spec, global_params, zero_dims,
+                               m)
     rows = []
-    for x in mixed:
-        contrib = tau[i].to(x.dtype) * x
-        dist.all_reduce(contrib)
+    for contrib in contribs:
+        dist.all_reduce(contrib, group=ax.clients)
         rows.append(contrib.float() / m)
     return packing.apply_aggregate_row(global_params, rows, spec)
 
@@ -274,35 +466,41 @@ def make_train_step(cfg: ModelConfig, mesh, mixing: str = "ring",
     """Build ``train_step(global_params, tokens, A, tau, m, eta[, prefix]
     [, active][, qstate])`` on this rank.
 
-    tokens: (n_clients, T, B_local, S+1) int -- every client's per-step
-    minibatches, inputs and targets adjacent slices; the rank reads its
-    own client's row.  prefix (audio/vlm): (n_clients, T, B_local, P,
-    fdim).  active: optional (n,) 0/1 straggler mask.  Every tensor on
-    ``mesh_device(mesh)``; the global params are replicated on every
-    rank, and the new global params come back equal on every rank.
+    global_params: this rank's shards of the global params
+    (``shard_params(params, cfg, mesh, zero)``; the whole tree at a
+    'model' axis of 1 without ``zero``), on ``mesh_device(mesh)``, equal
+    on the ranks of one 'model' index; the new global params come back in
+    the same layout, so rounds compose (``gather_params`` gives the whole
+    tree).  tokens: (n_clients, T, B_local, S+1) int -- every client's
+    per-step minibatches, inputs and targets adjacent slices; the rank
+    reads its own client's row.  prefix (audio/vlm): (n_clients, T,
+    B_local, P, fdim).  active: optional (n,) 0/1 straggler mask.
 
     ``quant`` (a ``packing.QuantSpec``; 'fused' / 'fused_rs' only): the
     step takes this rank's ``qstate`` (``init_rank_quant_state``) and
-    returns ``(new_global, new_qstate)``.
+    returns ``(new_global, new_qstate)``.  ``zero`` ('ring' only): the
+    global params are also split over 'data' (module docstring).
 
     ``client_impl`` is accepted for the reference's API only: at one
-    client a rank both values run the same computation, until ROADMAP
-    item 13b gives 'shardmap' (SP-MLP, expert-parallel MoE) its own."""
+    client a rank both values run the same computation (the 'shardmap'
+    step's SP-MLP and expert-parallel MoE are ROADMAP item 13b-ii)."""
     if mixing not in MIXINGS:
         raise ValueError(f"mixing must be one of {MIXINGS}")
+    if zero and mixing != "ring":
+        raise ValueError("zero sharding is implemented for ring mixing")
     if client_impl not in ("vmap", "shardmap"):
         raise ValueError("client_impl must be 'vmap' or 'shardmap'")
     if quant is not None and mixing not in ("fused", "fused_rs"):
         raise ValueError(
             "quantized payloads on the mesh runtime require the one-pass "
             f"'fused' or 'fused_rs' schedules, got {mixing!r}")
-    if zero:
-        raise NotImplementedError(
-            "zero=True (ZeRO sharding of the global params) is not "
-            f"ported ({_13B})")
-    check_mesh(mesh)
+    check_mesh(mesh, cfg)
     ax = _Axes(mesh)
     model = Model(cfg, device=mesh_device(mesh))
+    zero_dims = None
+    if zero:
+        zero_dims = [s.index("data") if "data" in s else -1
+                     for s in param_layout(cfg, mesh, zero=True)]
 
     def train_step(global_params, tokens, A, tau, m, eta, prefix=None,
                    active=None, qstate=None):
@@ -315,12 +513,22 @@ def make_train_step(cfg: ModelConfig, mesh, mixing: str = "ring",
         batches = (tk[..., :-1], tk[..., 1:])
         if prefix is not None:
             batches = batches + (prefix[ax.me],)
-        final = local_sgd(model.loss, global_params, batches, eta)
-        delta = tree_map(lambda f, g: f - g, final, global_params)
-        del final
+        start = global_params
+        if zero:
+            # the round starts from the whole (model-local) global params
+            leaves, treedef = tree_flatten(global_params)
+            start = tree_unflatten(treedef, [
+                x if zd < 0 else _all_gather_dim(x, zd, ax.data_group,
+                                                 ax.n_data)
+                for x, zd in zip(leaves, zero_dims)])
+        with sharding.model_parallel(ax.model_group):
+            final = local_sgd(model.loss, start, batches, eta)
+        delta = tree_map(lambda f, g: f - g, final, start)
+        del final, start
         return _mix_and_aggregate(ax, mixing, delta, A, tau, m,
                                   global_params, active=active,
-                                  quant=quant, qstate=qstate)
+                                  quant=quant, qstate=qstate,
+                                  zero_dims=zero_dims)
 
     return train_step
 
@@ -333,9 +541,9 @@ def make_scanned_train_steps(cfg: ModelConfig, mesh, K: int,
 
     ``scanned(global_params, tokens_seq, A_seq, tau_seq, m_seq, eta_seq[,
     prefix_seq][, active_seq][, qstate]) -> (final_params, params_seq[,
-    final_qstate])``, params_seq leaves (K, ...).  The loop body is
-    ``make_train_step``'s step on row t of each input, so the trajectory
-    is bitwise K sequential steps."""
+    final_qstate])``, params_seq leaves (K, ...) in the step's layout.
+    The loop body is ``make_train_step``'s step on row t of each input,
+    so the trajectory is bitwise K sequential steps."""
     step = make_train_step(cfg, mesh, mixing=mixing, zero=zero,
                            client_impl=client_impl, quant=quant)
 
@@ -359,9 +567,10 @@ def make_scanned_train_steps(cfg: ModelConfig, mesh, K: int,
 
 
 def init_rank_quant_state(params: PyTree, quant, mesh, mixing: str):
-    """This rank's round-0 quantizer state: zero residuals for its own
-    client's packed rows, ``(1, P_pad_g)`` (``pack_spec(shards=n_data)``
-    on 'fused_rs'), and the key, counter 0."""
+    """This rank's round-0 quantizer state for its shards ``params`` (the
+    train step's layout): zero residuals for its own client's packed
+    rows, ``(1, P_pad_g)`` (``pack_spec(shards=n_data)`` on 'fused_rs'),
+    and the key, counter 0."""
     shards = data_axis_size(mesh) if mixing == "fused_rs" else 1
     spec = packing.pack_spec(
         tree_map(lambda p: torch.empty((1,) + tuple(p.shape),
@@ -370,18 +579,53 @@ def init_rank_quant_state(params: PyTree, quant, mesh, mixing: str):
     return packing.init_quant_state(spec, 1, mesh_device(mesh))
 
 
-def make_prefill_step(*args, **kwargs):
-    """The reference's sharded prefill step (ROADMAP item 12(f))."""
-    raise NotImplementedError(
-        "the mesh prefill step (item 12(f)) is not ported; serve on one "
-        f"device with Model.prefill ({_13B})")
+def _serve_setup(cfg: ModelConfig, mesh):
+    check_mesh(mesh, cfg)
+    model = Model(cfg, device=mesh_device(mesh))
+    group = mesh.get_group("model") if model_axis_size(mesh) > 1 else None
+    return model, group
 
 
-def make_decode_step(*args, **kwargs):
-    """The reference's sharded decode step (ROADMAP item 12(f))."""
-    raise NotImplementedError(
-        "the mesh decode step (item 12(f)) is not ported; serve on one "
-        f"device with Model.decode ({_13B})")
+def make_prefill_step(cfg: ModelConfig, mesh, batch_axes, cache_len: int):
+    """``prefill_step(params, tokens[, prefix]) -> (logits, cache)``.
+
+    params: this rank's shards (``shard_params``); tokens (B, K) [, prefix
+    (B, P, fdim)]: the whole batch, of which the rank runs its rows
+    ``batch_rows(mesh, batch_axes, B)``.  Returns those rows' last-position
+    logits, full-vocab fp32 (B_rank, V), and their decode cache (ring of
+    ``cache_len``) on the rank's kv heads.  GQA attends through the flash
+    kernel where ``cfg.attn_impl`` is 'flash'."""
+    model, group = _serve_setup(cfg, mesh)
+    flash = cfg.attn_impl == "flash"
+
+    def prefill_step(params, tokens, prefix=None):
+        rows = batch_rows(mesh, batch_axes, tokens.shape[0])
+        with torch.no_grad(), sharding.model_parallel(group):
+            return model.prefill(
+                params, tokens[rows],
+                None if prefix is None else prefix[rows],
+                max_len=cache_len, flash=flash)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, mesh, batch_axes,
+                     donate_cache: bool = True):
+    """``decode_step(params, cache, token, pos) -> (logits, cache)``:
+    token (B,) the whole batch's, of which the rank decodes its rows
+    (``batch_rows``) against its ``cache`` (``make_prefill_step``'s);
+    logits full-vocab fp32 (B_rank, V).  ``donate_cache`` (default): the
+    cache is updated in place and returned; otherwise a copy is."""
+    model, group = _serve_setup(cfg, mesh)
+
+    def decode_step(params, cache, token, pos):
+        if not donate_cache:
+            cache = tree_map(torch.clone, cache)
+        rows = batch_rows(mesh, batch_axes, token.shape[0])
+        with torch.no_grad(), sharding.model_parallel(group):
+            return model.decode(params, cache, token[rows], pos)
+
+    return decode_step
 
 
 def build_topology_inputs(network, rng: np.random.Generator,

@@ -41,9 +41,10 @@ the dense backends only: 'pallas' and 'fused' resolve to 'aggregate'
 record_mixed and the sparse backends are refused, as is ``runtime``
 without ``stream``.  The mesh runtime needs ``model_cfg`` (its steps
 train ``Model(model_cfg).loss``; the server's ``loss_fn`` is unused) and
-takes per-round token arrays ``(n, T, B_local, S+1)`` as its batches;
-what the data-parallel port leaves out (a 'model' axis above 1) raises
-``NotImplementedError`` naming ROADMAP queue 1 item 13b.
+takes per-round token arrays ``(n, T, B_local, S+1)`` as its batches; at
+a 'model' axis above 1 each rank trains its tensor-parallel shards, and
+what the port leaves out there (MLA, SSD, hybrid, the expert-parallel
+MoE) raises ``NotImplementedError`` naming ROADMAP queue 1 item 13b-ii.
 
 Quantized payloads: ``ExecutionConfig.quant`` (or, when it is None, the
 plan's ``quant``) quantizes every client upload (``QuantSpec``); the
@@ -175,8 +176,9 @@ def _resolve_stream_backend(cfg: ExecutionConfig) -> str:
 
 
 def _resolve_mesh_backend(cfg: ExecutionConfig) -> str:
-    """The mesh runtime's part of the matrix (``resolve_backend``); a
-    'model' axis above 1 raises ``NotImplementedError`` (item 13b)."""
+    """The mesh runtime's part of the matrix (``resolve_backend``); what
+    a 'model' axis above 1 does not run raises ``NotImplementedError``
+    (``distributed.check_mesh``)."""
     from .distributed import MIXINGS, check_mesh
 
     if cfg.model_cfg is None:
@@ -194,7 +196,7 @@ def _resolve_mesh_backend(cfg: ExecutionConfig) -> str:
                 "quantized payloads on the mesh runtime require the "
                 f"one-pass 'fused' or 'fused_rs' schedules, got "
                 f"{cfg.backend!r}")
-    check_mesh(cfg.mesh)
+    check_mesh(cfg.mesh, cfg.model_cfg)
     return cfg.backend
 
 
@@ -481,7 +483,9 @@ class MeshEngine:
     rank of ``cfg.mesh`` (its device: the CPU on gloo, the rank's card on
     NCCL).  ``batches`` entries are per-round token arrays
     ``(n_clients, T, B_local, S+1)``; every rank executes the same plan
-    and returns the same params and History."""
+    on its shards of the params (``distributed.shard_params``: the whole
+    tree at a 'model' axis of 1) and returns the same whole params and
+    History (``gather_params``, also for ``eval_fn``)."""
 
     def __init__(self, cfg: ExecutionConfig):
         from .distributed import mesh_device
@@ -497,8 +501,9 @@ class MeshEngine:
 
     def execute(self, plan, params, batches, *, eval_fn=None, eval_every=1,
                 energy_ratio=0.1):
-        from .distributed import (init_rank_quant_state,
-                                  make_scanned_train_steps, make_train_step)
+        from .distributed import (gather_params, init_rank_quant_state,
+                                  make_scanned_train_steps, make_train_step,
+                                  shard_params)
 
         _check_batches(plan, batches)
         cfg, K, device = self.cfg, plan.n_rounds, self.device
@@ -506,7 +511,12 @@ class MeshEngine:
             plan, device)
         history = History(algorithm=plan.algorithm,
                           ledger=CommLedger(energy_ratio=energy_ratio))
-        params = _to_device(params, device)
+        params = shard_params(_to_device(params, device), cfg.model_cfg,
+                              cfg.mesh)
+
+        def whole(p):
+            return gather_params(p, cfg.model_cfg, cfg.mesh)
+
         batches = [_to_device(b, device) for b in batches]
         quant = cfg.quant if cfg.quant is not None else plan.quant
         qstate = None
@@ -526,9 +536,10 @@ class MeshEngine:
             for t in range(K):
                 _append_record(
                     plan, history, t,
-                    lambda tt=t: tree_map(lambda x: x[tt], params_seq),
+                    lambda tt=t: whole(tree_map(lambda x: x[tt],
+                                                params_seq)),
                     eval_fn, eval_every)
-            return params, history
+            return whole(params), history
 
         step = make_train_step(cfg.model_cfg, cfg.mesh,
                                mixing=self.backend, quant=quant)
@@ -537,9 +548,9 @@ class MeshEngine:
             out = step(params, batches[t], A_seq[t], tau_seq[t], m_seq[t],
                        eta_seq[t], active=active, qstate=qstate)
             params, qstate = out if quant is not None else (out, None)
-            _append_record(plan, history, t, lambda p=params: p,
+            _append_record(plan, history, t, lambda p=params: whole(p),
                            eval_fn, eval_every)
-        return params, history
+        return whole(params), history
 
 
 def make_engine(cfg: ExecutionConfig, loss_fn=None, device=None):

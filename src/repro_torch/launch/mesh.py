@@ -4,9 +4,11 @@
 Semi-decentralized-FL mapping, as in the reference: a *client* is one
 (pod, data) index of the mesh -- client ``i = pod * n_data + data``,
 pod-major -- a *D2D cluster* is one pod, the 'pod' axis carries only the
-cross-pod D2S collectives, and the 'model' axis would carry tensor
-parallelism inside every client.  The port runs one client a rank and a
-'model' axis of size 1 (ROADMAP queue 1 item 13b has the rest).
+cross-pod D2S collectives, and the 'model' axis carries tensor
+parallelism inside every client (``repro_torch.models.sharding``).  Rank
+r sits at ``unravel(r, shape)``: a client's ``model``-axis ranks are
+consecutive, and ``make_debug_mesh((2, 2, 2))`` runs four clients of two
+ranks each on eight gloo ranks.
 
 There is no ``make_production_mesh``: the reference's is a 512-chip TPU
 v5e layout ((2, 16, 16) over pod / data / model), which no machine of
@@ -32,7 +34,8 @@ def make_debug_mesh(shape: Tuple[int, ...],
     group (its world size must be ``prod(shape)``); ``axes`` defaults to
     the reference's names, ('pod', 'data', 'model') for three axes and
     ('data', 'model') for two.  Rank r sits at ``unravel(r, shape)``, so
-    client i is rank i."""
+    client i is ranks ``i * m .. i * m + m - 1`` at a 'model' axis of m
+    (rank i at m = 1)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if axes is None:

@@ -1,4 +1,5 @@
 """Models of the paper's experiments (``cnn``), the LM zoo's stack for
 every family (``config``, ``layers``, ``attention``, ``mla``, ``moe``,
-``ssm``, ``blocks``, ``remat``, ``model``) and the JAX-pytree converter
+``ssm``, ``blocks``, ``remat``, ``model``), its tensor-parallel rules
+and collectives (``sharding``) and the JAX-pytree converter
 (``convert``)."""

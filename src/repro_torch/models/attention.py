@@ -11,6 +11,12 @@ flash-attention kernel (``cfg.attn_impl == 'flash'``); the plain path
 below is its oracle.  Decode writes the new token's K/V into the cache
 in place (the cache leaves are views of the stacked cache) and returns
 it.
+
+Tensor parallelism (``models.sharding``): a rank may hold whole heads of
+q / k / v (column slices, with their biases) and the matching rows of
+``o``.  The head counts come from the local weights' widths, so GQA
+groups the rank's heads, flash runs on them unchanged, the KV cache holds
+them, and ``o``'s partial sums leave through ``reduce_from_model``.
 """
 
 from __future__ import annotations
@@ -22,12 +28,13 @@ import torch
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from .config import ModelConfig
 from .layers import apply_rope, dense_init, rms_norm, rope_angles
+from . import sharding
 from .remat import remat
 
 PyTree = Any
 
-__all__ = ["attn_init", "attention_full", "attention_decode", "make_kv_cache",
-           "NEG_INF"]
+__all__ = ["attn_init", "attention_full", "attention_prefill",
+           "attention_decode", "make_kv_cache", "local_heads", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -47,24 +54,47 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> PyTree:
     return p
 
 
+def local_heads(cfg: ModelConfig) -> Tuple[int, int]:
+    """(q heads, kv heads) a rank of the current model group holds: the
+    whole counts unless both split into whole heads
+    (``sharding.whole_heads``)."""
+    _, m = sharding.model_rank()
+    if m > 1 and sharding.whole_heads(cfg, m):
+        return cfg.n_heads // m, cfg.n_kv_heads // m
+    return cfg.n_heads, cfg.n_kv_heads
+
+
+def _split(cfg: ModelConfig, p: PyTree) -> bool:
+    """Whether ``p`` holds a tensor-parallel slice of the heads."""
+    return sharding.holds_shard(p["q"]["w"].shape[-1],
+                                cfg.n_heads * cfg.resolved_head_dim)
+
+
 def _project_qkv(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
                  positions: torch.Tensor):
-    """x (B,S,D), positions (S,) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd)."""
+    """x (B,S,D), positions (S,) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd), the
+    head counts those of the (local) weights."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
 
-    def proj(pp, n):
+    def proj(pp):
         y = x @ pp["w"]
         if "b" in pp:
             y = y + pp["b"]
-        return y.reshape(B, S, n, hd)
+        return y.reshape(B, S, -1, hd)
 
-    q = proj(p["q"], cfg.n_heads)
-    k = proj(p["k"], cfg.n_kv_heads)
-    v = proj(p["v"], cfg.n_kv_heads)
+    q = proj(p["q"])
+    k = proj(p["k"])
+    v = proj(p["v"])
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        # per-head scales, replicated: each rank's part of their gradient
+        # covers its own heads
+        split = _split(cfg, p)
+        qn, kn = p["q_norm"], p["k_norm"]
+        if split:
+            qn, kn = sharding.copy_to_model(qn), sharding.copy_to_model(kn)
+        q = rms_norm(q, qn, cfg.norm_eps)
+        k = rms_norm(k, kn, cfg.norm_eps)
     rot = int(hd * cfg.rope_fraction) - (int(hd * cfg.rope_fraction) % 2)
     if rot:
         cos, sin = rope_angles(positions, rot, cfg.rope_theta)
@@ -138,6 +168,9 @@ def attention_full(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
     """Full-sequence causal attention (training / scoring compute)."""
     if window == "cfg":
         window = cfg.sliding_window
+    split = _split(cfg, p)
+    if split:
+        x = sharding.copy_to_model(x)
     q, k, v = _project_qkv(cfg, p, x, positions)
     if cfg.attn_impl == "flash":
         out = flash_ops.flash_attention(q, k, v, causal=True, window=window)
@@ -147,7 +180,28 @@ def attention_full(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
     else:
         mask = _causal_mask(x.shape[1], window, x.device)
         out = _sdpa(q, k, v, mask, cfg)
-    return out @ p["o"]["w"]
+    y = out @ p["o"]["w"]
+    return sharding.reduce_from_model(y) if split else y
+
+
+def attention_prefill(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
+                      positions: torch.Tensor, flash: bool = False):
+    """Full-sequence attention that also returns its K/V for the cache:
+    (y (B,S,D), k, v (B,S,Hkv,hd)).  Attends with the plain ``_sdpa``, as
+    the reference's prefill does, or with ``flash``."""
+    split = _split(cfg, p)
+    if split:
+        x = sharding.copy_to_model(x)
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    if flash:
+        out = flash_ops.flash_attention(q, k, v, causal=True,
+                                        window=cfg.sliding_window)
+        out = out.reshape(x.shape[0], x.shape[1], -1)
+    else:
+        mask = _causal_mask(x.shape[1], cfg.sliding_window, x.device)
+        out = _sdpa(q, k, v, mask, cfg)
+    y = out @ p["o"]["w"]
+    return (sharding.reduce_from_model(y) if split else y), k, v
 
 
 # ---------------------------------------------------------------------------
@@ -160,10 +214,11 @@ def make_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
 
     ``max_len`` should be min(context, sliding_window) -- the ring buffer.
     ``kpos`` tracks the absolute position stored in each slot (-1 = empty);
-    it is shared across batch (decode is lock-step).
+    it is shared across batch (decode is lock-step).  Under a model group
+    the cache holds the rank's kv heads (``local_heads``).
     """
     hd = cfg.resolved_head_dim
-    shape = (n_layers, batch, max_len, cfg.n_kv_heads, hd)
+    shape = (n_layers, batch, max_len, local_heads(cfg)[1], hd)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -185,6 +240,9 @@ def attention_decode(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
         window = cfg.sliding_window
     pos = int(pos)
     B = x.shape[0]
+    split = _split(cfg, p)
+    if split:
+        x = sharding.copy_to_model(x)
     at = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(cfg, p, x, at)
     W = cache["k"].shape[1]
@@ -199,8 +257,8 @@ def attention_decode(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
     if window is not None:
         ok = ok & (age < window)
     mask = torch.where(ok, 0.0, NEG_INF)                 # (W,)
-    qg = q.reshape(B, 1, cfg.n_kv_heads, -1, q.shape[-1]
+    qg = q.reshape(B, 1, k.shape[2], -1, q.shape[-1]
                    ).permute(0, 2, 3, 1, 4)              # (B,Hkv,G,1,hd)
     out = _attend(qg, ck, cv, mask, q.dtype)             # (B,1,Hq*hd)
     y = out @ p["o"]["w"]
-    return y, cache
+    return (sharding.reduce_from_model(y) if split else y), cache

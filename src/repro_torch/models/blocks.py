@@ -25,9 +25,15 @@ Three entry points serve ``model.py``:
   * ``stack_decode``   -- one-token step through the per-layer caches
 
 As in the reference, prefill attends with the plain ``_sdpa`` whatever
-``cfg.attn_impl`` is; only ``stack_forward`` reaches the flash kernel.
-The reference's sequence-parallel hooks (``models/sharding.py``) are the
-identity on one device and are not ported.
+``cfg.attn_impl`` is, unless the caller asks for ``flash`` (the mesh
+prefill step does); ``stack_forward`` reaches the flash kernel with
+``cfg.attn_impl == 'flash'``.
+
+Under a model group (``models.sharding``) the transformer blocks run on a
+rank's tensor-parallel shards (attention by whole heads, the MLP and the
+MoE experts by ffn columns); the Mamba2 block, MLA and the hybrid stack
+raise ``NotImplementedError`` there (ROADMAP queue 1 item 13b-ii).  The
+reference's sequence-parallel hooks are not ported.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from repro_torch.core.pytree import tree_flatten, tree_map, tree_unflatten
 from . import attention as attn
 from . import mla as mla_mod
 from . import moe as moe_mod
+from . import sharding
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import mlp_apply, mlp_init, norm
@@ -146,31 +153,34 @@ def _ffn_half(cfg: ModelConfig, p: PyTree, x: torch.Tensor):
     if "moe" in p:
         y, aux = moe_mod.moe_apply(cfg, p["moe"], h)
         return x + y, aux
-    return x + mlp_apply(p["mlp"], h, cfg.mlp_type), None
+    return x + mlp_apply(p["mlp"], h, cfg.mlp_type, cfg.d_ff), None
 
 
 def _tf_block_forward(cfg: ModelConfig, p: PyTree, x, positions):
     h = norm(x, p["ln1"], cfg.norm_type, cfg.norm_eps)
     if cfg.mla:
+        sharding.refuse("MLA attention")
         x = x + mla_mod.mla_full(cfg, p["mla"], h, positions)
     else:
         x = x + attn.attention_full(cfg, p["attn"], h, positions)
     return _ffn_half(cfg, p, x)
 
 
-def _tf_block_prefill(cfg: ModelConfig, p: PyTree, x, positions):
+def _tf_block_prefill(cfg: ModelConfig, p: PyTree, x, positions,
+                      flash: bool = False):
     """Returns (x, entry) where entry holds this layer's full-sequence KV
     (GQA: ``k``/``v``; MLA: the latents ``ckv``/``krope``), scattered to
     the ring at model level."""
     h = norm(x, p["ln1"], cfg.norm_type, cfg.norm_eps)
     if cfg.mla:
+        sharding.refuse("MLA attention")
         c_kv, k_rope = mla_mod._latents(cfg, p["mla"], h, positions)
         x = x + mla_mod.mla_full(cfg, p["mla"], h, positions)
         entry = {"ckv": c_kv, "krope": k_rope}
     else:
-        q, k, v = attn._project_qkv(cfg, p["attn"], h, positions)
-        mask = attn._causal_mask(h.shape[1], cfg.sliding_window, h.device)
-        x = x + attn._sdpa(q, k, v, mask, cfg) @ p["attn"]["o"]["w"]
+        a, k, v = attn.attention_prefill(cfg, p["attn"], h, positions,
+                                         flash)
+        x = x + a
         entry = {"k": k, "v": v}
     return _ffn_half(cfg, p, x)[0], entry
 
@@ -178,6 +188,7 @@ def _tf_block_prefill(cfg: ModelConfig, p: PyTree, x, positions):
 def _tf_block_decode(cfg: ModelConfig, p: PyTree, x, cache, pos):
     h = norm(x, p["ln1"], cfg.norm_type, cfg.norm_eps)
     if cfg.mla:
+        sharding.refuse("MLA attention")
         a, cache = mla_mod.mla_decode(cfg, p["mla"], h, cache, pos)
     else:
         a, cache = attn.attention_decode(cfg, p["attn"], h, cache, pos)
@@ -185,17 +196,20 @@ def _tf_block_decode(cfg: ModelConfig, p: PyTree, x, cache, pos):
 
 
 def _mamba_block_forward(cfg: ModelConfig, p: PyTree, x):
+    sharding.refuse("the Mamba2 (SSD) block")
     h = norm(x, p["ln1"], cfg.norm_type, cfg.norm_eps)
     return x + ssm_mod.ssm_forward(cfg, p["ssm"], h)
 
 
 def _mamba_block_prefill(cfg: ModelConfig, p: PyTree, x):
+    sharding.refuse("the Mamba2 (SSD) block")
     h = norm(x, p["ln1"], cfg.norm_type, cfg.norm_eps)
     y, state, conv_tail = ssm_mod.ssm_prefill(cfg, p["ssm"], h)
     return x + y, {"state": state, "conv": conv_tail}
 
 
 def _mamba_block_decode(cfg: ModelConfig, p: PyTree, x, cache):
+    sharding.refuse("the Mamba2 (SSD) block")
     h = norm(x, p["ln1"], cfg.norm_type, cfg.norm_eps)
     y, cache = ssm_mod.ssm_decode(cfg, p["ssm"], h, cache)
     return x + y, cache
@@ -264,11 +278,13 @@ def stack_forward(cfg: ModelConfig, params: PyTree, x: torch.Tensor,
     return x, aux
 
 
-def stack_prefill(cfg: ModelConfig, params: PyTree, x, positions):
+def stack_prefill(cfg: ModelConfig, params: PyTree, x, positions,
+                  flash: bool = False):
     """Returns (x, caches): ``caches["layers"]`` holds the stacked layers'
     entries (leaves (L, B, ...)); ``caches["shared"]`` zamba2's shared
     block's, one a group (leaves (n_groups, B, S, ...)); and
-    ``caches["dense_layers"]`` a list of the leading dense layers'."""
+    ``caches["dense_layers"]`` a list of the leading dense layers'.
+    ``flash``: GQA attention through the flash kernel."""
     layers = params["layers"]
     if cfg.family in ("ssm", "hybrid"):
         n_groups, every = ((1, cfg.n_layers) if cfg.family == "ssm"
@@ -279,7 +295,8 @@ def stack_prefill(cfg: ModelConfig, params: PyTree, x, positions):
                 x, e = _mamba_block_prefill(cfg, _layer(layers, i), x)
                 m_entries.append(e)
             if cfg.family == "hybrid":
-                x, e = _tf_block_prefill(cfg, params["shared"], x, positions)
+                x, e = _tf_block_prefill(cfg, params["shared"], x, positions,
+                                         flash)
                 s_entries.append(e)
         caches = {"layers": _stack_entries(m_entries)}
         if s_entries:
@@ -289,11 +306,12 @@ def stack_prefill(cfg: ModelConfig, params: PyTree, x, positions):
     caches: PyTree = {}
     dense = []
     for dp in params.get("dense_layers", []):
-        x, e = _tf_block_prefill(cfg, dp, x, positions)
+        x, e = _tf_block_prefill(cfg, dp, x, positions, flash)
         dense.append(e)
     entries = []
     for i in range(cfg.n_layers - cfg.first_dense_layers):
-        x, e = _tf_block_prefill(cfg, _layer(layers, i), x, positions)
+        x, e = _tf_block_prefill(cfg, _layer(layers, i), x, positions,
+                                 flash)
         entries.append(e)
     caches["layers"] = _stack_entries(entries)
     if dense:

@@ -8,8 +8,9 @@ before its products, and the GELU MLP uses the tanh approximation, as
 ``torch.Generator``, which lives on the device the parameters are made
 on; they draw other numbers than ``jax.random`` from the same seed, so
 the tests carry the reference's parameters across
-(``models.convert.params_from_numpy``).  ``mlp_apply_sp`` is mesh-only
-and waits for the mesh slice.
+(``models.convert.params_from_numpy``).  ``mlp_apply`` runs a
+tensor-parallel shard too (``models.sharding``); the reference's
+``mlp_apply_sp`` (SP-MLP) is ROADMAP queue 1 item 13b-ii.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+
+from . import sharding
 
 PyTree = Any
 
@@ -130,10 +133,18 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
             "down": lecun_normal(gen, (d_ff, d_model), dtype)}
 
 
-def mlp_apply(p: PyTree, x: torch.Tensor, kind: str = "swiglu"
-              ) -> torch.Tensor:
+def mlp_apply(p: PyTree, x: torch.Tensor, kind: str = "swiglu",
+              d_ff: int = 0) -> torch.Tensor:
+    """``d_ff``: the whole ffn width.  Where ``p`` holds less (a
+    tensor-parallel shard: ``gate`` / ``up`` split by columns, ``down`` by
+    rows), ``x`` enters through ``copy_to_model`` and the output leaves
+    through ``reduce_from_model``."""
+    split = bool(d_ff) and sharding.holds_shard(p["down"].shape[0], d_ff)
+    if split:
+        x = sharding.copy_to_model(x)
     if kind == "swiglu":
         h = F.silu(x @ p["gate"]) * (x @ p["up"])
     else:
         h = F.gelu(x @ p["up"], approximate="tanh")
-    return h @ p["down"]
+    y = h @ p["down"]
+    return sharding.reduce_from_model(y) if split else y

@@ -21,6 +21,15 @@ loss; its gradient (``torch.func.grad``, batched over clients by
 ``vmap`` in ``core.rounds``) is how the LMs train.  Training attends
 with ``ref`` or ``chunked``: the flash kernel is forward-only, as the
 reference's Pallas kernel is.
+
+Under a model group (``models.sharding.model_parallel``) the parameters
+are a rank's tensor-parallel shards: the vocab dim of ``embed`` /
+``lm_head`` is split where the group divides it, so the embedding is a
+masked local lookup followed by ``reduce_from_model``, the head gives the
+rank's vocab slice, and ``loss`` is a vocab-parallel cross entropy (the
+row max, the sum of exps and the target's logit all-reduced in fp32; the
+same value as the full-vocab one).  ``forward`` / ``prefill`` /
+``decode`` return full-vocab logits on every rank.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from repro_torch.fl.engine import resolve_device, set_fp32_policy
 from . import attention as attn_mod
 from . import blocks
 from . import mla as mla_mod
+from . import sharding
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import lecun_normal, norm
@@ -84,9 +94,26 @@ class Model:
 
     # --------------------------------------------------------------- forward
 
+    def _embed(self, params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
+        """Token embeddings; from a vocab shard, the rows this rank holds
+        (zeros elsewhere) summed over the model group."""
+        emb = params["embed"]
+        if not sharding.holds_shard(emb.shape[0], self.cfg.vocab_size):
+            return emb[tokens.long()]
+        local = tokens.long() - self._vocab_start(params)
+        ok = (local >= 0) & (local < emb.shape[0])
+        x = emb[local.clamp(0, emb.shape[0] - 1)]
+        x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+        return sharding.reduce_from_model(x)
+
+    def _vocab_start(self, params: PyTree) -> int:
+        """The first vocab id of this rank's slice of the vocab dim."""
+        return sharding.model_rank()[0] * params["embed"].shape[0]
+
     def _embed_inputs(self, params: PyTree, tokens: torch.Tensor,
                       prefix_emb: Optional[torch.Tensor]) -> torch.Tensor:
-        x = params["embed"][tokens.long()]
+        x = self._embed(params, tokens)
         if self.cfg.frontend:
             if prefix_emb is None:
                 raise ValueError(f"{self.cfg.name} requires prefix embeddings")
@@ -98,20 +125,43 @@ class Model:
         return (params["embed"].T if self.cfg.tie_embeddings
                 else params["lm_head"])
 
+    def _vocab_split(self, params: PyTree) -> bool:
+        return sharding.holds_shard(self._head(params).shape[-1],
+                                    self.cfg.vocab_size)
+
+    def _head_in(self, params: PyTree, x: torch.Tensor) -> torch.Tensor:
+        """The head's input: through ``copy_to_model`` for a vocab shard."""
+        return sharding.copy_to_model(x) if self._vocab_split(params) else x
+
     def _logits(self, params: PyTree, x: torch.Tensor) -> torch.Tensor:
+        """fp32 logits over this rank's vocab slice (all of it without a
+        model group)."""
         x = norm(x, params["final_norm"], self.cfg.norm_type,
                  self.cfg.norm_eps)
-        return (x @ self._head(params)).float()
+        return (self._head_in(params, x) @ self._head(params)).float()
 
-    def forward(self, params: PyTree, tokens: torch.Tensor,
-                prefix_emb: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens (B, K) [, prefix (B, P, fdim)] -> (logits (B, P+K, V), aux)."""
+    def _full_vocab(self, params: PyTree, logits: torch.Tensor
+                    ) -> torch.Tensor:
+        if not self._vocab_split(params):
+            return logits
+        _, m = sharding.model_rank()
+        spec = (None,) * (logits.ndim - 1) + ("model",)
+        return sharding.gather_shard(logits, spec, sharding.model_group(), m)
+
+    def _forward(self, params: PyTree, tokens: torch.Tensor,
+                 prefix_emb: Optional[torch.Tensor]):
         x = self._embed_inputs(params, tokens, prefix_emb)
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux = blocks.stack_forward(self.cfg, params["decoder"], x,
                                       positions)
         return self._logits(params, x), aux
+
+    def forward(self, params: PyTree, tokens: torch.Tensor,
+                prefix_emb: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens (B, K) [, prefix (B, P, fdim)] -> (logits (B, P+K, V), aux)."""
+        logits, aux = self._forward(params, tokens, prefix_emb)
+        return self._full_vocab(params, logits), aux
 
     def loss(self, params: PyTree, batch) -> torch.Tensor:
         """batch = (tokens, targets[, prefix_emb]); targets (B, K) aligned so
@@ -121,15 +171,21 @@ class Model:
         cfg = self.cfg
         P = cfg.frontend_len if cfg.frontend else 0
 
-        def nll_of(logits, tgt):
-            lse = torch.logsumexp(logits, dim=-1)
-            correct = logits.gather(-1, tgt.long()[..., None])[..., 0]
-            return (lse - correct).sum()
+        if self._vocab_split(params):
+            start = self._vocab_start(params)
+
+            def nll_of(logits, tgt):
+                return _nll_vocab_parallel(logits, tgt, start)
+        else:
+            def nll_of(logits, tgt):
+                lse = torch.logsumexp(logits, dim=-1)
+                correct = logits.gather(-1, tgt.long()[..., None])[..., 0]
+                return (lse - correct).sum()
 
         C = cfg.loss_chunk
         S = tokens.shape[1]
         if not (C and S % C == 0 and S > C):
-            logits, aux = self.forward(params, tokens, prefix)
+            logits, aux = self._forward(params, tokens, prefix)
             nll = nll_of(logits[:, P:], targets) / targets.numel()
             return nll + cfg.router_aux_weight * aux
 
@@ -143,7 +199,7 @@ class Model:
         head = self._head(params)
 
         def chunk_nll(h, xc, tc):
-            return (nll_of((xc @ h).float(), tc),)
+            return (nll_of((self._head_in(params, xc) @ h).float(), tc),)
 
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i0 in range(0, S, C):
@@ -208,13 +264,15 @@ class Model:
 
     def prefill(self, params: PyTree, tokens: torch.Tensor,
                 prefix_emb: Optional[torch.Tensor] = None,
-                max_len: Optional[int] = None
+                max_len: Optional[int] = None, flash: bool = False
                 ) -> Tuple[torch.Tensor, PyTree]:
         """Run the prompt, build the decode cache.
 
         Returns (last-position logits (B, V), cache).  ``max_len`` sets the
         ring size (>= prompt length for exact full-context decode; window
-        size for sliding-window archs)."""
+        size for sliding-window archs).  The layers attend with the plain
+        path, as the reference's prefill does, or with the flash kernel
+        (``flash``, GQA only)."""
         cfg = self.cfg
         x = self._embed_inputs(params, tokens, prefix_emb)
         S = x.shape[1]
@@ -222,8 +280,9 @@ class Model:
             max_len = S if cfg.sliding_window is None else cfg.sliding_window
         positions = torch.arange(S, device=x.device)
         x, entries = blocks.stack_prefill(cfg, params["decoder"], x,
-                                          positions)
-        logits = self._logits(params, x[:, -1:])[:, 0]
+                                          positions, flash)
+        logits = self._full_vocab(params,
+                                  self._logits(params, x[:, -1:])[:, 0])
 
         def ring(e):
             """Full-sequence entries, leaves (L, B, S, ...) -> ring
@@ -257,10 +316,10 @@ class Model:
         """One step: token (B,) ints, pos the absolute position of this
         token (int or 0-d tensor).  Returns (logits (B, V), the cache,
         updated in place)."""
-        x = params["embed"][token.long()[:, None]]
+        x = self._embed(params, token.long()[:, None])
         x, cache = blocks.stack_decode(self.cfg, params["decoder"], cache, x,
                                        pos)
-        return self._logits(params, x)[:, 0], cache
+        return self._full_vocab(params, self._logits(params, x)[:, 0]), cache
 
     # ------------------------------------------------------------- utilities
 
@@ -285,3 +344,21 @@ class Model:
 
     def param_count(self, params: PyTree) -> int:
         return int(sum(p.numel() for p in tree_leaves(params)))
+
+
+def _nll_vocab_parallel(logits: torch.Tensor, tgt: torch.Tensor,
+                        start: int) -> torch.Tensor:
+    """The summed cross entropy of fp32 ``logits`` over this rank's vocab
+    slice ``[start, start + V_local)``: the row max, the sum of exps and
+    the target's logit (zero on the ranks that do not hold it) reduced
+    over the model group."""
+    V = logits.shape[-1]
+    mx = sharding.all_reduce_max(logits.amax(-1))
+    sum_exp = sharding.reduce_from_model(
+        torch.exp(logits - mx[..., None]).sum(-1))
+    local = tgt.long() - start
+    ok = (local >= 0) & (local < V)
+    picked = logits.gather(-1, local.clamp(0, V - 1)[..., None])[..., 0]
+    correct = sharding.reduce_from_model(
+        torch.where(ok, picked, torch.zeros_like(picked)))
+    return (torch.log(sum_exp) + mx - correct).sum()

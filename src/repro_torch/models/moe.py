@@ -29,10 +29,18 @@ time in the activation dtype, so a call's result does not depend on the
 order in which atomics land (``index_add_`` on the card), and a replay is
 bitwise.
 
-The reference's expert-parallel path (``_moe_expert_parallel``, GShard
-capacity dispatch over a mesh axis) needs a mesh; without one the
-reference takes the ragged path even with ``moe_sharding='expert'``, and
-so does the port (ROADMAP queue 1 item 13).
+Tensor-parallel experts (the reference's default ``moe_sharding=
+'tensor'``, ``models.sharding``): a rank holds every expert's slice of
+the ffn dim (``gate`` / ``up`` columns, ``down`` rows).  The router runs
+replicated on the whole input and computes the same fp32 ids on every
+rank; the tokens and the routing weights enter the experts through
+``copy_to_model``, both expert paths and the dense oracle run on the
+local ffn slice, and one ``reduce_from_model`` follows the combine.  The
+shared experts split like the MLP.  The reference's expert-parallel path
+(``_moe_expert_parallel``, GShard capacity dispatch over the 'model'
+axis) raises ``NotImplementedError`` under a model group (ROADMAP queue
+1 item 13b-ii); without one the reference takes the ragged path even
+with ``moe_sharding='expert'``, and so does the port.
 
 Shared experts (DeepSeek-V2) are a plain always-on SwiGLU branch.  The
 auxiliary load-balance loss is the Switch/GShard form
@@ -47,6 +55,7 @@ from typing import Any, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import sharding
 from .config import ModelConfig
 from .layers import lecun_normal, mlp_apply, mlp_init
 
@@ -179,10 +188,19 @@ def _dispatch_ragged(cfg: ModelConfig, p: PyTree, xf, w, ids) -> torch.Tensor:
     return out
 
 
-def _moe_ragged(cfg: ModelConfig, p: PyTree, xf: torch.Tensor
+def _expert_inputs(xf, w, split: bool):
+    """The tokens and routing weights as the experts take them: through
+    ``copy_to_model`` when the experts are split."""
+    if not split:
+        return xf, w
+    return sharding.copy_to_model(xf), sharding.copy_to_model(w)
+
+
+def _moe_ragged(cfg: ModelConfig, p: PyTree, xf: torch.Tensor, split: bool
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     T = xf.shape[0]
     w, ids, aux = _route(cfg, p, xf)                     # router on all tokens
+    xf, w = _expert_inputs(xf, w, split)
     C = cfg.moe_chunk
     if not (C and T > C and T % C == 0):
         return _dispatch_ragged(cfg, p, xf, w, ids), aux
@@ -193,10 +211,11 @@ def _moe_ragged(cfg: ModelConfig, p: PyTree, xf: torch.Tensor
     return torch.cat(outs, dim=0), aux
 
 
-def _moe_dense(cfg: ModelConfig, p: PyTree, xf: torch.Tensor
+def _moe_dense(cfg: ModelConfig, p: PyTree, xf: torch.Tensor, split: bool
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     E = cfg.n_experts
     w, ids, aux = _route(cfg, p, xf)
+    xf, w = _expert_inputs(xf, w, split)
     # the one-hot by comparison: ``F.one_hot`` checks its ids on the
     # host, which ``vmap`` cannot batch
     onehot = (ids[..., None] == torch.arange(E, device=ids.device)) \
@@ -212,12 +231,18 @@ def moe_apply(cfg: ModelConfig, p: PyTree, x: torch.Tensor
     """x (B, S, d) -> (y (B, S, d), aux_loss fp32 scalar).  The ragged
     path unless ``cfg.moe_impl`` is 'dense' or this runs inside
     ``torch.func.vmap`` (``expert_route``)."""
+    if cfg.moe_sharding == "expert" or sharding.moe_expert_parallel():
+        sharding.refuse("the expert-parallel MoE")
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
+    split = sharding.holds_shard(p["gate"].shape[-1], cfg.moe_d_ff)
     if cfg.moe_impl == "ragged" and not _under_vmap():
-        out, aux = _moe_ragged(cfg, p, xf)
+        out, aux = _moe_ragged(cfg, p, xf, split)
     else:
-        out, aux = _moe_dense(cfg, p, xf)
+        out, aux = _moe_dense(cfg, p, xf, split)
+    if split:
+        out = sharding.reduce_from_model(out)
     if cfg.n_shared_experts:
-        out = out + mlp_apply(p["shared"], xf, "swiglu")
+        out = out + mlp_apply(p["shared"], xf, "swiglu",
+                              cfg.n_shared_experts * cfg.moe_d_ff)
     return out.reshape(B, S, d), aux

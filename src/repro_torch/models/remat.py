@@ -13,6 +13,15 @@ raise); ``_Remat`` is an ``autograd.Function`` with ``setup_context``
 and ``generate_vmap_rule``, whose backward recomputes through
 ``torch.func.vjp``.  Values and gradients are bitwise those without
 remat; first derivatives only.
+
+Under tensor parallelism (``models.sharding``) a rematerialised layer
+runs its collectives again in the backward pass: the recomputation
+repeats its forward ``all_reduce``s and the vjp runs the backward ones
+of its ``copy_to_model``s.  So every rank of a model group must
+recompute the same layers in the same order, or the ranks wait on each
+other for ever.  They do, since every rank runs the same program on its
+own shards (``tests/test_torch_tp.py`` takes gradients on two ranks with
+``remat`` on).
 """
 
 from __future__ import annotations

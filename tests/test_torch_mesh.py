@@ -485,26 +485,47 @@ def test_mesh_helpers(shape, names, want):
 
 
 @pytest.mark.parametrize("what", ["model_axis", "zero", "prefill", "decode",
-                                  "engine"])
+                                  "engine", "moe_expert", "sp"])
 def test_what_13b_holds_raises(what):
+    """What the port still refuses at a 'model' axis above 1 (ROADMAP
+    item 13b-ii): MLA, the SSD and hybrid families, the expert-parallel
+    MoE and sequence-parallel activations; and ZeRO off 'ring', as the
+    reference refuses it."""
     from repro_torch.configs import get_config
     from repro_torch.fl import distributed as D
     from repro_torch.fl.engine import ExecutionConfig, resolve_backend
+    from repro_torch.models import sharding
 
-    cfg = _cfg(get_config)
-    with pytest.raises(NotImplementedError, match="13b"):
+    def reduced(name):
+        return get_config(name).reduced(d_model=64, vocab=128)
+
+    if what == "zero":
+        with pytest.raises(ValueError, match="ring"):
+            D.make_train_step(_cfg(get_config), _stand_in((2, 2, 1)),
+                              mixing="fused", zero=True)
+        return
+    with pytest.raises(NotImplementedError, match="13b-ii"):
         if what == "model_axis":
-            D.make_train_step(cfg, _stand_in((2, 1, 2)), mixing="einsum")
-        elif what == "zero":
-            D.make_train_step(cfg, _stand_in((2, 2, 1)), mixing="ring",
-                              zero=True)
+            D.make_train_step(reduced("deepseek-v2-236b"),
+                              _stand_in((2, 1, 2)), mixing="einsum")
         elif what == "prefill":
-            D.make_prefill_step(cfg, _stand_in((1, 1, 1)), "data", 64)
+            D.make_prefill_step(reduced("mamba2-1.3b"),
+                                _stand_in((1, 1, 2)), "data", 64)
         elif what == "decode":
-            D.make_decode_step(cfg, _stand_in((1, 1, 1)), "data")
-        else:
+            D.make_decode_step(reduced("deepseek-v2-236b"),
+                               _stand_in((1, 1, 2)), "data")
+        elif what == "engine":
             resolve_backend(ExecutionConfig(mesh=_stand_in((1, 2, 2)),
-                                            model_cfg=cfg))
+                                            model_cfg=reduced("zamba2-2.7b")))
+        elif what == "moe_expert":
+            sharding.set_moe_sharding("expert")
+            try:
+                D.make_train_step(reduced("phi3.5-moe-42b-a6.6b"),
+                                  _stand_in((1, 1, 2)), mixing="fused")
+            finally:
+                sharding.set_moe_sharding("tensor")
+        else:
+            sharding.set_activation_sharding("model", sp_mlp=True)
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.fl.engine import (ExecutionConfig, LocalEngine,
                                    resolve_backend, resolve_device)
 from repro_torch.fl.packing import QuantSpec
@@ -80,10 +81,11 @@ def test_cuda_engine_sets_the_fp32_policy(monkeypatch, device, fp32):
     (ExecutionConfig(backend="pallas", record_mixed=True, quant=QuantSpec()),
      ValueError),
     (ExecutionConfig(backend="sparse", quant="int8"), ValueError),
-    # the mesh runtime's pending half: a 'model' axis above 1 (item 13b)
+    # what a 'model' axis above 1 still leaves out: the SSD family
+    # (item 13b-ii)
     (ExecutionConfig(mesh=SimpleNamespace(
         shape=(1, 2, 2), mesh_dim_names=("pod", "data", "model")),
-        model_cfg=object()), NotImplementedError),
+        model_cfg=get_config("mamba2-1.3b").reduced()), NotImplementedError),
     (ExecutionConfig(stream=StreamConfig(), scan=True), ValueError),
     (ExecutionConfig(backend="aggregate", record_mixed=True), ValueError),
     (ExecutionConfig(backend="nope"), ValueError),
