@@ -204,7 +204,8 @@ Phases (each raises on failure; nothing is caught):
               prefill + decode vs the forward within 2e-3, ragged vs dense
               MoE within 2e-4, chunked vs full MLA within 2e-3.
    lmtrain -- federated LM training (``LMT_*``): stablelm-1.6b at its
-              published widths and full depth in bf16 from random
+              published widths and LMT_LAYERS of its 24 layers in bf16
+              from random
               weights, trained through ``FederatedServer(execution=
               ExecutionConfig(model_cfg=...))`` with per-layer remat,
               chunked attention and a chunked loss: n = 4 clients in c =
@@ -229,31 +230,45 @@ Phases (each raises on failure; nothing is caught):
               bitwise.
    mesh    -- the mesh runtime (``fl/distributed.py``) on a world-size-1
               NCCL group in this process, mesh (1, 1, 1), the same model
-              (1,024 tokens a step): each of the five schedules 2 rounds
-              sequential and scanned (bitwise), against LocalEngine's
+              at MESH_LAYERS layers (1,024 tokens a step): each of the
+              five schedules 2 rounds sequential and scanned (bitwise),
+              against LocalEngine's
               round function at n = 1 (the change from init within
               CHANGE_REL[0]); 'fused' launches
               aggregate once a round.
    tp      -- tensor parallelism inside a client (``models/sharding.py``):
               two ranks spawned on the card (gloo, which takes CUDA
               tensors for all_reduce / broadcast; NCCL refuses two ranks
-              on one device), mesh (1, 1, 2).  (a) The same model and
-              inputs as [mesh] on 'fused' and 'ring', a rank's launches
+              on one device), mesh (1, 1, 2).  (a) The model of [mesh]
+              at all 24 layers and [mesh]'s inputs on 'fused' and
+              'ring', a rank's launches
               counted from 0 ('fused': aggregate once a round on its
               shard), scanned == sequential bitwise, the gathered
               params' change from init after every round within
               TP_CHANGE_REL of LocalEngine's round function's; fp32 pins
               at 2 layers against the one-rank round (rtol 2e-4 / atol
-              2e-5).  (b) qwen2-7b bf16 at full size served through the
+              2e-5); (f) the same on 'ring' with sequence parallelism and
+              the SP-MLP, every sequence collective on gloo's broadcast
+              route.  (b) qwen2-7b bf16 at full size served through the
               mesh prefill / decode steps (2 x 2,048 prompt, 16 decode
               steps; 14 q / 2 kv heads a rank, every flash launch on the
               tensor-core route, and the kernel held against its plain
               version on each rank's own layer-0 q / k / v), max|dlogits| and
               top-1 agreement against the one-device path, then fp32 at
-              4 layers within 2e-4 of it.  GB a rank, ms a round,
-              prefill ms, decode ms a step.  ``phase_tp`` takes the mesh
-              shapes and the backend (four cards: NCCL at (2, 1, 2) with
-              zero on 'ring', qwen3-32b at (1, 1, 4)).
+              4 layers within 2e-4 of it; (c) mamba2-1.3b and zamba2-2.7b
+              whole (32 / 40 SSD heads a rank; zamba2's shared block at
+              16 / 16 heads, head dim 80, through flash) and (d)
+              deepseek-v2 at 1 + TP_DSV2_MOE layers (MLA 64 heads a rank,
+              tensor-parallel experts) the same way, top-1 at least
+              TP_TOP1_MIN for (c)'s archs (no router), fp32 gates on
+              TP_GATE_S tokens; (e) phi3.5-moe at TP_EP_LAYERS layers
+              with moe_sharding='expert' (8 whole experts a rank):
+              forward and gradient against the one-device ragged path,
+              the slots the capacity dropped, an fp32 gate at 8 tokens
+              (nothing can drop).  GB a rank, ms a round, prefill ms,
+              decode ms a step.  ``phase_tp`` takes the mesh shapes and
+              the backend (four cards: NCCL at (1, 2, 2) with zero on
+              'ring', the serving and (e) at (1, 1, 4)).
 6. report  -- a ``{"kernels": [...]}`` JSON line (nine kernels; the
               six routed ones with the ``routes`` of their main-path
               launches; the launches are those of [train], [control],
@@ -3007,6 +3022,10 @@ LMT_ROUNDS, LMT_LOSS_CHUNK, LMT_ETA = 2, 1024, 0.05
 # the fp32 pins at full width and 2 layers, and the mesh phase, take
 # sequences of 1,024 tokens: the width is the test, the length only time
 LMT_PIN_LAYERS, LMT_PIN_S, MESH_S = 2, 1024, 1024
+# [lmtrain] and [mesh] run 6 of the 24 layers (the widths unchanged) so
+# that the script, grown by [tp]'s archs, keeps to its time; [tp] trains
+# all 24
+LMT_LAYERS = MESH_LAYERS = 6
 # bf16 runs against each other are held by their change from the init
 # params, d = params - init, in norm: ||d - d_einsum|| / ||d_einsum||
 # (most bf16 steps round away, so the params themselves differ little
@@ -3149,8 +3168,8 @@ def _bitwise(name, a, b):
 
 def phase_lmtrain(seed: int, counters):
     """Federated training of stablelm-1.6b through Algorithm 1 on one
-    card.  (a) bf16 at full width and depth: 2 rounds on 'einsum', on
-    'fused' (-> aggregate) and on 'fused' with record_mixed (->
+    card.  (a) bf16 at full width and LMT_LAYERS layers: 2 rounds on
+    'einsum', on 'fused' (-> aggregate) and on 'fused' with record_mixed (->
     mix_aggregate) through ``FederatedServer`` with ``model_cfg``, the
     launch counts reset before each and read after; round ms, tokens/s,
     peak GB; the kernel backends' change from init against einsum's
@@ -3176,7 +3195,7 @@ def phase_lmtrain(seed: int, counters):
     from repro_torch.models.model import Model
 
     dev = torch.device("cuda")
-    cfg = lm_train_config()
+    cfg = lm_train_config(n_layers=LMT_LAYERS)
     model = Model(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3472,7 +3491,8 @@ def phase_lmtrain(seed: int, counters):
 def phase_mesh(seed: int, counters) -> int:
     """The mesh runtime (``fl/distributed.py``) on the card: a world-size-1
     NCCL group in this process (a file store in a temporary directory),
-    mesh (1, 1, 1), stablelm-1.6b bf16 at full width and depth, one
+    mesh (1, 1, 1), stablelm-1.6b bf16 at full width and MESH_LAYERS
+    layers, one
     client of MESH_S tokens a step.  Each of the five schedules runs
     LMT_ROUNDS rounds sequentially and scanned (bitwise equal) and is
     held against ``LocalEngine``'s round function at n = 1 on the same
@@ -3490,7 +3510,7 @@ def phase_mesh(seed: int, counters) -> int:
 
     dev = torch.device("cuda")
     torch.cuda.set_device(0)
-    cfg = lm_train_config()
+    cfg = lm_train_config(n_layers=MESH_LAYERS)
     model = Model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(seed + 2))
     sampler = lm_train_data(cfg, seed, MESH_S, n=1)
@@ -3565,11 +3585,41 @@ def phase_mesh(seed: int, counters) -> int:
 
 # The default run: two ranks on the one card (gloo takes CUDA tensors for
 # all_reduce / broadcast; NCCL refuses two ranks on one device), mesh (1,
-# 1, 2).  (a) stablelm-1.6b as [mesh] trains it, on 'fused' and 'ring';
-# (b) qwen2-7b served whole through the mesh prefill / decode steps at m =
-# 2: 28 q / 4 kv heads, 14 / 2 a rank, flash on the tensor-core route.
-TP_SHAPE, TP_BACKEND, TP_MIXINGS = (1, 1, 2), "gloo", ("fused", "ring")
+# 1, 2).  (a) stablelm-1.6b as [mesh] trains it, on 'fused' and 'ring',
+# and (f) on 'ring' with sequence parallelism and the SP-MLP (the
+# sequence collectives' broadcast route); (b) qwen2-7b served whole
+# through the mesh prefill / decode steps at m = 2: 28 q / 4 kv heads, 14
+# / 2 a rank, flash on the tensor-core route; (c) mamba2-1.3b and
+# zamba2-2.7b served whole (SSD heads 32 / 40 a rank, zamba2's shared
+# block 16 / 16 heads at head dim 80 through flash); (d) deepseek-v2 at
+# full width served at 1 + TP_DSV2_MOE layers (MLA 64 heads a rank,
+# tensor-parallel experts); (e) phi3.5-moe at full width, TP_EP_LAYERS
+# layers, one whole expert of 16 in 8 a rank (moe_sharding='expert'):
+# forward and gradient against the one-device ragged path.
+TP_SHAPE, TP_BACKEND = (1, 1, 2), "gloo"
+# (schedule, sequence parallel): (a) and (f)
+TP_CASES = (("fused", False), ("ring", False), ("ring", True))
 TP_SERVE_ARCH, TP_SERVE_LAYERS, TP_SERVE_TOL = "qwen2-7b", 4, 2e-4
+# served archs without a router ((c)): bf16 greedy tokens agree with one
+# device's this often at m = 2
+TP_TOP1_MIN = 0.9
+# (c) / (d): (case, arch, depth (None: whole), fp32 gate layers, bf16
+# top-1 gate (None: printed only)); each fp32 gate prefills TP_GATE_S
+# tokens a row (fewer chances for a router's top-k to flip on a last-bit
+# difference than LM_SEQ)
+TP_DSV2_MOE = 4
+TP_ZOO_SERVE = (("c", "mamba2-1.3b", None, 6, TP_TOP1_MIN),
+                ("c", "zamba2-2.7b", None, 6, TP_TOP1_MIN),
+                ("d", "deepseek-v2-236b", 1 + TP_DSV2_MOE, 2, None))
+TP_GATE_S = 256
+# the cases (c) - (e) phase_tp runs after (a), (f) and (b)
+TP_ZOO = ("c", "d", "e")
+# (e): layers, the bf16 batch (B, S), the fp32 gate's layers and tokens
+# (at 8 tokens top-2 of 16 experts the capacity, max(2 T k / E, 8) = 8,
+# holds every token: no slot can be dropped, so the gate compares the
+# same function)
+TP_EP_ARCH, TP_EP_LAYERS, TP_EP_B, TP_EP_S = "phi3.5-moe-42b-a6.6b", 4, 1, 1024
+TP_EP_GATE_LAYERS, TP_EP_GATE_S = 2, 8
 # flash on a rank's own layer-0 q / k / v against its plain version, bf16
 # ([flash]'s tolerance)
 TP_FLASH_TOL = 2e-2
@@ -3591,26 +3641,61 @@ def layered_params(cfg, seed: int, place=None):
     """Random weights for ``cfg`` drawn on the card a layer at a time (the
     embeddings, head and layer 0 from generator ``seed``, layer i from
     ``seed + i``), each tree kept whole or passed through ``place`` (a
-    tree -> this rank's shards) as it is drawn: beside what is kept, one
-    whole layer is alive at a time (qwen3-32b's 65.5 GB never are)."""
+    tree -> this rank's shards) as it is drawn and written into the
+    stacked leaves: beside what is kept, one whole layer is alive at a
+    time (qwen3-32b's 65.5 GB never are)."""
     import dataclasses
     import torch
-    from repro_torch.core.pytree import tree_map
+    from repro_torch.core.pytree import tree_flatten, tree_unflatten
     from repro_torch.models import blocks
     from repro_torch.models.model import Model
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    one = dataclasses.replace(cfg, n_layers=1)
+    # the first draw holds the leading dense layers (deepseek-v2's) and
+    # one stacked layer; each later draw one stacked layer alone, copied
+    # into its row of the stacked leaves
+    one = dataclasses.replace(cfg, n_layers=cfg.first_dense_layers + 1)
+    rest = dataclasses.replace(cfg, n_layers=1, first_dense_layers=0)
     keep = place or (lambda tree: tree)
     top = keep(Model(one, device=dev).init(
         torch.Generator(device=dev).manual_seed(seed)))
-    layers = [top["decoder"]["layers"]]
-    for i in range(1, cfg.n_layers):
+    first, treedef = tree_flatten(top["decoder"]["layers"])
+    n = cfg.n_layers - cfg.first_dense_layers
+    stacked = [torch.empty((n,) + tuple(a.shape[1:]), dtype=a.dtype,
+                           device=a.device) for a in first]
+    for o, a in zip(stacked, first):
+        o[:1] = a
+    del first, top["decoder"]["layers"]
+    for i in range(1, n):
         d = blocks.stack_init(torch.Generator(device=dev).manual_seed(seed + i),
-                              one, top["final_norm"].dtype)
-        layers.append(keep({"decoder": d})["decoder"]["layers"])
-    top["decoder"]["layers"] = tree_map(lambda *xs: torch.cat(xs), *layers)
+                              rest, top["final_norm"].dtype)
+        layer = keep({"decoder": {"layers": d["layers"]}})["decoder"]["layers"]
+        del d
+        for o, a in zip(stacked, tree_flatten(layer)[0]):
+            o[i:i + 1] = a
+        del layer
+    top["decoder"]["layers"] = tree_unflatten(treedef, stacked)
     return top
+
+
+def _one_rank_at_a_time(mesh, fn):
+    """``fn()`` on each rank of the model group in turn, a barrier
+    between: one rank's transient draws (a whole layer, its fp32 copy)
+    are alive on a shared card at a time, and each rank hands their
+    memory back to the card before the next draws."""
+    import torch
+    import torch.distributed as dist
+
+    m = int(mesh.shape[mesh.mesh_dim_names.index("model")])
+    group = mesh.get_group("model") if m > 1 else None
+    out = None
+    for r in range(m):
+        if int(mesh.get_local_rank("model")) == r:
+            out = fn()
+            torch.cuda.empty_cache()
+        if group is not None:
+            dist.barrier(group=group)
+    return out
 
 
 def _placer(cfg, mesh):
@@ -3630,12 +3715,44 @@ def _placer(cfg, mesh):
     return place
 
 
-def _tp_rank(rank, tmp, shape, backend, zero, serve_arch, serve_shape, seed):
-    """One rank of ``phase_tp`` (a spawned process): (a) and (b) on its
-    shards, its numbers to ``tmp/rank{rank}.json``.  Rank 0 also runs
-    LocalEngine's round function on the whole params and holds the
-    gathered params' change from init to it (``_change_stats``), so no
-    params leave the card."""
+def _timed_launches(t0, counters):
+    """(ms a round since ``t0`` over LMT_ROUNDS rounds, the launches
+    counted)."""
+    import torch
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / LMT_ROUNDS
+    return ms, {k: f.launches for k, f in counters.items() if f.launches}
+
+
+def _count_seq_routes(sharding):
+    """A counter of the routes ``sharding.seq_route`` picks from now on
+    (``.plain``: the function it wraps, to put back)."""
+    import collections
+
+    seen = collections.Counter()
+    plain = sharding.seq_route
+
+    def counted(group, x):
+        route = plain(group, x)
+        seen[route] += 1
+        return route
+
+    seen.plain = plain
+    sharding.seq_route = counted
+    return seen
+
+
+def _case_key(mixing: str, sp: bool) -> str:
+    return f"{mixing}+sp" if sp else mixing
+
+
+def _tp_rank(rank, tmp, shape, backend, zero, serve_arch, serve_shape, seed,
+             zoo):
+    """One rank of ``phase_tp`` (a spawned process): (a), (f), (b) and,
+    and the cases of ``zoo`` among (c) - (e) on its shards, its numbers to
+    ``tmp/rank{rank}.json``.  Rank 0 also runs LocalEngine's round
+    function on the whole params and holds the gathered params' change
+    from init to it (``_change_stats``), so no params leave the card."""
     import faulthandler
     from datetime import timedelta
     sys.path.insert(0, str(ROOT / "src"))
@@ -3645,6 +3762,7 @@ def _tp_rank(rank, tmp, shape, backend, zero, serve_arch, serve_shape, seed):
     from repro_torch.core.rounds import make_round_fn
     from repro_torch.fl import distributed as D
     from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import sharding
     from repro_torch.models.model import Model
 
     # a rank stuck outside a collective (which times out by itself)
@@ -3680,35 +3798,53 @@ def _tp_rank(rank, tmp, shape, backend, zero, serve_arch, serve_shape, seed):
                 refs.append(ref)
             del local_round, ref
             torch.cuda.empty_cache()
-        for mixing in TP_MIXINGS:
-            z = zero and mixing == "ring"
+        for mixing, sp in TP_CASES:
+            key = _case_key(mixing, sp)
+            z = zero and mixing == "ring" and not sp
             local = D.shard_params(params, cfg, mesh, zero=z)
-            if mixing == TP_MIXINGS[-1] and rank:
+            if (mixing, sp) == TP_CASES[-1] and rank:
                 del params
-            step = D.make_train_step(cfg, mesh, mixing=mixing, zero=z)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            dist.barrier()
-            reset_counters(counters)
-            t0 = time.perf_counter()
-            p = local
-            for t in range(LMT_ROUNDS):
-                p = step(p, toks[t], A[t], tau[t], m[t], eta[t])
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3 / LMT_ROUNDS
-            counts = {k: f.launches for k, f in counters.items()
-                      if f.launches}
-            want = {"aggregate": LMT_ROUNDS} if mixing == "fused" else {}
-            if counts != want:
-                raise AssertionError(f"[tp] rank {rank} {mixing}: launches "
-                                     f"{counts}, not {want}")
-            final, seq = D.make_scanned_train_steps(
-                cfg, mesh, LMT_ROUNDS, mixing=mixing, zero=z)(
-                    local, toks, A, tau, m, eta)
-            _bitwise(f"[tp] rank {rank} {mixing} scanned vs sequential",
-                     final, p)
-            out[mixing] = dict(
-                ms=ms, counts=counts,
+            sharding.set_activation_sharding("model" if sp else None,
+                                             sp_mlp=sp)
+            seq_routes = _count_seq_routes(sharding)
+            try:
+                step = D.make_train_step(cfg, mesh, mixing=mixing, zero=z)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                dist.barrier()
+                reset_counters(counters)
+                t0 = time.perf_counter()
+                p = local
+                # (f) is timed on the scanned run alone
+                for t in range(0 if sp else LMT_ROUNDS):
+                    p = step(p, toks[t], A[t], tau[t], m[t], eta[t])
+                if not sp:
+                    ms, counts = _timed_launches(t0, counters)
+                final, seq = D.make_scanned_train_steps(
+                    cfg, mesh, LMT_ROUNDS, mixing=mixing, zero=z)(
+                        local, toks, A, tau, m, eta)
+                if sp:
+                    ms, counts = _timed_launches(t0, counters)
+                    p = final
+                want = {"aggregate": LMT_ROUNDS} if mixing == "fused" \
+                    else {}
+                if counts != want:
+                    raise AssertionError(f"[tp] rank {rank} {key}: "
+                                         f"launches {counts}, not {want}")
+            finally:
+                sharding.set_activation_sharding(None)
+                sharding.seq_route = seq_routes.plain
+            # the sequence collectives ran, on the backend's route, only
+            # where sequence parallelism is on
+            route = "broadcast" if backend == "gloo" else "collective"
+            if (set(seq_routes) != {route}) if sp else bool(seq_routes):
+                raise AssertionError(f"[tp] rank {rank} {key}: sequence "
+                                     f"collectives by route {seq_routes}")
+            if not sp:
+                _bitwise(f"[tp] rank {rank} {key} scanned vs sequential",
+                         final, p)
+            out[key] = dict(
+                ms=ms, counts=counts, seq_routes=dict(seq_routes),
                 local_gb=sum(x.numel() * x.element_size()
                              for x in tree_leaves(p)) / 1e9,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -3720,8 +3856,8 @@ def _tp_rank(rank, tmp, shape, backend, zero, serve_arch, serve_shape, seed):
                                         mesh, zero=z)
                 if rank == 0:
                     r = _change_stats(whole, refs[t], params, dev)
-                    out[f"change/{mixing}/r{t}"] = r
-                    print(f"[tp]   {mixing}{' zero' if z else ''} after "
+                    out[f"change/{key}/r{t}"] = r
+                    print(f"[tp]   {key}{' zero' if z else ''} after "
                           f"round {t}: LocalEngine (n = {world // shape[-1]})"
                           f" moved {r['moved']:.3%} of values from init; "
                           f"the change off by ||d - d_local|| / ||d_local||"
@@ -3735,8 +3871,8 @@ def _tp_rank(rank, tmp, shape, backend, zero, serve_arch, serve_shape, seed):
             del params, refs
         torch.cuda.empty_cache()
 
-        # fp32 pins: one round on each schedule against the one-rank
-        # round function (LocalEngine's) on the whole params
+        # fp32 pins: one round on each case against the one-rank round
+        # function (LocalEngine's) on the whole params
         cfg32 = lm_train_config(n_layers=LMT_PIN_LAYERS, dtype="float32")
         m32 = Model(cfg32)
         p32 = m32.init(torch.Generator(device=dev).manual_seed(seed + 3))
@@ -3744,14 +3880,20 @@ def _tp_rank(rank, tmp, shape, backend, zero, serve_arch, serve_shape, seed):
         want = make_round_fn(m32.loss, "einsum")(
             p32, (x32[..., :-1], x32[..., 1:]), A[0], tau[0], m[0],
             eta[0])[0]
-        for mixing in TP_MIXINGS:
-            z = zero and mixing == "ring"
-            got = D.gather_params(D.make_train_step(
-                cfg32, mesh, mixing=mixing, zero=z)(
-                    D.shard_params(p32, cfg32, mesh, zero=z), x32, A[0],
-                    tau[0], m[0], eta[0]), cfg32, mesh, zero=z)
-            out[f"pin32/{mixing}"] = _leaves_close(
-                f"[tp] rank {rank} fp32 {mixing} vs the one-rank round",
+        for mixing, sp in TP_CASES:
+            key = _case_key(mixing, sp)
+            z = zero and mixing == "ring" and not sp
+            sharding.set_activation_sharding("model" if sp else None,
+                                             sp_mlp=sp)
+            try:
+                got = D.gather_params(D.make_train_step(
+                    cfg32, mesh, mixing=mixing, zero=z)(
+                        D.shard_params(p32, cfg32, mesh, zero=z), x32, A[0],
+                        tau[0], m[0], eta[0]), cfg32, mesh, zero=z)
+            finally:
+                sharding.set_activation_sharding(None)
+            out[f"pin32/{key}"] = _leaves_close(
+                f"[tp] rank {rank} fp32 {key} vs the one-rank round",
                 got, want, ORACLE_F32)
             del got
         del p32, want, m32
@@ -3761,6 +3903,16 @@ def _tp_rank(rank, tmp, shape, backend, zero, serve_arch, serve_shape, seed):
         # client of serve_shape (no batch axis)
         out["serve"] = _tp_serve(rank, serve_arch, serve_shape, seed,
                                  counters)
+        # (c), (d) the SSD, hybrid and MLA archs served; (e) the
+        # expert-parallel MoE
+        for case, arch, depth, gate_layers, top1 in TP_ZOO_SERVE:
+            if case in zoo:
+                out[f"serve/{arch}"] = _tp_serve(
+                    rank, arch, serve_shape, seed, counters, depth=depth,
+                    gate_layers=gate_layers, gate_s=TP_GATE_S,
+                    top1_min=top1)
+        if "e" in zoo:
+            out["ep"] = _tp_ep(rank, serve_shape, seed)
         with open(Path(tmp) / f"rank{rank}.json", "w") as f:
             json.dump(out, f)
         dist.barrier()
@@ -3824,16 +3976,40 @@ def _flash_on_rank(q, k, v, kw) -> dict:
     return res
 
 
-def _tp_serve(rank, arch, shape, seed, counters):
-    """(b) of ``phase_tp`` on one rank: ``arch`` in bf16 at full width
-    and depth on mesh ``shape`` through ``make_prefill_step`` /
-    ``make_decode_step``, LM_BATCH x LM_SEQ prompt tokens and LM_NEW
-    greedy decode steps, launches counted from 0; the flash kernel held
-    against its plain version on the rank's own layer-0 q / k / v (from
-    the warm-up, ``_flash_on_rank``); against the one-device
+def _rank_heads(cfg, local) -> tuple:
+    """The heads a rank's layer 0 holds: (q, kv) of GQA (zamba2's shared
+    block), MLA's q heads, the SSD's heads."""
+    dec = local["decoder"]
+    if cfg.family in ("ssm", "hybrid"):
+        ssd = dec["layers"]["ssm"]["w_x"].shape[-1] // cfg.ssm_head_dim
+        if cfg.family == "ssm":
+            return (ssd,)
+        attn = dec["shared"]["attn"]
+    elif cfg.mla:
+        mla = dec["layers"]["mla"]
+        wq = mla["wq_b"] if cfg.q_lora_rank else mla["wq"]
+        return (wq.shape[-1] // (cfg.nope_head_dim + cfg.rope_head_dim),)
+    else:
+        attn, ssd = dec["layers"]["attn"], None
+    hd = cfg.resolved_head_dim
+    heads = (attn["q"]["w"].shape[-1] // hd, attn["k"]["w"].shape[-1] // hd)
+    return heads if ssd is None else heads + (ssd,)
+
+
+def _tp_serve(rank, arch, shape, seed, counters, depth=None,
+              gate_layers=TP_SERVE_LAYERS, gate_s=None, top1_min=None):
+    """(b) - (d) of ``phase_tp`` on one rank: ``arch`` in bf16 at full
+    width (``depth`` layers, whole by default) on mesh ``shape`` through
+    ``make_prefill_step`` / ``make_decode_step``, LM_BATCH x LM_SEQ prompt
+    tokens and LM_NEW greedy decode steps, launches counted from 0 (flash
+    once a GQA layer, zamba2's shared block once a group); the flash
+    kernel held against its plain version on the rank's own layer-0 q / k
+    / v (from the warm-up, ``_flash_on_rank``); against the one-device
     ``Model.prefill`` / ``decode`` on the same weights where the whole
-    model fits beside the shards; then the fp32 gate at TP_SERVE_LAYERS
-    layers."""
+    model fits beside the other ranks' shards (the greedy tokens' top-1
+    agreement at least ``top1_min`` where given); then the fp32 gate at
+    ``gate_layers`` layers on ``gate_s`` prompt tokens a row (LM_SEQ by
+    default)."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -3846,20 +4022,24 @@ def _tp_serve(rank, arch, shape, seed, counters):
 
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = make_debug_mesh(shape)
-    cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, attn_impl="flash",
+                              n_layers=depth or base.n_layers)
     B, S, new = LM_BATCH, LM_SEQ, LM_NEW
     g = torch.Generator(device=dev).manual_seed(seed + 11)
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
                            device=dev)
-    out = {}
+    flash = expected_flash(cfg)
+    out = {"layers": cfg.n_layers, "top1_min": top1_min}
 
-    def run(c, local, n_new):
+    def run(c, local, toks, n_new):
+        S = toks.shape[1]
         prefill = D.make_prefill_step(c, mesh, (), S + n_new)
         decode = D.make_decode_step(c, mesh, ())
         torch.cuda.synchronize()
         dist.barrier()
         t0 = time.perf_counter()
-        logits, cache = prefill(local, tokens)
+        logits, cache = prefill(local, toks)
         torch.cuda.synchronize()
         pre_ms = (time.perf_counter() - t0) * 1e3
         steps = [logits]
@@ -3871,108 +4051,266 @@ def _tp_serve(rank, arch, shape, seed, counters):
         dec_ms = (time.perf_counter() - t0) * 1e3 / max(n_new - 1, 1)
         return torch.stack(steps, 1), pre_ms, dec_ms
 
+    def one_device(c, seed_w, toks, steps_of):
+        """The one-device prefill and decode on the whole weights, fed
+        the tokens ``steps_of`` picked."""
+        model = Model(c)
+        whole = layered_params(c, seed_w)
+        n = steps_of.shape[1]
+        with torch.no_grad():
+            lg, cache = model.prefill(whole, toks,
+                                      max_len=toks.shape[1] + n)
+            ref = [lg]
+            for i in range(n - 1):
+                lg, cache = model.decode(whole, cache,
+                                         steps_of[:, i].argmax(-1),
+                                         toks.shape[1] + i)
+                ref.append(lg)
+        del whole, cache
+        return torch.stack(ref, 1)
+
     place = _placer(cfg, mesh)
-    local = layered_params(cfg, seed + 10, place)
-    # warm-up; its first flash call's q / k / v are the rank's layer 0
-    q, k, v, kw = _first_flash_call(lambda: run(cfg, local, 2))
-    out["flash"] = _flash_on_rank(q, k, v, kw)
-    del q, k, v
+    local = _one_rank_at_a_time(
+        mesh, lambda: layered_params(cfg, seed + 10, place))
+    if flash:
+        # warm-up; its first flash call's q / k / v are the rank's layer 0
+        q, k, v, kw = _first_flash_call(lambda: run(cfg, local, tokens, 2))
+        out["flash"] = _flash_on_rank(q, k, v, kw)
+        del q, k, v
+    else:
+        run(cfg, local, tokens, 2)
     torch.cuda.reset_peak_memory_stats()
     reset_counters(counters)
-    logits, pre_ms, dec_ms = run(cfg, local, new)
+    logits, pre_ms, dec_ms = run(cfg, local, tokens, new)
     counts = {k: f.launches for k, f in counters.items() if f.launches}
     routes = dict(fa.flash_attention_cuda.routes)
-    if counts != {"flash_attention": cfg.n_layers} or \
-            routes != {"cuda_cores": 0, "tensor_cores": cfg.n_layers}:
-        raise AssertionError(f"[tp] rank {rank} serve: launches {counts}, "
-                             f"routes {routes}, not {cfg.n_layers} "
+    want = {"flash_attention": flash} if flash else {}
+    if counts != want or routes != {"cuda_cores": 0, "tensor_cores": flash}:
+        raise AssertionError(f"[tp] rank {rank} serve {arch}: launches "
+                             f"{counts}, routes {routes}, not {flash} "
                              "flash_attention on the tensor-core route")
     if logits.shape != (B, new, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"[tp] rank {rank}: the served logits are not "
-                             "finite full-vocab rows")
+        raise AssertionError(f"[tp] rank {rank} {arch}: the served logits "
+                             "are not finite full-vocab rows")
     out.update(prefill_ms=pre_ms, decode_ms=dec_ms, counts=counts,
-               routes=routes, heads=(
-                   local["decoder"]["layers"]["attn"]["q"]["w"].shape[-1]
-                   // cfg.resolved_head_dim,
-                   local["decoder"]["layers"]["attn"]["k"]["w"].shape[-1]
-                   // cfg.resolved_head_dim),
+               routes=routes, heads=_rank_heads(cfg, local),
                local_gb=sum(x.numel() * x.element_size()
                             for x in tree_leaves(local)) / 1e9,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     whole_gb = out["local_gb"] * int(shape[-1])
     del local
     torch.cuda.empty_cache()
-    if rank == 0 and whole_gb < 30:
+    if rank == 0 and whole_gb < 45:
         # the one-device path on the same weights, fed the same tokens
-        model = Model(cfg)
-        whole = layered_params(cfg, seed + 10)
-        with torch.no_grad():
-            lg, cache = model.prefill(whole, tokens, max_len=S + new)
-            ref = [lg]
-            for i in range(new - 1):
-                lg, cache = model.decode(whole, cache,
-                                         logits[:, i].argmax(-1), S + i)
-                ref.append(lg)
-        ref = torch.stack(ref, 1)
+        ref = one_device(cfg, seed + 10, tokens, logits)
+        top1 = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
         out["vs_one_device"] = dict(
-            max_abs=float((logits - ref).abs().max()),
-            top1=float((logits.argmax(-1) == ref.argmax(-1)).float().mean()))
-        del whole, cache, ref, lg
+            max_abs=float((logits - ref).abs().max()), top1=top1)
+        del ref
         torch.cuda.empty_cache()
+    ok = torch.tensor([1.0], device=dev)
+    if rank == 0 and "vs_one_device" in out:
+        print(f"[tp]   {arch} bf16 vs one device: {out['vs_one_device']}",
+              flush=True)
+        if top1_min is not None and \
+                out["vs_one_device"]["top1"] < top1_min:
+            ok.zero_()
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    if not ok.item():
+        raise AssertionError(f"[tp] {arch} bf16 top-1 against one device "
+                             f"below {top1_min} (rank 0 printed it)")
     del logits
 
-    small = dataclasses.replace(cfg, n_layers=TP_SERVE_LAYERS,
-                                dtype="float32")
-    local = layered_params(small, seed + 20, _placer(small, mesh))
-    got, _, _ = run(small, local, 2)
+    small = dataclasses.replace(cfg, n_layers=gate_layers, dtype="float32")
+    gate_toks = tokens[:, :gate_s] if gate_s else tokens
+    local = _one_rank_at_a_time(mesh, lambda: layered_params(
+        small, seed + 20, _placer(small, mesh)))
+    got, _, _ = run(small, local, gate_toks, 2)
     del local
+    torch.cuda.empty_cache()
+    ok = torch.tensor([1.0], device=dev)
     if rank == 0:
-        model = Model(small)
-        whole = layered_params(small, seed + 20)
-        with torch.no_grad():
-            lg, cache = model.prefill(whole, tokens, max_len=S + 2)
-            dec, _ = model.decode(whole, cache, got[:, 0].argmax(-1), S)
-        want = torch.stack([lg, dec], 1)
+        want = one_device(small, seed + 20, gate_toks, got)
         d = float((got - want).abs().max())
         out["fp32_gate"] = d
         if not torch.allclose(got, want, rtol=TP_SERVE_TOL,
                               atol=TP_SERVE_TOL):
-            raise AssertionError(
-                f"[tp] fp32 serve at {TP_SERVE_LAYERS} layers: max|d| "
-                f"{d:.3e} against the one-device prefill / decode, beyond "
-                f"{TP_SERVE_TOL}")
-        del whole, cache
+            ok.zero_()
+        del want
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    if not ok.item():
+        raise AssertionError(
+            f"[tp] fp32 serve {arch} at {gate_layers} layers: max|d| "
+            f"{out.get('fp32_gate')} against the one-device prefill / "
+            f"decode, beyond {TP_SERVE_TOL}")
+    out["gate_layers"], out["gate_s"] = gate_layers, gate_toks.shape[1]
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_ep(rank, shape, seed) -> dict:
+    """(e) of ``phase_tp`` on one rank: TP_EP_ARCH at full width and
+    TP_EP_LAYERS layers, bf16, ``moe_sharding='expert'`` (a rank holds
+    E/m whole experts), the loss's forward logits and gradient on a
+    TP_EP_B x TP_EP_S batch against the one-device ragged path on the
+    same weights (rank 0), with the slots the capacity dropped
+    (``moe.ep_stats``, the forward's); then fp32 at TP_EP_GATE_LAYERS
+    layers and TP_EP_GATE_S tokens, where no slot can be dropped: logits
+    and every gradient leaf within rtol / atol TP_SERVE_TOL."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_flatten, tree_leaves
+    from repro_torch.fl import distributed as D
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import moe, sharding
+    from repro_torch.models.model import Model
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_debug_mesh(shape)
+    group = mesh.get_group("model")
+    msize = int(shape[-1])
+    base = dataclasses.replace(get_config(TP_EP_ARCH), moe_sharding="expert",
+                               attn_impl="chunked")
+    g = torch.Generator(device=dev).manual_seed(seed + 31)
+    out = {}
+
+    def case(c, seed_w, B, S):
+        """(local logits, local grads, whole's logits and grads on rank 0
+        else None, ep stats, ms of the sharded forward + gradient)."""
+        toks = torch.randint(0, c.vocab_size, (B, S + 1), generator=g,
+                             device=dev)
+        batch = (toks[:, :-1], toks[:, 1:])
+        model = Model(c)
+        local = _one_rank_at_a_time(
+            mesh, lambda: layered_params(c, seed_w, _placer(c, mesh)))
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with sharding.model_parallel(group):
+            moe.ep_stats_reset()
+            with torch.no_grad():
+                logits = model.forward(local, batch[0])[0]
+            stats = moe.ep_stats()
+            grads = torch.func.grad(model.loss)(local, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        specs = D.param_layout(c, mesh)
+        del local
+        torch.cuda.empty_cache()
+        ref = None
+        if rank == 0:
+            whole = layered_params(c, seed_w)
+            with torch.no_grad():
+                ref_logits = model.forward(whole, batch[0])[0]
+            ref_grads = torch.func.grad(model.loss)(whole, batch)
+            del whole
+            ref = (ref_logits, tree_leaves(ref_grads))
+        return logits, tree_flatten(grads)[0], specs, ref, stats, ms
+
+    def compare(grads, specs, ref, tol=None):
+        """Each gradient leaf gathered in turn; on rank 0 its largest
+        relative norm difference, and with ``tol`` whether all are
+        within it.  Every rank learns the verdict."""
+        worst, ok = 0.0, True
+        for i, (x, spec) in enumerate(zip(grads, specs)):
+            whole = sharding.gather_shard(x, spec, group, msize)
+            if rank == 0:
+                want = ref[1][i]
+                worst = max(worst, float((whole.float() - want.float()).norm()
+                                         / want.float().norm().clamp_min(
+                                             1e-30)))
+                if tol is not None and not torch.allclose(
+                        whole, want, rtol=tol, atol=tol):
+                    ok = False
+            del whole
+        flag = torch.tensor([1.0 if ok else 0.0], device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        return worst, bool(flag.item())
+
+    cfg = dataclasses.replace(base, n_layers=TP_EP_LAYERS)
+    logits, grads, specs, ref, stats, ms = case(cfg, seed + 30, TP_EP_B,
+                                                TP_EP_S)
+    finite = torch.tensor([float(bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(x).all()) for x in grads))], device=dev)
+    dist.all_reduce(finite, op=dist.ReduceOp.MIN)
+    if not finite.item():
+        raise AssertionError("[tp] (e) the expert-parallel logits or "
+                             "gradient are not finite")
+    worst, _ = compare(grads, specs, ref)
+    out.update(layers=cfg.n_layers, experts=cfg.n_experts // msize,
+               stats=stats, ms=ms, grad_rel=worst)
+    if rank == 0:
+        out.update(max_abs=float((logits.float() - ref[0].float()).abs()
+                                 .max()),
+                   top1=float((logits.argmax(-1) == ref[0].argmax(-1))
+                              .float().mean()))
+    del logits, grads, ref
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(base, n_layers=TP_EP_GATE_LAYERS,
+                                dtype="float32")
+    logits, grads, specs, ref, stats, _ = case(small, seed + 40, 1,
+                                               TP_EP_GATE_S)
+    ok = torch.tensor([1.0], device=dev)
+    if rank == 0:
+        out["fp32_logits"] = float((logits - ref[0]).abs().max())
+        if stats["dropped"] or not torch.allclose(
+                logits, ref[0], rtol=TP_SERVE_TOL, atol=TP_SERVE_TOL):
+            ok.zero_()
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    worst, grads_ok = compare(grads, specs, ref, TP_SERVE_TOL)
+    out.update(fp32_grad_rel=worst, fp32_stats=stats)
+    if not (ok.item() and grads_ok):
+        raise AssertionError(f"[tp] (e) fp32 expert-parallel at "
+                             f"{TP_EP_GATE_LAYERS} layers: {out} against "
+                             f"the one-device ragged path, beyond "
+                             f"{TP_SERVE_TOL}")
+    del logits, grads, ref
     torch.cuda.empty_cache()
     return out
 
 
 def phase_tp(seed: int, shape=TP_SHAPE, backend=TP_BACKEND,
              zero: bool = False, serve_arch: str = TP_SERVE_ARCH,
-             serve_shape=None) -> dict:
+             serve_shape=None, zoo=TP_ZOO) -> dict:
     """Tensor parallelism inside a client (``models/sharding.py``, the
     'model' axis of ``fl/distributed.py``): ``prod(shape)`` ranks spawned
     on the cards (rank r on card r % count; two on one card take gloo),
-    mesh ``shape``.  (a) stablelm-1.6b bf16 at full width and depth as
-    [mesh] trains it (MESH_S tokens a step, LMT_T steps, LMT_ROUNDS
-    rounds) on each of TP_MIXINGS ('ring' with ``zero``): every rank's
-    launches counted from 0 ('fused': one aggregate a round on each rank,
-    on its shard), scanned == sequential bitwise, ms a round, GB a rank;
-    the gathered params' change from init after every round within
-    TP_CHANGE_REL of LocalEngine's round function at the same n on the
-    same inputs (what [mesh] holds its world-size-1 run to); fp32 pins at
-    LMT_PIN_LAYERS layers and LMT_PIN_S tokens within rtol 2e-4 / atol
-    2e-5 of the one-rank round.  (b) ``serve_arch`` bf16, full width and
-    depth, on mesh ``serve_shape`` (default ``shape``) through the mesh
-    prefill / decode steps (``_tp_serve``).  Each rank counts its own
-    launches (``kernel_counters`` in its process).  Returns the launches
-    of the main paths summed over the ranks: {"aggregate": ..,
-    "flash_attention": ..}."""
+    mesh ``shape``.  (a) stablelm-1.6b bf16 at full width and depth
+    (MESH_S tokens a step, LMT_T steps, LMT_ROUNDS
+    rounds) on each of TP_CASES ('ring' with ``zero``; (f) 'ring' with
+    sequence parallelism and the SP-MLP): every rank's launches counted
+    from 0 ('fused': one aggregate a round on each rank, on its shard),
+    scanned == sequential bitwise, ms a round, GB a rank; the gathered
+    params' change from init after every round within TP_CHANGE_REL of
+    LocalEngine's round function at the same n on the same inputs (what
+    [mesh] holds its world-size-1 run to); fp32 pins at LMT_PIN_LAYERS
+    layers and LMT_PIN_S tokens within rtol 2e-4 / atol 2e-5 of the
+    one-rank round.  (b) ``serve_arch`` bf16, full width and depth, on
+    mesh ``serve_shape`` (default ``shape``) through the mesh prefill /
+    decode steps (``_tp_serve``); then the cases of ``zoo``: (c) / (d)
+    TP_ZOO_SERVE the same way and (e) the expert-parallel MoE
+    (``_tp_ep``).  Each rank
+    counts its own launches (``kernel_counters`` in its process).
+    Returns the launches of the main paths summed over the ranks:
+    {"aggregate": .., "flash_attention": ..}."""
+    import gc
+    import os
     import tempfile
     import numpy as np
     import torch
     import torch.multiprocessing as mp
 
+    # the ranks share the card with this process: it keeps nothing, and
+    # theirs grow their segments in place (no block stranded between
+    # one arch's tensors and the next's)
+    gc.collect()
+    torch.cuda.empty_cache()
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     serve_shape = tuple(serve_shape or shape)
     world = int(np.prod(shape))
     if int(np.prod(serve_shape)) != world:
@@ -3989,14 +4327,21 @@ def phase_tp(seed: int, shape=TP_SHAPE, backend=TP_BACKEND,
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.split("\n")
+    cases = [_case_key(*c) for c in TP_CASES]
     print(f"[tp] {backend}, {world} ranks on {torch.cuda.device_count()} "
-          f"card(s) ({'; '.join(c for c in cards if c)}); (a) mesh "
+          f"card(s) ({'; '.join(c for c in cards if c)}); (a) / (f) mesh "
           f"{tuple(shape)}: {cfg.name} bf16 "
           f"{cfg.n_layers} layers, {n} client(s), T {LMT_T}, S {MESH_S}, "
-          f"{LMT_ROUNDS} rounds a run on {TP_MIXINGS}"
+          f"{LMT_ROUNDS} rounds a run on {cases}"
           f"{' (ring with zero)' if zero else ''}; (b) mesh {serve_shape}: "
           f"{serve_arch} bf16, {LM_BATCH}x{LM_SEQ} prompt, {LM_NEW} decode "
-          "steps", flush=True)
+          "steps" + "".join(f"; ({c}) {a}" for c, a, *_ in TP_ZOO_SERVE
+                            if c in zoo)
+          + (f"; (e) {TP_EP_ARCH} expert-parallel" if "e" in zoo else "")
+          + f"; this process holds {torch.cuda.memory_allocated() / 1e9:.2f}"
+          f" GB ({torch.cuda.memory_reserved() / 1e9:.2f} reserved)",
+          flush=True)
+    t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         torch.save(dict(toks=toks,
                         A=torch.eye(n).expand(LMT_ROUNDS, n, n).contiguous(),
@@ -4007,7 +4352,7 @@ def phase_tp(seed: int, shape=TP_SHAPE, backend=TP_BACKEND,
                    Path(tmp) / "train.pt")    # A = I: one client a pod
         ctx = mp.start_processes(
             _tp_rank, args=(tmp, tuple(shape), backend, zero, serve_arch,
-                            serve_shape, seed),
+                            serve_shape, seed, zoo),
             nprocs=world, join=False, start_method="spawn")
         deadline = time.time() + 3 * TP_TIMEOUT_S
         try:
@@ -4019,19 +4364,24 @@ def phase_tp(seed: int, shape=TP_SHAPE, backend=TP_BACKEND,
                 if proc.is_alive():
                     proc.kill()
                     proc.join()
+            if alloc_conf is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
         ranks = []
         for r in range(world):
             with open(Path(tmp) / f"rank{r}.json") as f:
                 ranks.append(json.load(f))
-    for mixing in TP_MIXINGS:
-        per = [x[mixing] for x in ranks]
-        rel = [ranks[0][f"change/{mixing}/r{t}"]["rel"]
+    for key in cases:
+        per = [x[key] for x in ranks]
+        rel = [ranks[0][f"change/{key}/r{t}"]["rel"]
                for t in range(LMT_ROUNDS)]
-        print(f"[tp] {mixing}{' zero' if zero and mixing == 'ring' else ''}"
+        print(f"[tp] {key}{' zero' if zero and key == 'ring' else ''}"
               f": {max(x['ms'] for x in per):.1f} ms a round (slowest "
               f"rank), launches a rank "
-              f"{[x['counts'] or 'none' for x in per]}; scanned == "
-              f"sequential bitwise; shards "
+              f"{[x['counts'] or 'none' for x in per]}; "
+              + ("timed on the scanned run" if per[0]["seq_routes"] else
+                 "scanned == sequential bitwise") + "; shards "
               f"{[round(x['local_gb'], 3) for x in per]} GB a rank, peak "
               f"{[round(x['peak_gb'], 2) for x in per]} GB; the change "
               f"off LocalEngine's (n = {n}) by "
@@ -4039,39 +4389,67 @@ def phase_tp(seed: int, shape=TP_SHAPE, backend=TP_BACKEND,
               f"{' / '.join(map(str, range(LMT_ROUNDS)))} "
               f"(gate {TP_CHANGE_REL}); fp32 pin ({LMT_PIN_LAYERS} "
               f"layers, S {LMT_PIN_S}) max|d| "
-              f"{max(x[f'pin32/{mixing}'][0] for x in ranks):.3e}")
-        moved = ranks[0][f"change/{mixing}/r{LMT_ROUNDS - 1}"]["moved"]
+              f"{max(x[f'pin32/{key}'][0] for x in ranks):.3e}"
+              + (f"; sequence collectives a rank by route "
+                 f"{[x['seq_routes'] for x in per]}"
+                 if per[0]["seq_routes"] else ""))
+        moved = ranks[0][f"change/{key}/r{LMT_ROUNDS - 1}"]["moved"]
         if moved < MOVED_MIN or max(rel) > TP_CHANGE_REL:
             raise AssertionError(
-                f"[tp] {mixing} vs LocalEngine: moved {moved:.3%}, the "
+                f"[tp] {key} vs LocalEngine: moved {moved:.3%}, the "
                 f"change off by {rel} after each round, gate "
                 f"{TP_CHANGE_REL}")
-    sv = [x["serve"] for x in ranks]
-    line = (f"[tp] serve {serve_arch}: heads a rank (q, kv) "
-            f"{sv[0]['heads']}; prefill {LM_BATCH}x{LM_SEQ} "
-            f"{max(x['prefill_ms'] for x in sv):.1f} ms, decode "
-            f"{max(x['decode_ms'] for x in sv):.2f} ms a step (slowest "
-            f"rank); {sum(x['counts']['flash_attention'] for x in sv)} "
-            f"flash launches, all tensor-core; weights "
-            f"{[round(x['local_gb'], 2) for x in sv]} GB a rank, peak "
-            f"{[round(x['peak_gb'], 2) for x in sv]} GB")
-    if "vs_one_device" in sv[0]:
-        v = sv[0]["vs_one_device"]
-        line += (f"; vs one device: max|dlogits| {v['max_abs']:.3e}, "
-                 f"top-1 agreement {v['top1']:.4%} (not gated at bf16)")
-    print(line)
-    f = [x["flash"] for x in sv]
-    print(f"[tp]   flash on each rank's layer-0 q / k / v {tuple(f[0]['shape'])}"
-          f" (B, Hq, Hkv, S, hd) {f[0]['dtype']}, route {f[0]['route']}: "
-          f"max|err| {[x['max_abs_err'] for x in f]} against "
-          f"flash_attention_ref (rtol = atol = {TP_FLASH_TOL})")
-    print(f"[tp]   fp32 at {TP_SERVE_LAYERS} layers: max|d| "
-          f"{sv[0]['fp32_gate']:.3e} against the one-device prefill / "
-          f"decode (rtol = atol = {TP_SERVE_TOL})")
+    flash = 0
+    for arch, key in [(serve_arch, "serve")] + (
+            [(a, f"serve/{a}") for c, a, *_ in TP_ZOO_SERVE if c in zoo]):
+        sv = [x[key] for x in ranks]
+        n_flash = sum(x["counts"].get("flash_attention", 0) for x in sv)
+        flash += n_flash
+        line = (f"[tp] serve {arch} at {sv[0]['layers']} layers: heads a "
+                f"rank {sv[0]['heads']}; prefill {LM_BATCH}x{LM_SEQ} "
+                f"{max(x['prefill_ms'] for x in sv):.1f} ms, decode "
+                f"{max(x['decode_ms'] for x in sv):.2f} ms a step (slowest "
+                f"rank); {n_flash} flash launches"
+                f"{', all tensor-core' if n_flash else ''}; weights "
+                f"{[round(x['local_gb'], 2) for x in sv]} GB a rank, peak "
+                f"{[round(x['peak_gb'], 2) for x in sv]} GB")
+        if "vs_one_device" in sv[0]:
+            v = sv[0]["vs_one_device"]
+            gate = sv[0]["top1_min"]
+            line += (f"; vs one device: max|dlogits| {v['max_abs']:.3e}, "
+                     f"top-1 agreement {v['top1']:.4%} "
+                     + (f"(gate {gate})" if gate else "(not gated at bf16)"))
+        print(line)
+        if "flash" in sv[0]:
+            f = [x["flash"] for x in sv]
+            print(f"[tp]   flash on each rank's layer-0 q / k / v "
+                  f"{tuple(f[0]['shape'])} (B, Hq, Hkv, S, hd) "
+                  f"{f[0]['dtype']}, route {f[0]['route']}: max|err| "
+                  f"{[x['max_abs_err'] for x in f]} against "
+                  f"flash_attention_ref (rtol = atol = {TP_FLASH_TOL})")
+        print(f"[tp]   fp32 at {sv[0]['gate_layers']} layers, S "
+              f"{sv[0]['gate_s']}: max|d| "
+              f"{sv[0]['fp32_gate']:.3e} against the one-device prefill / "
+              f"decode (rtol = atol = {TP_SERVE_TOL})")
+    if "e" in zoo:
+        e = ranks[0]["ep"]
+        print(f"[tp] (e) {TP_EP_ARCH} at {e['layers']} layers, "
+              f"moe_sharding='expert', {e['experts']} whole experts a "
+              f"rank: forward + gradient {TP_EP_B}x{TP_EP_S} "
+              f"{max(x['ep']['ms'] for x in ranks):.1f} ms (slowest rank); "
+              f"slots dropped by the capacity {e['stats']['dropped']} of "
+              f"{e['stats']['slots']} ({e['stats']['calls']} layers); vs "
+              f"the one-device ragged path: max|dlogits| "
+              f"{e['max_abs']:.3e}, top-1 {e['top1']:.4%}, gradient "
+              f"max ||d|| / ||g|| over leaves {e['grad_rel']:.3e}; fp32 at "
+              f"{TP_EP_GATE_LAYERS} layers, {TP_EP_GATE_S} tokens "
+              f"({e['fp32_stats']['dropped']} dropped): logits max|d| "
+              f"{e['fp32_logits']:.3e}, gradient max ||d|| / ||g|| "
+              f"{e['fp32_grad_rel']:.3e} (rtol = atol = {TP_SERVE_TOL})")
+    print(f"[tp] phase {time.perf_counter() - t_phase:.1f} s")
     return {"aggregate": sum(x["fused"]["counts"].get("aggregate", 0)
                              for x in ranks),
-            "flash_attention": sum(x["counts"]["flash_attention"]
-                                   for x in sv)}
+            "flash_attention": flash}
 
 
 def main() -> int:
@@ -4088,11 +4466,19 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"[env] {name}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+
+    def lap(what):
+        print(f"[time] {what} done, {time.perf_counter() - t0:.1f} s since "
+              "the build began", flush=True)
+
     phase_build()
+    lap("[build]")
     rows = phase_kernels(70, 1_663_488)
     rows += phase_sparse_kernels(SEED)
     rows += phase_quant_kernels(SEED)
     phase_gemv(SEED)
+    lap("[kernels] [sparse] [quant] [gemv]")
     rows.append(phase_flash(SEED))
     launches, routes = phase_train(ROUNDS, SEED)
     control_launches, control_routes = phase_control(ROUNDS, SEED)
@@ -4102,19 +4488,24 @@ def main() -> int:
         for r, count in by_route.items():
             routes[kernel][r] += count
     phase_hetero(SEED)
+    lap("[flash] [train] [control] [hetero]")
     launches["aggregate"] += phase_quickstart(kernel_counters())
     launches["aggregate"] += phase_stream(STREAM_ROUNDS, SEED)
     launches["aggregate"] += phase_ingest(STREAM_ROUNDS, SEED)
     phase_scale(SEED)
+    lap("[quickstart] [stream] [ingest] [scale]")
     launches["flash_attention"] = phase_lm(SEED, kernel_counters())
     launches["flash_attention"] += phase_zoo(SEED, kernel_counters())
+    lap("[lm] [zoo]")
     lm_launches, lm_rows = phase_lmtrain(SEED, kernel_counters())
     for kernel, count in lm_launches.items():
         launches[kernel] += count
     routes["mix_aggregate"]["staged"] += lm_launches["mix_aggregate"]
     launches["aggregate"] += phase_mesh(SEED, kernel_counters())
+    lap("[lmtrain] [mesh]")
     for kernel, count in phase_tp(SEED).items():
         launches[kernel] += count
+    lap("[tp]")
     for row in rows:
         if row["name"] in lm_rows:
             row["lm_payload"] = lm_rows[row["name"]]

@@ -59,7 +59,9 @@ D2S reduce-scatters each such leaf over 'data' and all-reduces it over
 ``make_prefill_step`` / ``make_decode_step`` run ``Model.prefill`` /
 ``decode`` on a rank's rows of the batch (``batch_rows`` over
 ``batch_axes``) and its shards of the weights; the logits come back
-full-vocab and the cache holds the rank's rows and kv heads.
+full-vocab and the cache holds the rank's rows and what its layers read:
+its kv heads, the whole MLA latent ring, its SSD heads and conv
+channels.
 
 Collectives run on the mesh's process groups: gloo ranks on the CPU,
 NCCL ranks one card each, or gloo ranks sharing a card (gloo takes CUDA
@@ -67,10 +69,12 @@ tensors for ``all_reduce`` and ``broadcast``; a one-rank group's gather
 is the row itself).  fp8 containers travel as their bytes; every other
 row in its own dtype, and sums run in the payload's own dtype.
 
-Left for ROADMAP queue 1 item 13b-ii, each a ``NotImplementedError`` at a
-'model' axis above 1 (``check_mesh``): MLA, the SSD (mamba2) and hybrid
-families, the expert-parallel MoE, and sequence-parallel activations
-(SP-MLP).
+At a 'model' axis above 1 every family runs on its shards
+(``models.sharding``): attention, MLA, the SSD and hybrid stacks, the
+MLP and both MoE layouts (tensor-parallel experts, or whole experts a
+rank with ``moe_sharding='expert'``); sequence parallelism and the
+SP-MLP follow ``sharding.set_activation_sharding``, as in the reference,
+which reaches them through its global settings too.
 """
 
 from __future__ import annotations
@@ -100,7 +104,7 @@ PyTree = Any
 
 __all__ = ["make_train_step", "make_scanned_train_steps",
            "make_prefill_step", "make_decode_step",
-           "build_topology_inputs", "init_rank_quant_state", "check_mesh",
+           "build_topology_inputs", "init_rank_quant_state",
            "mesh_device", "zero_specs", "param_layout", "shard_params",
            "gather_params", "batch_rows", "MIXINGS"]
 
@@ -113,27 +117,6 @@ def mesh_device(mesh) -> torch.device:
     if mesh.device_type == "cpu":
         return torch.device("cpu")
     return torch.device(mesh.device_type, torch.cuda.current_device())
-
-
-def check_mesh(mesh, cfg: Optional[ModelConfig] = None) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run at a
-    'model' axis above 1 (ROADMAP queue 1 item 13b-ii): MLA, the SSD and
-    hybrid families, the expert-parallel MoE."""
-    msize = model_axis_size(mesh)
-    if msize == 1 or cfg is None:
-        return
-    what = None
-    if cfg.family in ("ssm", "hybrid"):
-        what = f"the {cfg.family} family (SSD blocks)"
-    elif cfg.mla:
-        what = "MLA attention"
-    elif cfg.n_experts and (cfg.moe_sharding == "expert"
-                            or sharding.moe_expert_parallel()):
-        what = "the expert-parallel MoE"
-    if what is not None:
-        raise NotImplementedError(
-            f"{what} at a 'model' mesh axis of {msize} (tensor "
-            f"parallelism) is not ported ({sharding.ITEM_13B_II})")
 
 
 def zero_specs(specs: PyTree, params: PyTree, data_size: int) -> PyTree:
@@ -481,9 +464,13 @@ def make_train_step(cfg: ModelConfig, mesh, mixing: str = "ring",
     returns ``(new_global, new_qstate)``.  ``zero`` ('ring' only): the
     global params are also split over 'data' (module docstring).
 
-    ``client_impl`` is accepted for the reference's API only: at one
-    client a rank both values run the same computation (the 'shardmap'
-    step's SP-MLP and expert-parallel MoE are ROADMAP item 13b-ii)."""
+    ``client_impl``: the reference's 'vmap' and 'shardmap' are the same
+    step here, one client a rank run by hand.  The reference needs
+    'shardmap' to nest its manual 'model'-axis collectives (the SP-MLP,
+    the expert-parallel MoE) in the client step; the port runs them in
+    either, reached through the same global settings
+    (``sharding.set_activation_sharding``, ``set_moe_sharding``) and
+    ``cfg.moe_sharding``."""
     if mixing not in MIXINGS:
         raise ValueError(f"mixing must be one of {MIXINGS}")
     if zero and mixing != "ring":
@@ -494,7 +481,6 @@ def make_train_step(cfg: ModelConfig, mesh, mixing: str = "ring",
         raise ValueError(
             "quantized payloads on the mesh runtime require the one-pass "
             f"'fused' or 'fused_rs' schedules, got {mixing!r}")
-    check_mesh(mesh, cfg)
     ax = _Axes(mesh)
     model = Model(cfg, device=mesh_device(mesh))
     zero_dims = None
@@ -580,7 +566,6 @@ def init_rank_quant_state(params: PyTree, quant, mesh, mixing: str):
 
 
 def _serve_setup(cfg: ModelConfig, mesh):
-    check_mesh(mesh, cfg)
     model = Model(cfg, device=mesh_device(mesh))
     group = mesh.get_group("model") if model_axis_size(mesh) > 1 else None
     return model, group

@@ -42,9 +42,8 @@ record_mixed and the sparse backends are refused, as is ``runtime``
 without ``stream``.  The mesh runtime needs ``model_cfg`` (its steps
 train ``Model(model_cfg).loss``; the server's ``loss_fn`` is unused) and
 takes per-round token arrays ``(n, T, B_local, S+1)`` as its batches; at
-a 'model' axis above 1 each rank trains its tensor-parallel shards, and
-what the port leaves out there (MLA, SSD, hybrid, the expert-parallel
-MoE) raises ``NotImplementedError`` naming ROADMAP queue 1 item 13b-ii.
+a 'model' axis above 1 each rank trains its tensor-parallel shards, for
+every family of the zoo.
 
 Quantized payloads: ``ExecutionConfig.quant`` (or, when it is None, the
 plan's ``quant``) quantizes every client upload (``QuantSpec``); the
@@ -176,10 +175,8 @@ def _resolve_stream_backend(cfg: ExecutionConfig) -> str:
 
 
 def _resolve_mesh_backend(cfg: ExecutionConfig) -> str:
-    """The mesh runtime's part of the matrix (``resolve_backend``); what
-    a 'model' axis above 1 does not run raises ``NotImplementedError``
-    (``distributed.check_mesh``)."""
-    from .distributed import MIXINGS, check_mesh
+    """The mesh runtime's part of the matrix (``resolve_backend``)."""
+    from .distributed import MIXINGS
 
     if cfg.model_cfg is None:
         raise ValueError("mesh runtime requires model_cfg")
@@ -196,7 +193,6 @@ def _resolve_mesh_backend(cfg: ExecutionConfig) -> str:
                 "quantized payloads on the mesh runtime require the "
                 f"one-pass 'fused' or 'fused_rs' schedules, got "
                 f"{cfg.backend!r}")
-    check_mesh(cfg.mesh, cfg.model_cfg)
     return cfg.backend
 
 

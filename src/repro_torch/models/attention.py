@@ -17,6 +17,10 @@ q / k / v (column slices, with their biases) and the matching rows of
 ``o``.  The head counts come from the local weights' widths, so GQA
 groups the rank's heads, flash runs on them unchanged, the KV cache holds
 them, and ``o``'s partial sums leave through ``reduce_from_model``.
+With ``seq`` (sequence parallelism) the full-sequence paths take the
+rank's rows of the sequence and return its rows: the input is gathered
+(``sharding.enter``) and the output reduce-scattered, or, for attention
+that runs whole, cut to the rank's rows (``sharding.leave``).
 """
 
 from __future__ import annotations
@@ -164,13 +168,13 @@ def _chunked_sdpa(q, k, v, window: Optional[int], cfg: ModelConfig):
 
 def attention_full(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
                    positions: torch.Tensor,
-                   window: Optional[int] = "cfg") -> torch.Tensor:
+                   window: Optional[int] = "cfg",
+                   seq: bool = False) -> torch.Tensor:
     """Full-sequence causal attention (training / scoring compute)."""
     if window == "cfg":
         window = cfg.sliding_window
     split = _split(cfg, p)
-    if split:
-        x = sharding.copy_to_model(x)
+    x = sharding.enter(x, split, seq)
     q, k, v = _project_qkv(cfg, p, x, positions)
     if cfg.attn_impl == "flash":
         out = flash_ops.flash_attention(q, k, v, causal=True, window=window)
@@ -180,18 +184,18 @@ def attention_full(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
     else:
         mask = _causal_mask(x.shape[1], window, x.device)
         out = _sdpa(q, k, v, mask, cfg)
-    y = out @ p["o"]["w"]
-    return sharding.reduce_from_model(y) if split else y
+    return sharding.leave(out @ p["o"]["w"], split, seq)
 
 
 def attention_prefill(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
-                      positions: torch.Tensor, flash: bool = False):
+                      positions: torch.Tensor, flash: bool = False,
+                      seq: bool = False):
     """Full-sequence attention that also returns its K/V for the cache:
-    (y (B,S,D), k, v (B,S,Hkv,hd)).  Attends with the plain ``_sdpa``, as
-    the reference's prefill does, or with ``flash``."""
+    (y (B,S,D), k, v (B,S,Hkv,hd)), k / v over the whole sequence.
+    Attends with the plain ``_sdpa``, as the reference's prefill does, or
+    with ``flash``."""
     split = _split(cfg, p)
-    if split:
-        x = sharding.copy_to_model(x)
+    x = sharding.enter(x, split, seq)
     q, k, v = _project_qkv(cfg, p, x, positions)
     if flash:
         out = flash_ops.flash_attention(q, k, v, causal=True,
@@ -200,8 +204,7 @@ def attention_prefill(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
     else:
         mask = _causal_mask(x.shape[1], cfg.sliding_window, x.device)
         out = _sdpa(q, k, v, mask, cfg)
-    y = out @ p["o"]["w"]
-    return (sharding.reduce_from_model(y) if split else y), k, v
+    return sharding.leave(out @ p["o"]["w"], split, seq), k, v
 
 
 # ---------------------------------------------------------------------------

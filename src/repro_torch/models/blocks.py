@@ -29,11 +29,18 @@ As in the reference, prefill attends with the plain ``_sdpa`` whatever
 prefill step does); ``stack_forward`` reaches the flash kernel with
 ``cfg.attn_impl == 'flash'``.
 
-Under a model group (``models.sharding``) the transformer blocks run on a
-rank's tensor-parallel shards (attention by whole heads, the MLP and the
-MoE experts by ffn columns); the Mamba2 block, MLA and the hybrid stack
-raise ``NotImplementedError`` there (ROADMAP queue 1 item 13b-ii).  The
-reference's sequence-parallel hooks are not ported.
+Under a model group (``models.sharding``) every block runs on a rank's
+tensor-parallel shards: attention and MLA by whole heads, the Mamba2
+block by whole SSD heads, the MLP by ffn columns, the MoE experts by ffn
+columns or, expert-parallel, by whole experts; zamba2's shared block
+splits like any transformer block.  With ``seq`` (sequence parallelism,
+``sharding.seq_parallel``: the reference's ``constrain_seq`` around every
+block) the residual stream between blocks is the rank's rows of the
+sequence: the norms run on those rows, attention, MLA, the SSD and the
+MoE gather their input and reduce-scatter their output
+(``sharding.enter`` / ``leave``), and a SwiGLU MLP is the explicit
+``mlp_apply_sp``.  The forward and the prefill take ``seq``; a decode
+step (one position) runs plain tensor parallelism.
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ from . import moe as moe_mod
 from . import sharding
 from . import ssm as ssm_mod
 from .config import ModelConfig
-from .layers import mlp_apply, mlp_init, norm
+from .layers import mlp_apply, mlp_apply_sp, mlp_init, norm
 from .remat import remat
 
 PyTree = Any
@@ -146,70 +153,76 @@ def hybrid_groups(cfg: ModelConfig) -> Tuple[int, int]:
 # Per-layer forward / prefill / decode
 # ---------------------------------------------------------------------------
 
-def _ffn_half(cfg: ModelConfig, p: PyTree, x: torch.Tensor):
+def _norm(cfg: ModelConfig, x, scale, seq: bool):
+    """A block's norm, on the rank's rows under ``seq`` (its scale through
+    ``sharding.seq_weight``)."""
+    return norm(x, sharding.seq_weight(scale, seq), cfg.norm_type,
+                cfg.norm_eps)
+
+
+def _ffn_half(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
+              seq: bool = False):
     """x + FFN(norm(x)) -> (x, aux or None): the MoE FFN where the layer
-    has one, else the MLP."""
-    h = norm(x, p["ln2"], cfg.norm_type, cfg.norm_eps)
+    has one, else the MLP (``mlp_apply_sp`` for SwiGLU under ``seq``)."""
+    h = _norm(cfg, x, p["ln2"], seq)
     if "moe" in p:
-        y, aux = moe_mod.moe_apply(cfg, p["moe"], h)
+        y, aux = moe_mod.moe_apply(cfg, p["moe"], h, seq)
         return x + y, aux
-    return x + mlp_apply(p["mlp"], h, cfg.mlp_type, cfg.d_ff), None
+    if seq and cfg.mlp_type == "swiglu":
+        return x + mlp_apply_sp(p["mlp"], h, d_ff=cfg.d_ff), None
+    return x + mlp_apply(p["mlp"], h, cfg.mlp_type, cfg.d_ff, seq), None
 
 
-def _tf_block_forward(cfg: ModelConfig, p: PyTree, x, positions):
-    h = norm(x, p["ln1"], cfg.norm_type, cfg.norm_eps)
+def _tf_block_forward(cfg: ModelConfig, p: PyTree, x, positions,
+                      seq: bool = False):
+    h = _norm(cfg, x, p["ln1"], seq)
     if cfg.mla:
-        sharding.refuse("MLA attention")
-        x = x + mla_mod.mla_full(cfg, p["mla"], h, positions)
+        x = x + mla_mod.mla_full(cfg, p["mla"], h, positions, seq=seq)
     else:
-        x = x + attn.attention_full(cfg, p["attn"], h, positions)
-    return _ffn_half(cfg, p, x)
+        x = x + attn.attention_full(cfg, p["attn"], h, positions, seq=seq)
+    return _ffn_half(cfg, p, x, seq)
 
 
 def _tf_block_prefill(cfg: ModelConfig, p: PyTree, x, positions,
-                      flash: bool = False):
+                      flash: bool = False, seq: bool = False):
     """Returns (x, entry) where entry holds this layer's full-sequence KV
     (GQA: ``k``/``v``; MLA: the latents ``ckv``/``krope``), scattered to
     the ring at model level."""
-    h = norm(x, p["ln1"], cfg.norm_type, cfg.norm_eps)
+    h = _norm(cfg, x, p["ln1"], seq)
     if cfg.mla:
-        sharding.refuse("MLA attention")
-        c_kv, k_rope = mla_mod._latents(cfg, p["mla"], h, positions)
-        x = x + mla_mod.mla_full(cfg, p["mla"], h, positions)
+        a, (c_kv, k_rope) = mla_mod.mla_full(cfg, p["mla"], h, positions,
+                                             seq=seq, latents=True)
+        x = x + a
         entry = {"ckv": c_kv, "krope": k_rope}
     else:
         a, k, v = attn.attention_prefill(cfg, p["attn"], h, positions,
-                                         flash)
+                                         flash, seq)
         x = x + a
         entry = {"k": k, "v": v}
-    return _ffn_half(cfg, p, x)[0], entry
+    return _ffn_half(cfg, p, x, seq)[0], entry
 
 
 def _tf_block_decode(cfg: ModelConfig, p: PyTree, x, cache, pos):
     h = norm(x, p["ln1"], cfg.norm_type, cfg.norm_eps)
     if cfg.mla:
-        sharding.refuse("MLA attention")
         a, cache = mla_mod.mla_decode(cfg, p["mla"], h, cache, pos)
     else:
         a, cache = attn.attention_decode(cfg, p["attn"], h, cache, pos)
     return _ffn_half(cfg, p, x + a)[0], cache
 
 
-def _mamba_block_forward(cfg: ModelConfig, p: PyTree, x):
-    sharding.refuse("the Mamba2 (SSD) block")
-    h = norm(x, p["ln1"], cfg.norm_type, cfg.norm_eps)
-    return x + ssm_mod.ssm_forward(cfg, p["ssm"], h)
+def _mamba_block_forward(cfg: ModelConfig, p: PyTree, x, seq: bool = False):
+    h = _norm(cfg, x, p["ln1"], seq)
+    return x + ssm_mod.ssm_forward(cfg, p["ssm"], h, seq)
 
 
-def _mamba_block_prefill(cfg: ModelConfig, p: PyTree, x):
-    sharding.refuse("the Mamba2 (SSD) block")
-    h = norm(x, p["ln1"], cfg.norm_type, cfg.norm_eps)
-    y, state, conv_tail = ssm_mod.ssm_prefill(cfg, p["ssm"], h)
+def _mamba_block_prefill(cfg: ModelConfig, p: PyTree, x, seq: bool = False):
+    h = _norm(cfg, x, p["ln1"], seq)
+    y, state, conv_tail = ssm_mod.ssm_prefill(cfg, p["ssm"], h, seq)
     return x + y, {"state": state, "conv": conv_tail}
 
 
 def _mamba_block_decode(cfg: ModelConfig, p: PyTree, x, cache):
-    sharding.refuse("the Mamba2 (SSD) block")
     h = norm(x, p["ln1"], cfg.norm_type, cfg.norm_eps)
     y, cache = ssm_mod.ssm_decode(cfg, p["ssm"], h, cache)
     return x + y, cache
@@ -226,12 +239,13 @@ def _stack_entries(entries) -> PyTree:
 # ---------------------------------------------------------------------------
 
 def stack_forward(cfg: ModelConfig, params: PyTree, x: torch.Tensor,
-                  positions: torch.Tensor
+                  positions: torch.Tensor, seq: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """With ``cfg.remat`` each stacked layer's body (zamba2: each group's
     Mamba blocks and its shared block) is rematerialised (``remat``), as
     the reference checkpoints its scan bodies; the leading dense layers
-    are not, as there."""
+    are not, as there.  ``seq``: ``x`` is the rank's rows of the sequence
+    and so is the result (``positions`` stay the whole sequence's)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = params["layers"]
 
@@ -240,7 +254,7 @@ def stack_forward(cfg: ModelConfig, params: PyTree, x: torch.Tensor,
 
     if cfg.family == "ssm":
         def mamba(p, h):
-            return (_mamba_block_forward(cfg, p, h),)
+            return (_mamba_block_forward(cfg, p, h, seq),)
 
         for lp in _unstacked(layers):
             x, = run(mamba, lp, x)
@@ -252,8 +266,8 @@ def stack_forward(cfg: ModelConfig, params: PyTree, x: torch.Tensor,
 
         def group(p, h, pos):
             for lp in p["mamba"]:
-                h = _mamba_block_forward(cfg, lp, h)
-            return (_tf_block_forward(cfg, p["shared"], h, pos)[0],)
+                h = _mamba_block_forward(cfg, lp, h, seq)
+            return (_tf_block_forward(cfg, p["shared"], h, pos, seq)[0],)
 
         for g in range(n_groups):
             gp = {"mamba": per_layer[g * every:(g + 1) * every],
@@ -264,10 +278,10 @@ def stack_forward(cfg: ModelConfig, params: PyTree, x: torch.Tensor,
     # transformer families (dense / moe / audio / vlm); the aux loss sums
     # over the stacked layers, as the reference's scan carry does
     for dp in params.get("dense_layers", []):
-        x, _ = _tf_block_forward(cfg, dp, x, positions)
+        x, _ = _tf_block_forward(cfg, dp, x, positions, seq)
 
     def layer(p, h, pos):
-        h, a = _tf_block_forward(cfg, p, h, pos)
+        h, a = _tf_block_forward(cfg, p, h, pos, seq)
         return (h,) if a is None else (h, a)
 
     for lp in _unstacked(layers):
@@ -279,12 +293,14 @@ def stack_forward(cfg: ModelConfig, params: PyTree, x: torch.Tensor,
 
 
 def stack_prefill(cfg: ModelConfig, params: PyTree, x, positions,
-                  flash: bool = False):
+                  flash: bool = False, seq: bool = False):
     """Returns (x, caches): ``caches["layers"]`` holds the stacked layers'
     entries (leaves (L, B, ...)); ``caches["shared"]`` zamba2's shared
     block's, one a group (leaves (n_groups, B, S, ...)); and
     ``caches["dense_layers"]`` a list of the leading dense layers'.
-    ``flash``: GQA attention through the flash kernel."""
+    ``flash``: GQA attention through the flash kernel.  ``seq``: ``x`` is
+    the rank's rows of the sequence (and so is the result); the entries
+    cover the whole sequence."""
     layers = params["layers"]
     if cfg.family in ("ssm", "hybrid"):
         n_groups, every = ((1, cfg.n_layers) if cfg.family == "ssm"
@@ -292,11 +308,11 @@ def stack_prefill(cfg: ModelConfig, params: PyTree, x, positions,
         m_entries, s_entries = [], []
         for g in range(n_groups):
             for i in range(g * every, (g + 1) * every):
-                x, e = _mamba_block_prefill(cfg, _layer(layers, i), x)
+                x, e = _mamba_block_prefill(cfg, _layer(layers, i), x, seq)
                 m_entries.append(e)
             if cfg.family == "hybrid":
                 x, e = _tf_block_prefill(cfg, params["shared"], x, positions,
-                                         flash)
+                                         flash, seq)
                 s_entries.append(e)
         caches = {"layers": _stack_entries(m_entries)}
         if s_entries:
@@ -306,12 +322,12 @@ def stack_prefill(cfg: ModelConfig, params: PyTree, x, positions,
     caches: PyTree = {}
     dense = []
     for dp in params.get("dense_layers", []):
-        x, e = _tf_block_prefill(cfg, dp, x, positions, flash)
+        x, e = _tf_block_prefill(cfg, dp, x, positions, flash, seq)
         dense.append(e)
     entries = []
     for i in range(cfg.n_layers - cfg.first_dense_layers):
         x, e = _tf_block_prefill(cfg, _layer(layers, i), x, positions,
-                                 flash)
+                                 flash, seq)
         entries.append(e)
     caches["layers"] = _stack_entries(entries)
     if dense:

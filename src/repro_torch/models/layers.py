@@ -9,8 +9,10 @@ before its products, and the GELU MLP uses the tanh approximation, as
 on; they draw other numbers than ``jax.random`` from the same seed, so
 the tests carry the reference's parameters across
 (``models.convert.params_from_numpy``).  ``mlp_apply`` runs a
-tensor-parallel shard too (``models.sharding``); the reference's
-``mlp_apply_sp`` (SP-MLP) is ROADMAP queue 1 item 13b-ii.
+tensor-parallel shard too (``models.sharding``), on the whole sequence or
+on the rank's rows of it (sequence parallelism); ``mlp_apply_sp`` is the
+reference's explicit SP-MLP; ``rms_norm_split`` normalises a width split
+over the model group.
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ from . import sharding
 
 PyTree = Any
 
-__all__ = ["rms_norm", "layer_norm", "norm", "rope_angles", "apply_rope",
-           "mlp_init", "mlp_apply", "dense_init", "he_normal", "lecun_normal"]
+__all__ = ["rms_norm", "rms_norm_split", "layer_norm", "norm",
+           "rope_angles", "apply_rope", "mlp_init", "mlp_apply",
+           "mlp_apply_sp", "dense_init", "he_normal", "lecun_normal"]
 
 
 # ---------------------------------------------------------------------------
@@ -67,6 +70,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     x32 = x.float()
     var = x32.square().mean(-1, keepdim=True)
     return ((x32 * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
+
+
+def rms_norm_split(x: torch.Tensor, scale: torch.Tensor, whole: int,
+                   eps: float = 1e-6):
+    """RMSNorm over a width of ``whole`` of which ``x`` holds the rank's
+    slice (``scale`` its slice too): the local sum of squares, summed over
+    the model group both ways (``sharding.all_reduce_both``: every rank's
+    loss reads the whole sum), then the whole width's mean."""
+    x32 = x.float()
+    ss = sharding.all_reduce_both(x32.square().sum(-1, keepdim=True))
+    return ((x32 * torch.rsqrt(ss / whole + eps)) * scale.float()
+            ).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
@@ -134,17 +149,31 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
 
 
 def mlp_apply(p: PyTree, x: torch.Tensor, kind: str = "swiglu",
-              d_ff: int = 0) -> torch.Tensor:
+              d_ff: int = 0, seq: bool = False) -> torch.Tensor:
     """``d_ff``: the whole ffn width.  Where ``p`` holds less (a
     tensor-parallel shard: ``gate`` / ``up`` split by columns, ``down`` by
     rows), ``x`` enters through ``copy_to_model`` and the output leaves
-    through ``reduce_from_model``."""
+    through ``reduce_from_model``; with ``seq`` (sequence parallelism:
+    ``x`` the rank's rows) through ``gather_seq`` / ``scatter_seq``, and a
+    whole MLP runs on the gathered rows and keeps the rank's."""
     split = bool(d_ff) and sharding.holds_shard(p["down"].shape[0], d_ff)
-    if split:
-        x = sharding.copy_to_model(x)
+    x = sharding.enter(x, split, seq)
     if kind == "swiglu":
         h = F.silu(x @ p["gate"]) * (x @ p["up"])
     else:
         h = F.gelu(x @ p["up"], approximate="tanh")
-    y = h @ p["down"]
-    return sharding.reduce_from_model(y) if split else y
+    return sharding.leave(h @ p["down"], split, seq)
+
+
+def mlp_apply_sp(p: PyTree, x: torch.Tensor, kind: str = "swiglu",
+                 axis: str = "model", d_ff: int = 0) -> torch.Tensor:
+    """The explicit sequence-parallel MLP (the reference's
+    ``mlp_apply_sp``): ``x`` the rank's rows of the sequence, gathered
+    (``gather_seq``), through the rank's ffn columns, reduce-scattered back
+    to its rows (``scatter_seq``).  SwiGLU only."""
+    if kind != "swiglu":
+        raise ValueError("mlp_apply_sp supports swiglu only")
+    if axis != "model":
+        raise ValueError(f"the SP-MLP runs over the 'model' axis, not "
+                         f"{axis!r}")
+    return mlp_apply(p, x, kind, d_ff, seq=True)

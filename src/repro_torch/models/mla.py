@@ -14,6 +14,21 @@ scores; ``'chunked'`` keeps them at (B, H, C, S).  The reference's
 ``preferred_element_type=float32`` score products are products of fp32
 upcasts here (a bf16 product is exact in fp32), and the scores are summed,
 scaled and masked in place, in the reference's order.
+
+Tensor parallelism (``models.sharding``): a rank may hold whole heads --
+the columns of ``wq`` / ``wq_b`` and ``wkv_b`` of its heads and the rows
+of ``wo`` -- and counts them from its ``wq_b`` / ``wq`` width, checked
+against ``wkv_b``'s (``_local_heads``).  The latent projections
+(``wq_a``, ``q_norm``, ``wkv_a``, ``kv_norm``) stay replicated and run on
+every rank; their outputs (the normed q latent, ``c_kv``, ``k_rope``)
+enter the split weights through ``copy_to_model``, where each rank's
+heads read them (on the block input instead, the replicated weights'
+gradients would hold only the rank's heads).  The latent cache has no
+head axis and is whole on every rank; absorbed decode reads the rank's
+``w_uk`` / ``w_uv`` columns, and ``wo``'s partial sums leave through
+``reduce_from_model`` (``scatter_seq`` under sequence parallelism).
+Where the heads do not split (``sharding.whole_heads``) MLA runs whole
+on every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +37,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from . import sharding
 from .attention import NEG_INF
 from .config import ModelConfig
 from .layers import lecun_normal, rms_norm, rope_angles
@@ -58,15 +74,32 @@ def _rotate(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     return torch.cat([t1 * c - t2 * s, t2 * c + t1 * s], dim=-1)
 
 
-def _queries(cfg: ModelConfig, p: PyTree, x, positions):
-    """-> q_nope (B,S,H,dn), q_rope (B,S,H,dr) (roped)."""
-    B, S, _ = x.shape
-    H, dn, dr = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
+def _local_heads(cfg: ModelConfig, p: PyTree) -> Tuple[int, bool]:
+    """(heads this rank holds, whether that is a shard): from the q
+    projection's width, checked against ``wkv_b``'s."""
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    wq = p["wq_b"] if cfg.q_lora_rank else p["wq"]
+    H = wq.shape[-1] // (dn + dr)
+    if p["wkv_b"].shape[-1] != H * (dn + dv):
+        raise ValueError(f"MLA weights of {H} q heads but a wkv_b of "
+                         f"{p['wkv_b'].shape[-1]} columns")
+    return H, sharding.holds_shard(H, cfg.n_heads)
+
+
+def _queries(cfg: ModelConfig, p: PyTree, xs, xr, positions, split: bool):
+    """-> q_nope (B,S,H,dn), q_rope (B,S,H,dr) (roped), on the rank's
+    heads: ``xs`` the input of its split weights, ``xr`` of the
+    replicated q latent."""
+    B, S, _ = xs.shape
+    dn, dr = cfg.nope_head_dim, cfg.rope_head_dim
     if cfg.q_lora_rank:
-        q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) @ p["wq_b"]
+        q_lat = rms_norm(xr @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+        if split:
+            q_lat = sharding.copy_to_model(q_lat)
+        q = q_lat @ p["wq_b"]
     else:
-        q = x @ p["wq"]
-    q = q.reshape(B, S, H, dn + dr)
+        q = xs @ p["wq"]
+    q = q.reshape(B, S, -1, dn + dr)
     cos, sin = rope_angles(positions, dr, cfg.rope_theta)
     return q[..., :dn], _rotate(q[..., dn:], cos[:, None], sin[:, None])
 
@@ -78,6 +111,26 @@ def _latents(cfg: ModelConfig, p: PyTree, x, positions):
     c_kv = rms_norm(kv[..., :r], p["kv_norm"], cfg.norm_eps)
     cos, sin = rope_angles(positions, dr, cfg.rope_theta)
     return c_kv, _rotate(kv[..., r:], cos, sin)
+
+
+def _inputs(cfg: ModelConfig, p: PyTree, x, positions, seq: bool):
+    """The layer's input as its split and replicated weights take it
+    (``sharding.layer_inputs``), the roped queries on the rank's heads,
+    and the latents -- as the cache keeps them and as the split weights
+    read them (through ``copy_to_model`` when the heads split)."""
+    H, split = _local_heads(cfg, p)
+    if split:
+        xs, xr = sharding.layer_inputs(x, seq)
+    else:
+        xs = xr = sharding.enter(x, False, seq)
+    q_nope, q_rope = _queries(cfg, p, xs, xr, positions, split)
+    c_kv, k_rope = _latents(cfg, p, xr, positions)
+    if split:
+        c_in, k_in = sharding.copy_to_model(c_kv), \
+            sharding.copy_to_model(k_rope)
+    else:
+        c_in, k_in = c_kv, k_rope
+    return H, split, q_nope, q_rope, (c_kv, k_rope), (c_in, k_in)
 
 
 def _scores(q_a, k_a, eq_a, q_b, k_b, eq_b, scale, mask):
@@ -100,16 +153,20 @@ def _visible_mask(i: torch.Tensor, S: int, window) -> torch.Tensor:
 
 def mla_full(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
              positions: torch.Tensor,
-             window: Optional[int] = "cfg") -> torch.Tensor:
+             window: Optional[int] = "cfg", seq: bool = False,
+             latents: bool = False):
     """Full-sequence causal MLA (scoring / prefill): materialises per-head
-    K/V from the latent."""
+    K/V from the latent.  ``seq``: ``x`` is the rank's rows of the
+    sequence (sequence parallelism) and so is the output.  ``latents``:
+    also return (c_kv, k_rope) over the whole sequence, the prefill
+    cache's entries."""
     if window == "cfg":
         window = cfg.sliding_window
-    B, S, _ = x.shape
-    H, dn, dr, dv = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
-                     cfg.v_head_dim)
-    q_nope, q_rope = _queries(cfg, p, x, positions)
-    c_kv, k_rope = _latents(cfg, p, x, positions)
+    B = x.shape[0]
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    H, split, q_nope, q_rope, lat, (c_kv, k_rope) = _inputs(
+        cfg, p, x, positions, seq)
+    S = q_nope.shape[1]
     kv = (c_kv @ p["wkv_b"]).reshape(B, S, H, dn + dv)
     k_nope, v = kv[..., :dn], kv[..., dn:]
     scale = (dn + dr) ** -0.5
@@ -128,7 +185,8 @@ def mla_full(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
         outs.append(torch.einsum("bhst,bthd->bshd", w, v))
         del w
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-    return out.reshape(B, S, H * dv) @ p["wo"]
+    y = sharding.leave(out.reshape(B, S, H * dv) @ p["wo"], split, seq)
+    return (y, lat) if latents else y
 
 
 def make_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -155,20 +213,23 @@ def mla_decode(cfg: ModelConfig, p: PyTree, x: torch.Tensor, cache: PyTree,
         window = cfg.sliding_window
     pos = int(pos)
     B = x.shape[0]
-    H, dn, dr, dv = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
-                     cfg.v_head_dim)
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
     r = cfg.kv_lora_rank
     at = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope = _queries(cfg, p, x, at)
-    c_kv, k_rope = _latents(cfg, p, x, at)
+    H, split, q_nope, q_rope, (c_kv, k_rope), _ = _inputs(cfg, p, x, at,
+                                                          False)
 
     ckv, krope, kpos = cache["ckv"], cache["krope"], cache["kpos"]
     slot = pos % ckv.shape[1]
     ckv[:, slot] = c_kv[:, 0]
     krope[:, slot] = k_rope[:, 0]
     kpos[slot] = pos
+    if split:       # the split weights read the (whole) cache's latents
+        ckv, krope = sharding.copy_to_model(ckv), \
+            sharding.copy_to_model(krope)
 
-    # weight absorption: W_UK (r, H, dn) pulled out of wkv_b
+    # weight absorption: W_UK (r, H, dn) pulled out of wkv_b (the rank's
+    # heads' columns)
     wkv_b = p["wkv_b"].reshape(r, H, dn + dv)
     w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]
     q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)    # (B,1,H,r)
@@ -183,4 +244,5 @@ def mla_decode(cfg: ModelConfig, p: PyTree, x: torch.Tensor, cache: PyTree,
     wts = torch.softmax(s, dim=-1).to(x.dtype)
     out_lat = torch.einsum("bhst,btr->bshr", wts, ckv)      # (B,1,H,r)
     out = torch.einsum("bshr,rhd->bshd", out_lat, w_uv)     # (B,1,H,dv)
-    return out.reshape(B, 1, H * dv) @ p["wo"], cache
+    return sharding.leave(out.reshape(B, 1, H * dv) @ p["wo"], split,
+                          False), cache

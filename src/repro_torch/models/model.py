@@ -29,7 +29,18 @@ masked local lookup followed by ``reduce_from_model``, the head gives the
 rank's vocab slice, and ``loss`` is a vocab-parallel cross entropy (the
 row max, the sum of exps and the target's logit all-reduced in fp32; the
 same value as the full-vocab one).  ``forward`` / ``prefill`` /
-``decode`` return full-vocab logits on every rank.
+``decode`` return full-vocab logits on every rank.  MLA, SSD and hybrid
+caches hold what the rank's layers read (the whole latent ring; its SSD
+heads and conv channels; its kv heads).
+
+With sequence parallelism on (``sharding.set_activation_sharding(
+'model')``, a model group above 1) ``forward``, ``loss`` and ``prefill``
+run the residual stream on the rank's rows of the sequence: the
+embedding is cut to them (``sharding.split_seq``), the blocks keep them
+(``blocks.stack_forward(seq=True)``), and the final norm's output is
+gathered before the head (``sharding.enter``: ``gather_seq`` before the
+vocab-parallel head).  A sequence the group does not divide raises
+``ValueError``.  ``decode`` (one position) runs plain tensor parallelism.
 """
 
 from __future__ import annotations
@@ -129,16 +140,30 @@ class Model:
         return sharding.holds_shard(self._head(params).shape[-1],
                                     self.cfg.vocab_size)
 
-    def _head_in(self, params: PyTree, x: torch.Tensor) -> torch.Tensor:
-        """The head's input: through ``copy_to_model`` for a vocab shard."""
-        return sharding.copy_to_model(x) if self._vocab_split(params) else x
+    def _head_in(self, params: PyTree, x: torch.Tensor,
+                 seq: bool = False) -> torch.Tensor:
+        """The head's input over the whole sequence: through
+        ``copy_to_model`` for a vocab shard; under ``seq`` gathered from
+        the rank's rows (``sharding.enter``)."""
+        return sharding.enter(x, self._vocab_split(params), seq)
 
-    def _logits(self, params: PyTree, x: torch.Tensor) -> torch.Tensor:
+    def _final_norm(self, params: PyTree, x: torch.Tensor, seq: bool):
+        return norm(x, sharding.seq_weight(params["final_norm"], seq),
+                    self.cfg.norm_type, self.cfg.norm_eps)
+
+    def _logits(self, params: PyTree, x: torch.Tensor,
+                seq: bool = False) -> torch.Tensor:
         """fp32 logits over this rank's vocab slice (all of it without a
-        model group)."""
-        x = norm(x, params["final_norm"], self.cfg.norm_type,
-                 self.cfg.norm_eps)
-        return (self._head_in(params, x) @ self._head(params)).float()
+        model group), for every position (``seq``: ``x`` the rank's
+        rows)."""
+        x = self._head_in(params, self._final_norm(params, x, seq), seq)
+        return (x @ self._head(params)).float()
+
+    def _stream_in(self, x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+        """The embedded sequence as the blocks take it: the rank's rows
+        under sequence parallelism (``sharding.seq_parallel``)."""
+        seq = sharding.seq_parallel(x.shape[1])
+        return (sharding.split_seq(x) if seq else x), seq
 
     def _full_vocab(self, params: PyTree, logits: torch.Tensor
                     ) -> torch.Tensor:
@@ -152,9 +177,10 @@ class Model:
                  prefix_emb: Optional[torch.Tensor]):
         x = self._embed_inputs(params, tokens, prefix_emb)
         positions = torch.arange(x.shape[1], device=x.device)
+        x, seq = self._stream_in(x)
         x, aux = blocks.stack_forward(self.cfg, params["decoder"], x,
-                                      positions)
-        return self._logits(params, x), aux
+                                      positions, seq)
+        return self._logits(params, x, seq), aux
 
     def forward(self, params: PyTree, tokens: torch.Tensor,
                 prefix_emb: Optional[torch.Tensor] = None
@@ -194,12 +220,15 @@ class Model:
         # in the backward pass too, so no chunk's logits are kept for it
         x = self._embed_inputs(params, tokens, prefix)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, aux = blocks.stack_forward(cfg, params["decoder"], x, positions)
-        x = norm(x[:, P:], params["final_norm"], cfg.norm_type, cfg.norm_eps)
+        x, seq = self._stream_in(x)
+        x, aux = blocks.stack_forward(cfg, params["decoder"], x, positions,
+                                      seq)
+        x = self._head_in(params, self._final_norm(params, x, seq),
+                          seq)[:, P:]
         head = self._head(params)
 
         def chunk_nll(h, xc, tc):
-            return (nll_of((self._head_in(params, xc) @ h).float(), tc),)
+            return (nll_of((xc @ h).float(), tc),)
 
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i0 in range(0, S, C):
@@ -279,8 +308,11 @@ class Model:
         if max_len is None:
             max_len = S if cfg.sliding_window is None else cfg.sliding_window
         positions = torch.arange(S, device=x.device)
+        x, seq = self._stream_in(x)
         x, entries = blocks.stack_prefill(cfg, params["decoder"], x,
-                                          positions, flash)
+                                          positions, flash, seq)
+        # the whole sequence back on every rank, as replicated compute
+        x = sharding.enter(x, False, seq)
         logits = self._full_vocab(params,
                                   self._logits(params, x[:, -1:])[:, 0])
 

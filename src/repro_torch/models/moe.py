@@ -32,15 +32,31 @@ bitwise.
 Tensor-parallel experts (the reference's default ``moe_sharding=
 'tensor'``, ``models.sharding``): a rank holds every expert's slice of
 the ffn dim (``gate`` / ``up`` columns, ``down`` rows).  The router runs
-replicated on the whole input and computes the same fp32 ids on every
-rank; the tokens and the routing weights enter the experts through
+replicated on all tokens and computes the same fp32 ids on every rank;
+the tokens and the routing weights enter the experts through
 ``copy_to_model``, both expert paths and the dense oracle run on the
 local ffn slice, and one ``reduce_from_model`` follows the combine.  The
-shared experts split like the MLP.  The reference's expert-parallel path
-(``_moe_expert_parallel``, GShard capacity dispatch over the 'model'
-axis) raises ``NotImplementedError`` under a model group (ROADMAP queue
-1 item 13b-ii); without one the reference takes the ragged path even
-with ``moe_sharding='expert'``, and so does the port.
+shared experts split like the MLP.  Under sequence parallelism the
+tokens are gathered (``gather_seq``) in place of ``copy_to_model``, the
+router reads them through ``own_rows_grad`` and the output is
+reduce-scattered (``scatter_seq``).
+
+Expert-parallel experts (``moe_sharding='expert'``, the expert axis
+split, ``_moe_expert_parallel``): the reference's GShard capacity
+dispatch, taken where a rank holds E/m whole experts.  The router runs on
+all tokens; each slot's rank within its expert in token order (a stable
+sort) decides whether it fits the capacity ``max(int(2 T k / E), 8)``, the
+rest are dropped; each rank runs its experts on its (E/m, cap, d)
+buffer; the combine adds each token's k slots in slot order in the
+activation dtype, and one ``reduce_from_model`` of (T, d) sums the
+ranks.  No float atomic: the buffer is filled by an index copy whose
+only repeated target is a scratch row.  ``ep_stats`` counts the slots
+and the dropped ones (one host sync a call).  Where expert-split weights
+meet a config whose ``moe_sharding`` is 'tensor' (only the global
+``set_moe_sharding('expert')`` set), the reference runs the drop-free
+path on them under GSPMD; so does the port, each rank its own experts in
+the dense form, summed.  Without a model group the reference takes the
+ragged path even with ``moe_sharding='expert'``, and so does the port.
 
 Shared experts (DeepSeek-V2) are a plain always-on SwiGLU branch.  The
 auxiliary load-balance loss is the Switch/GShard form
@@ -62,7 +78,7 @@ from .layers import lecun_normal, mlp_apply, mlp_init
 PyTree = Any
 
 __all__ = ["moe_init", "moe_apply", "expert_matmul", "expert_route",
-           "ROUTES"]
+           "ep_stats", "ep_stats_reset", "ROUTES"]
 
 ROUTES = ("grouped_mm", "loop")
 
@@ -188,61 +204,145 @@ def _dispatch_ragged(cfg: ModelConfig, p: PyTree, xf, w, ids) -> torch.Tensor:
     return out
 
 
-def _expert_inputs(xf, w, split: bool):
-    """The tokens and routing weights as the experts take them: through
-    ``copy_to_model`` when the experts are split."""
-    if not split:
-        return xf, w
-    return sharding.copy_to_model(xf), sharding.copy_to_model(w)
-
-
-def _moe_ragged(cfg: ModelConfig, p: PyTree, xf: torch.Tensor, split: bool
+def _moe_ragged(cfg: ModelConfig, p: PyTree, xs: torch.Tensor,
+                xr: torch.Tensor, split: bool
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    T = xf.shape[0]
-    w, ids, aux = _route(cfg, p, xf)                     # router on all tokens
-    xf, w = _expert_inputs(xf, w, split)
+    """The router on ``xr``, the experts on ``xs`` (the same tokens, as
+    ``sharding.layer_inputs`` gives them to split experts)."""
+    T = xs.shape[0]
+    w, ids, aux = _route(cfg, p, xr)                     # router on all tokens
+    w = _weights_in(w, split)
     C = cfg.moe_chunk
     if not (C and T > C and T % C == 0):
-        return _dispatch_ragged(cfg, p, xf, w, ids), aux
+        return _dispatch_ragged(cfg, p, xs, w, ids), aux
     # token-chunked dispatch: the (T*k, d) / (T*k, ff) buffers exist one
     # chunk at a time; routing is global, so this is exact
-    outs = [_dispatch_ragged(cfg, p, xf[i:i + C], w[i:i + C], ids[i:i + C])
+    outs = [_dispatch_ragged(cfg, p, xs[i:i + C], w[i:i + C], ids[i:i + C])
             for i in range(0, T, C)]
     return torch.cat(outs, dim=0), aux
 
 
-def _moe_dense(cfg: ModelConfig, p: PyTree, xf: torch.Tensor, split: bool
+def _weights_in(w: torch.Tensor, split: bool) -> torch.Tensor:
+    """The routing weights as split experts read them: through
+    ``copy_to_model``."""
+    return sharding.copy_to_model(w) if split else w
+
+
+def _moe_dense(cfg: ModelConfig, p: PyTree, xs: torch.Tensor,
+               xr: torch.Tensor, split: bool, e0: int = 0
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    E = cfg.n_experts
-    w, ids, aux = _route(cfg, p, xf)
-    xf, w = _expert_inputs(xf, w, split)
+    """Every expert of ``p`` (the config's experts ``e0 ..``) on every
+    token, combined with the routing weights."""
+    E = p["gate"].shape[0]
+    w, ids, aux = _route(cfg, p, xr)
+    w = _weights_in(w, split)
     # the one-hot by comparison: ``F.one_hot`` checks its ids on the
     # host, which ``vmap`` cannot batch
-    onehot = (ids[..., None] == torch.arange(E, device=ids.device)) \
-        .to(xf.dtype)                                    # (T, k, E)
+    onehot = (ids[..., None] == e0 + torch.arange(E, device=ids.device)) \
+        .to(xs.dtype)                                    # (T, k, E)
     combine = torch.einsum("tk,tke->te", w, onehot)      # (T, E)
-    ys = torch.stack([(F.silu(xf @ p["gate"][e]) * (xf @ p["up"][e]))
+    ys = torch.stack([(F.silu(xs @ p["gate"][e]) * (xs @ p["up"][e]))
                       @ p["down"][e] for e in range(E)])  # (E, T, d)
     return torch.einsum("te,etd->td", combine, ys), aux
 
 
-def moe_apply(cfg: ModelConfig, p: PyTree, x: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+_EP_STATS = dict(slots=0, dropped=0, calls=0)
+
+
+def ep_stats() -> dict:
+    """Slots the expert-parallel path dispatched and dropped, and its
+    calls, since ``ep_stats_reset`` (a rematerialised layer counts again
+    when it is recomputed)."""
+    return dict(_EP_STATS)
+
+
+def ep_stats_reset() -> None:
+    _EP_STATS.update(slots=0, dropped=0, calls=0)
+
+
+def _moe_expert_parallel(cfg: ModelConfig, p: PyTree, xs: torch.Tensor,
+                         xr: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GShard capacity dispatch on this rank's E/m experts (the
+    reference's ``_moe_expert_parallel``): the router on all tokens
+    (``xr``), the rank's experts on the tokens routed to them within
+    capacity (``xs``), the combine in the activation dtype; the partial
+    (T, d) output, summed over the group by the caller."""
+    T, d = xs.shape
+    k, E = cfg.experts_per_token, cfg.n_experts
+    w, ids, aux = _route(cfg, p, xr)
+    w = _weights_in(w, True)
+    cap = max(int(2.0 * T * k / E), 8)
+
+    flat_ids = ids.reshape(-1)                           # (T*k,)
+    # the rank of each slot within its expert, in token order (a stable
+    # sort, as the reference's jnp.argsort)
+    order = torch.argsort(flat_ids, stable=True)
+    sizes = _counts(flat_ids, E)
+    starts = torch.cumsum(sizes, 0) - sizes
+    rank_sorted = torch.arange(T * k, device=xs.device) \
+        - starts[flat_ids[order]]
+    rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
+    keep = rank < cap
+    _EP_STATS["slots"] += T * k
+    _EP_STATS["dropped"] += int((~keep).sum())
+    _EP_STATS["calls"] += 1
+
+    E_loc = p["gate"].shape[0]
+    e_loc = flat_ids - sharding.model_rank()[0] * E_loc
+    mine = keep & (e_loc >= 0) & (e_loc < E_loc)
+    # one buffer row a (local expert, capacity slot), plus a scratch row
+    # that every slot not dispatched here writes: an index copy, no
+    # atomic (a kept slot's row is its own)
+    dest = torch.where(mine, e_loc.clamp(0, E_loc - 1) * cap
+                       + rank.clamp(0, cap - 1), E_loc * cap)
+    slot_tok = torch.arange(T * k, device=xs.device) // k
+    buf = xs.new_zeros((E_loc * cap + 1, d)).index_copy(0, dest,
+                                                         xs[slot_tok])
+    buf = buf[:-1].view(E_loc, cap, d)
+    h = F.silu(torch.bmm(buf, p["gate"])) * torch.bmm(buf, p["up"])
+    y = torch.bmm(h.to(xs.dtype), p["down"]).reshape(E_loc * cap, d)
+    back = y[dest.clamp(max=E_loc * cap - 1)]            # (T*k, d)
+    contrib = (back * (w.reshape(-1) * mine.to(w.dtype))[:, None]) \
+        .to(xs.dtype).view(T, k, d)
+    # each token's k slots added in slot order, in the activation dtype
+    out = torch.zeros((T, d), dtype=xs.dtype, device=xs.device) \
+        + contrib[:, 0]
+    for j in range(1, k):
+        out = out + contrib[:, j]
+    return out, aux
+
+
+def moe_apply(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
+              seq: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y (B, S, d), aux_loss fp32 scalar).  The ragged
     path unless ``cfg.moe_impl`` is 'dense' or this runs inside
-    ``torch.func.vmap`` (``expert_route``)."""
-    if cfg.moe_sharding == "expert" or sharding.moe_expert_parallel():
-        sharding.refuse("the expert-parallel MoE")
-    B, S, d = x.shape
-    xf = x.reshape(B * S, d)
-    split = sharding.holds_shard(p["gate"].shape[-1], cfg.moe_d_ff)
-    if cfg.moe_impl == "ragged" and not _under_vmap():
-        out, aux = _moe_ragged(cfg, p, xf, split)
-    else:
-        out, aux = _moe_dense(cfg, p, xf, split)
+    ``torch.func.vmap`` (``expert_route``); the expert-parallel path where
+    the rank holds whole experts and ``cfg.moe_sharding`` is 'expert'.
+    ``seq``: ``x`` is the rank's rows of the sequence (sequence
+    parallelism), and so is ``y``; the router and the experts see every
+    token."""
+    expert_split = sharding.holds_shard(p["gate"].shape[0], cfg.n_experts)
+    split = expert_split or sharding.holds_shard(p["gate"].shape[-1],
+                                                 cfg.moe_d_ff)
+    B, _, d = x.shape
     if split:
-        out = sharding.reduce_from_model(out)
+        xs, xr = sharding.layer_inputs(x, seq)
+    else:
+        xs = xr = sharding.enter(x, False, seq)
+    S = xs.shape[1]
+    xs, xr = xs.reshape(B * S, d), xr.reshape(B * S, d)
+    if expert_split and cfg.moe_sharding == "expert":
+        out, aux = _moe_expert_parallel(cfg, p, xs, xr)
+    elif expert_split:
+        out, aux = _moe_dense(cfg, p, xs, xr, True,
+                              e0=sharding.model_rank()[0] * p["gate"].shape[0])
+    elif cfg.moe_impl == "ragged" and not _under_vmap():
+        out, aux = _moe_ragged(cfg, p, xs, xr, split)
+    else:
+        out, aux = _moe_dense(cfg, p, xs, xr, split)
+    out = sharding.leave(out.reshape(B, S, d), split, seq)
     if cfg.n_shared_experts:
-        out = out + mlp_apply(p["shared"], xf, "swiglu",
-                              cfg.n_shared_experts * cfg.moe_d_ff)
-    return out.reshape(B, S, d), aux
+        out = out + mlp_apply(p["shared"], x, "swiglu",
+                              cfg.n_shared_experts * cfg.moe_d_ff, seq)
+    return out, aux

@@ -486,11 +486,15 @@ def test_mesh_helpers(shape, names, want):
 
 @pytest.mark.parametrize("what", ["model_axis", "zero", "prefill", "decode",
                                   "engine", "moe_expert", "sp"])
-def test_what_13b_holds_raises(what):
-    """What the port still refuses at a 'model' axis above 1 (ROADMAP
-    item 13b-ii): MLA, the SSD and hybrid families, the expert-parallel
-    MoE and sequence-parallel activations; and ZeRO off 'ring', as the
-    reference refuses it."""
+def test_what_13b_holds_raises(what, monkeypatch):
+    """What the port once refused at a 'model' axis above 1 is placed and
+    resolved now (the runs themselves: ``tests/test_torch_tp.py``,
+    ``tests/test_torch_tp2.py``): MLA and the SSD split by whole heads,
+    the SSD's single group and the cache it feeds stay whole, the engine
+    resolves a hybrid mesh config, the expert rules split whole experts,
+    and sequence parallelism takes the 'model' axis but refuses a
+    sequence the group does not divide; ZeRO off 'ring' still raises, as
+    the reference refuses it."""
     from repro_torch.configs import get_config
     from repro_torch.fl import distributed as D
     from repro_torch.fl.engine import ExecutionConfig, resolve_backend
@@ -499,33 +503,65 @@ def test_what_13b_holds_raises(what):
     def reduced(name):
         return get_config(name).reduced(d_model=64, vocab=128)
 
+    def layout(cfg, shape):
+        return dict(zip(_leaf_paths(cfg),
+                        D.param_layout(cfg, _stand_in(shape))))
+
     if what == "zero":
         with pytest.raises(ValueError, match="ring"):
             D.make_train_step(_cfg(get_config), _stand_in((2, 2, 1)),
                               mixing="fused", zero=True)
-        return
-    with pytest.raises(NotImplementedError, match="13b-ii"):
-        if what == "model_axis":
-            D.make_train_step(reduced("deepseek-v2-236b"),
-                              _stand_in((2, 1, 2)), mixing="einsum")
-        elif what == "prefill":
-            D.make_prefill_step(reduced("mamba2-1.3b"),
-                                _stand_in((1, 1, 2)), "data", 64)
-        elif what == "decode":
-            D.make_decode_step(reduced("deepseek-v2-236b"),
-                               _stand_in((1, 1, 2)), "data")
-        elif what == "engine":
-            resolve_backend(ExecutionConfig(mesh=_stand_in((1, 2, 2)),
-                                            model_cfg=reduced("zamba2-2.7b")))
-        elif what == "moe_expert":
-            sharding.set_moe_sharding("expert")
-            try:
-                D.make_train_step(reduced("phi3.5-moe-42b-a6.6b"),
-                                  _stand_in((1, 1, 2)), mixing="fused")
-            finally:
-                sharding.set_moe_sharding("tensor")
-        else:
-            sharding.set_activation_sharding("model", sp_mlp=True)
+    elif what == "model_axis":
+        got = layout(reduced("deepseek-v2-236b"), (2, 1, 2))
+        assert got["decoder/layers/mla/wkv_b"] == (None, None, "model")
+        assert got["decoder/layers/mla/wo"] == (None, "model", None)
+        assert got["decoder/layers/mla/wkv_a"] == (None, None, None)
+    elif what == "prefill":
+        got = layout(reduced("mamba2-1.3b"), (1, 1, 2))
+        assert got["decoder/layers/ssm/w_x"] == (None, None, "model")
+        assert got["decoder/layers/ssm/w_B"] == (None, None, None)
+    elif what == "decode":
+        cfg = reduced("deepseek-v2-236b")
+        monkeypatch.setattr(sharding, "model_rank", lambda: (0, 2))
+        from repro_torch.models.model import Model
+        cache = Model(cfg, device="cpu").init_cache(2, 16)
+        assert tuple(cache["layers"]["ckv"].shape[-2:]) == \
+            (16, cfg.kv_lora_rank)                   # whole latent ring
+    elif what == "engine":
+        assert resolve_backend(ExecutionConfig(
+            mesh=_stand_in((1, 2, 2)), model_cfg=reduced("zamba2-2.7b"))) \
+            == "einsum"
+    elif what == "moe_expert":
+        sharding.set_moe_sharding("expert")
+        try:
+            got = layout(reduced("phi3.5-moe-42b-a6.6b"), (1, 1, 2))
+        finally:
+            sharding.set_moe_sharding("tensor")
+        assert got["decoder/layers/moe/gate"] == (None, "model", None, None)
+    else:
+        sharding.set_activation_sharding("model", sp_mlp=True)
+        try:
+            assert sharding.sp_mlp_axis() == "model"
+            monkeypatch.setattr(sharding, "model_group", lambda: object())
+            monkeypatch.setattr(sharding, "model_rank", lambda: (0, 2))
+            assert sharding.seq_parallel(64)
+            with pytest.raises(ValueError, match="S = 63"):
+                sharding.seq_parallel(63)
+        finally:
+            sharding.set_activation_sharding(None)
+
+
+def _leaf_paths(cfg):
+    """``Model(cfg)``'s leaf paths in ``tree_flatten`` order (shapes
+    only)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models import sharding
+    from repro_torch.models.model import Model
+
+    with FakeTensorMode():
+        return sharding._paths(Model(cfg, device="cpu").init(
+            torch.Generator()))
 
 
 @pytest.mark.parametrize("kw,match", [

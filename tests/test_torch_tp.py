@@ -15,13 +15,20 @@ reference run on the CPU.
   bitwise, ``zero`` on 'ring', int8 on 'fused' / 'fused_rs', reduced
   phi3.5-moe (tensor-parallel experts, dense and ragged) on 'fused', and
   ``MeshEngine`` against ``LocalEngine``.
+* MLA, SSD and the hybrid stack: one round on every schedule at mesh
+  (2, 2, 2) for reduced mamba2 (one SSD group, and two: one a rank),
+  zamba2 and deepseek-v2 (with and
+  without ``q_lora_rank``; tensor-parallel and expert-parallel experts)
+  against the reference's ``make_round_fn``; reduced phi3.5-moe with
+  ``moe_sharding='expert'`` (two whole experts a rank) on 'fused'.
 * The twin of ``serve_equivalence.py``: mesh (2, 4) on the same ranks,
   ``make_prefill_step`` / ``make_decode_step`` against the reference's
   ``Model.prefill`` / ``decode`` for qwen2-7b, stablelm, phi3.5-moe, a
   qwen3 whose 8 / 4 heads split into whole heads at m = 4 (the reduced
   qwen2-7b and phi3.5 keep one kv head, so their attention is
-  replicated) and musicgen with its audio prefix.  mamba2 and deepseek-v2, the helper's other two archs,
-  raise ``NotImplementedError`` naming item 13b-ii.
+  replicated), musicgen with its audio prefix, and the helper's mamba2
+  and deepseek-v2, plus zamba2 (their caches: the rank's SSD heads and
+  conv channels, the whole MLA latent ring).
 * Gradients: on each client's two ranks, the loss and its
   ``torch.func.grad`` with remat off and on, gathered, against the
   one-rank port and the reference's ``jax.grad``.
@@ -63,18 +70,34 @@ ARCHS = ("qwen3-32b", "musicgen-large", "mamba2-1.3b", "internvl2-1b",
          "zamba2-2.7b", "deepseek-v2-236b", "phi3.5-moe-42b-a6.6b",
          "qwen1.5-4b", "qwen2-7b", "stablelm-1.6b")
 SERVE = ("qwen2-7b", "stablelm-1.6b", "phi3.5-moe-42b-a6.6b", "qwen3-gqa",
-         "musicgen-large")
+         "musicgen-large", "mamba2-1.3b", "deepseek-v2-236b", "zamba2-2.7b")
 TRAIN, MOE = "stablelm-1.6b", "phi3.5-moe-42b-a6.6b"
+# MLA, SSD, hybrid, expert-parallel experts: one round on every schedule
+ZOO_TRAIN = ("mamba2-1.3b", "mamba2-g2", "zamba2-2.7b", "deepseek-v2-236b",
+             "deepseek-v2-236b+ep", "deepseek-lora", "deepseek-lora+ep")
 
 
 def _cfg(get_config, name):
     """The reduced configs at vocab 128 (``qwen3-gqa``: qwen3-32b with 8
-    q / 4 kv heads)."""
-    if name == "qwen3-gqa":
-        return dataclasses.replace(
+    q / 4 kv heads; ``deepseek-lora``: deepseek-v2 with a q latent of 32,
+    the full config's ``wq_a -> q_norm -> wq_b`` path; ``mamba2-g2``:
+    mamba2 with two SSD groups, split into one a rank at m = 2; a
+    ``+ep`` suffix: ``moe_sharding='expert'``)."""
+    base, _, ep = name.partition("+")
+    if base == "qwen3-gqa":
+        cfg = dataclasses.replace(
             get_config("qwen3-32b").reduced(vocab=128), n_heads=8,
             n_kv_heads=4)
-    return get_config(name).reduced(vocab=128)
+    elif base == "mamba2-g2":
+        cfg = dataclasses.replace(
+            get_config("mamba2-1.3b").reduced(vocab=128), ssm_groups=2)
+    elif base == "deepseek-lora":
+        cfg = dataclasses.replace(
+            get_config("deepseek-v2-236b").reduced(vocab=128),
+            q_lora_rank=32)
+    else:
+        cfg = get_config(base).reduced(vocab=128)
+    return dataclasses.replace(cfg, moe_sharding="expert") if ep else cfg
 
 
 def _quant(QuantSpec):
@@ -103,8 +126,8 @@ def _worker(rank: int, out: Path) -> None:
     from repro_torch.fl.engine import ExecutionConfig
     from repro_torch.fl.packing import QuantSpec
     from repro_torch.launch.mesh import make_debug_mesh
-    from repro_torch.models import moe as moe_mod
     from repro_torch.models import sharding
+    from repro_torch.models import ssm as ssm_mod
     from repro_torch.models.attention import local_heads
     from repro_torch.models.model import Model
 
@@ -116,6 +139,7 @@ def _worker(rank: int, out: Path) -> None:
     res, digest = {}, {}
 
     def params_of(name, cfg):
+        name = name.partition("+")[0]
         _, treedef = tree_flatten(Model(cfg, device="cpu").init(
             torch.Generator().manual_seed(0)))
         n = len([k for k in inp.files
@@ -191,17 +215,25 @@ def _worker(rank: int, out: Path) -> None:
             D.make_train_step(c, mesh, mixing="fused")(mlocal, *rnd(0)),
             c, mesh))
     group = mesh.get_group("model")
-    sharding.set_moe_sharding("expert")
-    try:
-        with sharding.model_parallel(group):
-            moe_mod.moe_apply(mcfg, tree_map(
-                lambda x: x[0], mlocal["decoder"]["layers"]["moe"]),
-                torch.zeros(1, 4, mcfg.d_model))
-        res["moe/expert_refused"] = False
-    except NotImplementedError as e:
-        res["moe/expert_refused"] = "13b-ii" in str(e)
-    finally:
-        sharding.set_moe_sharding("tensor")
+    # expert-parallel experts: two whole experts a rank
+    ecfg = dataclasses.replace(mcfg, moe_sharding="expert")
+    elocal = D.shard_params(mparams, ecfg, mesh)
+    res["moe/expert_shapes"] = (
+        tuple(elocal["decoder"]["layers"]["moe"]["gate"].shape),
+        tuple(mlocal["decoder"]["layers"]["moe"]["gate"].shape))
+    keep("moe/expert", D.gather_params(
+        D.make_train_step(ecfg, mesh, mixing="fused")(elocal, *rnd(0)),
+        ecfg, mesh))
+
+    # MLA, SSD, hybrid: one round on every schedule
+    for name in ZOO_TRAIN:
+        zcfg = _cfg(get_config, name)
+        zlocal = D.shard_params(params_of(name, zcfg), zcfg, mesh)
+        for mixing in MIXINGS:
+            keep(f"zoo/{name}/{mixing}", D.gather_params(
+                D.make_train_step(zcfg, mesh, mixing=mixing)(zlocal,
+                                                             *rnd(0)),
+                zcfg, mesh))
 
     # the loss and its gradient on the client's two ranks, remat off / on
     batch = (torch.from_numpy(inp["toks0"])[0, 0, :, :-1],
@@ -242,8 +274,16 @@ def _worker(rank: int, out: Path) -> None:
         logits, cache = prefill(slocal, toks, prefix)
         with sharding.model_parallel(smesh.get_group("model")):
             heads = local_heads(scfg)[1]
-        res[f"serve/{name}/cache_heads"] = (
-            cache["layers"]["k"].shape[3], heads)
+            ssd = ssm_mod.local_sizes(scfg)
+        lc = cache["layers"]
+        if "k" in lc:
+            res[f"serve/{name}/cache_heads"] = (lc["k"].shape[3], heads)
+        elif "state" in lc:
+            res[f"serve/{name}/cache_heads"] = (
+                (lc["state"].shape[2], lc["conv"].shape[-1]), ssd)
+        else:
+            res[f"serve/{name}/cache_heads"] = (
+                tuple(lc["ckv"].shape[2:]), (P + 4, scfg.kv_lora_rank))
         dec, _ = decode(slocal, cache, torch.from_numpy(
             inp[f"{name}/next"]), P)
         rows = D.batch_rows(smesh, ("data",), SB)
@@ -376,7 +416,8 @@ def run(tmp_path_factory):
     rng = np.random.default_rng(0)
     inputs = _rounds(rng)
     jps, jms = {}, {}
-    for name in (TRAIN, MOE) + SERVE:
+    for name in (TRAIN, MOE) + SERVE + ZOO_TRAIN:
+        name = name.partition("+")[0]
         if name in jps:
             continue
         jcfg, cfg = _cfg(j_get_config, name), _cfg(get_config, name)
@@ -421,6 +462,11 @@ def run(tmp_path_factory):
         mround = jrounds.make_round_fn(jms[MOE].loss)
         ref["moe"] = [np.asarray(x) for x in
                       jax.tree.leaves(mround(jps[MOE], *rb(0))[0])]
+        for name in ZOO_TRAIN:          # '+ep' reads its base's round
+            if "+" not in name:
+                zround = jrounds.make_round_fn(jms[name].loss)
+                ref[f"zoo/{name}"] = [np.asarray(x) for x in jax.tree.leaves(
+                    zround(jps[name], *rb(0))[0])]
         tb = (jnp.asarray(inputs["toks0"][0, 0, :, :-1]),
               jnp.asarray(inputs["toks0"][0, 0, :, 1:]))
         for remat in (False, True):
@@ -665,7 +711,11 @@ def test_collectives_are_the_identity_without_a_group():
     assert sharding.copy_to_model(x) is x
     assert sharding.reduce_from_model(x) is x
     assert sharding.model_rank() == (0, 1)
-    sharding.refuse("anything")          # no group: nothing to refuse
+    for f in (sharding.all_reduce_both, sharding.gather_seq,
+              sharding.scatter_seq, sharding.split_seq,
+              sharding.own_rows_grad):
+        assert f(x) is x
+    assert not sharding.seq_parallel(7)  # no group: nothing splits
     with pytest.raises(RuntimeError, match="model group"):
         sharding.all_reduce_max(x)
 
@@ -690,10 +740,13 @@ def _rank_gb(arch, m, batch=2, cache_len=4096):
     """GB a rank of a model group of ``m`` holds, from the full config's
     shapes alone (an init under ``FakeTensorMode``): the weights under the
     port's placement and under the reference's rule (``param_specs``);
-    the decode cache of ``batch`` x ``cache_len`` tokens with the rank's
-    kv heads (``whole_heads``: all of them where the heads do not split)
-    and under the reference's ``cache_specs`` (the sequence over
-    'model')."""
+    the decode cache of ``batch`` x ``cache_len`` tokens as a rank's
+    layers make it (``init_cache`` with the group's size: its kv heads
+    where they split, else all of them; its SSD heads and conv channels,
+    ``w_B`` / ``w_C``'s whole unless ``whole_groups``) and under the
+    reference's ``cache_specs`` (the sequence over 'model')."""
+    from unittest import mock
+
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.configs import get_config
@@ -706,46 +759,61 @@ def _rank_gb(arch, m, batch=2, cache_len=4096):
         model = Model(cfg, device="cpu")
         params = model.init(torch.Generator())
         cache = model.init_cache(batch, cache_len)
+        with mock.patch.object(sharding, "model_rank", lambda: (0, m)):
+            rank_cache = model.init_cache(batch, cache_len)
 
-    def gb(tree, specs, parts=None):
+    def gb(tree, specs=None):
+        if specs is None:
+            specs = sharding._map_specs(lambda p, x: (None,) * x.ndim, tree)
         return sum(x.numel() * x.element_size()
-                   // ((parts or m) if "model" in s else 1)
+                   // (m if "model" in s else 1)
                    for x, s in zip(tree_leaves(tree),
                                    sharding.spec_leaves(specs))) / 1e9
 
-    heads = m if sharding.whole_heads(cfg, m) else 1
-    kv_heads = sharding._map_specs(
-        lambda path, x: (None,) * 3 + ("model", None) if x.ndim == 5
-        else (None,) * x.ndim, cache)
     return (gb(params, sharding.placement_specs(params, cfg, m)),
             gb(params, sharding.param_specs(params, m)),
-            gb(cache, kv_heads, heads),
+            gb(rank_cache),
             gb(cache, sharding.cache_specs(cache, ("data",), m)))
 
 
-# (arch, m): GB a rank (weights: placement, rule; cache: the rank's kv
-# heads, cache_specs), as configured (bf16), 2 x 4,096 tokens
+# (arch, m): GB a rank (weights: placement, rule; cache: the rank's own,
+# cache_specs), as configured (bf16), 2 x 4,096 tokens
 @pytest.mark.parametrize("arch,m,want", [
     ("qwen2-7b", 2, (7.616, 7.616, 0.235, 0.235)),
     ("qwen2-7b", 8, (3.343, 1.904, 0.470, 0.059)),
     ("stablelm-1.6b", 8, (0.411, 0.411, 0.202, 0.201)),
     ("internvl2-1b", 4, (0.790, 0.724, 0.101, 0.025)),
     ("qwen1.5-4b", 8, (2.824, 0.988, 3.356, 0.420)),
-    ("qwen3-32b", 4, (16.382, 16.382, 0.538, 0.537))])
+    ("qwen3-32b", 4, (16.382, 16.382, 0.538, 0.537)),
+    ("mamba2-1.3b", 2, (1.473, 1.448, 0.102, 0.102)),
+    ("mamba2-1.3b", 4, (0.763, 0.725, 0.051, 0.051)),
+    ("mamba2-1.3b", 8, (0.408, 0.364, 0.026, 0.025)),
+    ("zamba2-2.7b", 2, (2.442, 2.424, 0.450, 0.450)),
+    ("zamba2-2.7b", 4, (1.240, 1.214, 0.225, 0.225)),
+    ("zamba2-2.7b", 8, (0.639, 0.608, 0.113, 0.113))])
 def test_rank_bytes_of_the_placement(arch, m, want):
     """Where the heads split, a rank holds the rule's weights and its
     1/m of the cache; where they do not, more weights (the attention
-    whole) and the whole cache."""
+    whole) and the whole cache.  The SSD's one group stays whole
+    (``whole_groups``): a rank holds the rule's weights plus the rest of
+    ``w_B`` / ``w_C`` (and, in its conv cache, of the B / C channels)."""
     from repro_torch.configs import get_config
     from repro_torch.models import sharding
 
+    cfg = get_config(arch)
     got = _rank_gb(arch, m)
     assert [round(x, 3) for x in got] == list(want), got
-    if sharding.whole_heads(get_config(arch), m):
+    if not sharding.whole_heads(cfg, m):
+        assert got[0] > got[1] and got[2] > m / 2 * got[3]
+    elif cfg.family in ("ssm", "hybrid") and \
+            not sharding.whole_groups(cfg, m):
+        d, GN, L = cfg.d_model, cfg.ssm_groups * cfg.ssm_state, cfg.n_layers
+        extra = 2 * L * d * GN * 2 * (1 - 1 / m) / 1e9   # w_B, w_C bf16
+        assert got[0] - got[1] == pytest.approx(extra, rel=1e-6)
+        assert got[3] <= got[2] <= 1.05 * got[3]
+    else:
         assert got[0] == got[1]
         assert got[2] == pytest.approx(got[3], rel=1e-2)     # kpos whole
-    else:
-        assert got[0] > got[1] and got[2] > m / 2 * got[3]
 
 
 # ---------------------------------------------------------------------------
@@ -790,7 +858,25 @@ def test_moe_tensor_parallel_experts_match_the_reference(run, impl):
 
 
 def test_expert_parallel_moe_under_a_model_group_refuses(run):
-    assert run.res["moe/expert_refused"]
+    """It runs now: with ``moe_sharding='expert'`` a rank holds two whole
+    experts (the tensor layout: every expert's ffn half), and the round
+    equals the reference's (capacity 2 x the fair share drops nothing
+    here: 32 tokens, top-2 of 4, a capacity of 32)."""
+    (_, E_loc, d, ff), (_, E, d2, ff_loc) = run.res["moe/expert_shapes"]
+    assert (E_loc, ff_loc) == (E // 2, ff // 2) and d == d2
+    _close(_leaves(run, "moe/expert"), run.ref["moe"], ORACLE, "expert")
+
+
+@pytest.mark.parametrize("mixing", MIXINGS)
+@pytest.mark.parametrize("name", ZOO_TRAIN)
+def test_mla_ssd_hybrid_rounds_match_the_reference(run, name, mixing):
+    """One round at a 'model' axis of 2 (SSD heads 16 a rank, w_B / w_C
+    whole, or one of two groups a rank; MLA 2 of 4 heads a rank;
+    expert-parallel or tensor-parallel experts) against the reference's
+    single-host round."""
+    _close(_leaves(run, f"zoo/{name}/{mixing}"),
+           run.ref[f"zoo/{name.partition('+')[0]}"], ORACLE,
+           f"{name} {mixing}")
 
 
 @pytest.mark.parametrize("remat", [False, True])
@@ -818,7 +904,8 @@ def test_mesh_engine_history_matches_local_engine(run, mixing, scan):
 def test_every_rank_holds_the_same_whole_params(run):
     keys = [k for k in run.digests[0] if not k.startswith("serve/")]
     assert len(keys) == len(MIXINGS) * ROUNDS + ROUNDS \
-        + len(QMIX) * ROUNDS + 2 + 4 + len(SERVER_CASES)
+        + len(QMIX) * ROUNDS + 3 + 4 + len(SERVER_CASES) \
+        + len(ZOO_TRAIN) * len(MIXINGS)
     for d in run.digests[1:]:
         assert {k: d[k] for k in keys} == {k: run.digests[0][k]
                                            for k in keys}
@@ -848,23 +935,32 @@ def test_serve_cache_holds_the_ranks_kv_heads(run, name, heads):
     assert got == want == heads
 
 
+@pytest.mark.parametrize("name,want", [
+    ("mamba2-1.3b", ((8, 160), (8, 160))),
+    ("zamba2-2.7b", ((8, 160), (8, 160))),
+    ("deepseek-v2-236b", ((SK + 4, 64), (SK + 4, 64)))])
+def test_serve_cache_of_ssd_and_mla(run, name, want):
+    """At m = 4: a rank's SSD state holds 8 of 32 heads and its conv 160
+    channels (128 of x, B and C whole: 16 + 16); MLA's latent ring is
+    whole on every rank."""
+    assert run.res[f"serve/{name}/cache_heads"] == want
+
+
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "deepseek-v2-236b"])
 @pytest.mark.parametrize("what", ["prefill", "decode", "train"])
-def test_what_13b_ii_holds_raises(arch, what):
-    from repro_torch.configs import get_config
-    from repro_torch.fl import distributed as D
-
-    mesh = types.SimpleNamespace(shape=SERVE_MESH,
-                                 mesh_dim_names=("data", "model"),
-                                 device_type="cpu")
-    cfg = get_config(arch).reduced(vocab=128)
-    with pytest.raises(NotImplementedError, match="13b-ii"):
-        if what == "prefill":
-            D.make_prefill_step(cfg, mesh, ("data",), SK + 4)
-        elif what == "decode":
-            D.make_decode_step(cfg, mesh, ("data",))
-        else:
-            D.make_train_step(cfg, mesh, mixing="fused")
+def test_what_13b_ii_holds_raises(run, arch, what):
+    """What once raised at a 'model' axis above 1 runs: the mesh prefill
+    and decode steps at (2, 4) and a 'fused' round at (2, 2, 2) match the
+    reference's single-host paths."""
+    if what == "train":
+        _close(_leaves(run, f"zoo/{arch}/fused"), run.ref[f"zoo/{arch}"],
+               ORACLE, arch)
+        return
+    want = run.ref[f"serve/{arch}"][what == "decode"]
+    for r in range(WORLD):
+        start, stop, pre, dec = run.res[f"serve/{arch}/{r}"]
+        got = dec if what == "decode" else pre
+        np.testing.assert_allclose(got, want[start:stop], **SERVE_TOL)
 
 
 if __name__ == "__main__" and len(sys.argv) == 4 \
