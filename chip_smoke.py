@@ -268,19 +268,46 @@ Phases (each raises on failure; nothing is caught):
               (nothing can drop).  GB a rank, ms a round, prefill ms,
               decode ms a step.  ``phase_tp`` takes the mesh shapes and
               the backend (four cards: NCCL at (1, 2, 2) with zero on
-              'ring', the serving and (e) at (1, 1, 4)).
+              'ring', the serving and (e) at (1, 1, 4)).  Each rank
+              tallies its warm-up prefill (``roofline.OpCost``) for
+              [dryrun].
+   ckpt    -- checkpoints (``repro_torch.ckpt``; after [lmtrain], whose
+              trained params it takes): the paper cell's CKPT_ROUNDS
+              rounds against CKPT_AT rounds, ``save_checkpoint`` of the
+              card's params, ``load_checkpoint`` into a like tree on the
+              card and ``plan[CKPT_AT:]``, on 'fused' (-> aggregate) and
+              'sparse' with record_mixed (-> sparse_mix_aggregate, staged),
+              sequential and scanned: params bitwise, History equal;
+              [lmtrain]'s trained bf16 tree (1.44 GB) round-tripped
+              bitwise, write / read s and GB/s; the reference-written
+              ``tests/data/ckpt_ref`` file loaded on the card bitwise.
+   dryrun  -- the dry-run (``launch/dryrun.py``, ``roofline``):
+              DRYRUN_COMBOS (production world of 256 fake ranks, meta
+              stand-ins) run in a background process on the host from the
+              build on, each record's line printed here, all OK; one MoE
+              combo on FakeTensorMode CUDA stand-ins (the card's
+              ``grouped_mm`` branch) counting the meta run's FLOPs and
+              collectives; qwen2-7b's [lm] 'ref' forward counted on fake
+              CUDA tensors equal to ``FlopCounterMode`` around the real
+              forward, exactly, with MemTracker's peak beside
+              ``max_memory_allocated`` and the measured ms beside
+              ``roofline_report``'s terms; [tp] (b)'s prefill collectives
+              (rank 0's tally) equal to the dry-run's of the same step.
 6. report  -- a ``{"kernels": [...]}`` JSON line (nine kernels; the
               six routed ones with the ``routes`` of their main-path
               launches; the launches are those of [train], [control],
-              the quickstart, [stream], [ingest], [lmtrain], [mesh] and
-              [tp] (every rank's), flash's those of [lm], [zoo] and
-              [tp]; aggregate's and
+              the quickstart, [stream], [ingest], [lmtrain], [ckpt],
+              [mesh] and [tp] (every rank's), flash's those of [lm],
+              [zoo] and [tp]; aggregate's and
               mix_aggregate's rows also carry ``lm_payload``, their
               numbers at [lmtrain]'s payload), the card's name and power
               limit (nvidia-smi), and the final ``{"ok": true,
               "device": {...}}`` line.
 
-It imports only ``torch``, numpy and ``repro_torch`` (never JAX), and
+The phases run in the order above, but for [ckpt], which follows
+[lmtrain], and [dryrun], whose combos start in the background after
+[build].  It imports only ``torch``, numpy and ``repro_torch`` (never
+JAX), and
 exits non-zero without a result when no CUDA card is present or when run
 outside a checkout of the repository.
 """
@@ -292,6 +319,7 @@ import re
 import subprocess
 import sys
 import time
+from contextlib import nullcontext
 from functools import partial
 from pathlib import Path
 
@@ -3166,7 +3194,7 @@ def _bitwise(name, a, b):
         raise AssertionError(f"{name}: not bitwise equal")
 
 
-def phase_lmtrain(seed: int, counters):
+def phase_lmtrain(seed: int, counters, keep=None):
     """Federated training of stablelm-1.6b through Algorithm 1 on one
     card.  (a) bf16 at full width and LMT_LAYERS layers: 2 rounds on
     'einsum', on 'fused' (-> aggregate) and on 'fused' with record_mixed (->
@@ -3182,7 +3210,8 @@ def phase_lmtrain(seed: int, counters):
     at full width, 2 layers: the kernel backends within rtol 2e-4 / atol
     2e-5 of einsum, scanned == sequential, all-ones active == None and
     remat on == off, bitwise.  Returns ``({kernel: launches in (a)},
-    {kernel: row fields at this payload})``."""
+    {kernel: row fields at this payload})``; ``keep`` (a dict), if given,
+    gets the 'aggregate' run's trained params under "params"."""
     import dataclasses
     import numpy as np
     import torch
@@ -3270,6 +3299,8 @@ def phase_lmtrain(seed: int, counters):
         del first
         launches[kernel] = counts[kernel]
         round_ms[effective] = ms[-1]
+        if keep is not None and kernel == "aggregate":
+            keep["params"] = server.params
         print(f"[lmtrain] {backend} record_mixed={record_mixed} -> "
               f"{effective}: {counts[kernel]} {kernel} launches"
               + (f" (routes {routes[kernel]})" if kernel in routes else "")
@@ -3635,6 +3666,8 @@ TP_TIMEOUT_S = 300
 # 0.151 / 0.155 and 0.285 / 0.293 after rounds 0 / 1 (0.215 after round 1
 # at (2, 1, 2) on four cards).
 TP_CHANGE_REL = 0.25
+# rank 0's op_cost tally of (b)'s warm-up prefill, by arch ([dryrun] (3))
+TP_PREFILL_TALLY = {}
 
 
 def layered_params(cfg, seed: int, place=None):
@@ -4019,6 +4052,7 @@ def _tp_serve(rank, arch, shape, seed, counters, depth=None,
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models.model import Model
+    from repro_torch.roofline import OpCost
 
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = make_debug_mesh(shape)
@@ -4032,14 +4066,17 @@ def _tp_serve(rank, arch, shape, seed, counters, depth=None,
     flash = expected_flash(cfg)
     out = {"layers": cfg.n_layers, "top1_min": top1_min}
 
-    def run(c, local, toks, n_new):
+    def run(c, local, toks, n_new, tally=None):
         S = toks.shape[1]
         prefill = D.make_prefill_step(c, mesh, (), S + n_new)
         decode = D.make_decode_step(c, mesh, ())
         torch.cuda.synchronize()
         dist.barrier()
         t0 = time.perf_counter()
-        logits, cache = prefill(local, toks)
+        with (OpCost(mesh) if tally is not None else nullcontext()) as cost:
+            logits, cache = prefill(local, toks)
+        if tally is not None:
+            tally.update(cost.result())
         torch.cuda.synchronize()
         pre_ms = (time.perf_counter() - t0) * 1e3
         steps = [logits]
@@ -4072,13 +4109,18 @@ def _tp_serve(rank, arch, shape, seed, counters, depth=None,
     place = _placer(cfg, mesh)
     local = _one_rank_at_a_time(
         mesh, lambda: layered_params(cfg, seed + 10, place))
+    # the warm-up's prefill is tallied (roofline.op_cost: its collectives,
+    # which [dryrun] holds the dry-run's to)
+    tally = {}
     if flash:
         # warm-up; its first flash call's q / k / v are the rank's layer 0
-        q, k, v, kw = _first_flash_call(lambda: run(cfg, local, tokens, 2))
+        q, k, v, kw = _first_flash_call(
+            lambda: run(cfg, local, tokens, 2, tally))
         out["flash"] = _flash_on_rank(q, k, v, kw)
         del q, k, v
     else:
-        run(cfg, local, tokens, 2)
+        run(cfg, local, tokens, 2, tally)
+    out["prefill_tally"] = tally
     torch.cuda.reset_peak_memory_stats()
     reset_counters(counters)
     logits, pre_ms, dec_ms = run(cfg, local, tokens, new)
@@ -4446,10 +4488,360 @@ def phase_tp(seed: int, shape=TP_SHAPE, backend=TP_BACKEND,
               f"({e['fp32_stats']['dropped']} dropped): logits max|d| "
               f"{e['fp32_logits']:.3e}, gradient max ||d|| / ||g|| "
               f"{e['fp32_grad_rel']:.3e} (rtol = atol = {TP_SERVE_TOL})")
+    TP_PREFILL_TALLY[serve_arch] = ranks[0]["serve"]["prefill_tally"]
     print(f"[tp] phase {time.perf_counter() - t_phase:.1f} s")
     return {"aggregate": sum(x["fused"]["counts"].get("aggregate", 0)
                              for x in ranks),
             "flash_attention": flash}
+
+
+# -- [ckpt] -----------------------------------------------------------------
+
+CKPT_ROUNDS, CKPT_AT = 4, 2     # the paper cell's run, and where it stops
+CKPT_FIXTURE = ROOT / "tests" / "data" / "ckpt_ref" / "ckpt_00000002.npz"
+
+
+def phase_ckpt(seed: int, lm_params, counters) -> dict:
+    """Checkpoints on the card (``repro_torch.ckpt``).  (1) The paper cell
+    runs CKPT_ROUNDS rounds uninterrupted and again as CKPT_AT rounds,
+    ``save_checkpoint`` of the card's params, ``load_checkpoint`` into a
+    like tree on the card and ``plan[CKPT_AT:]`` from the restored
+    params: on 'fused' (-> aggregate) and on 'sparse' with record_mixed
+    (-> sparse_mix_aggregate), sequential and scanned; params bitwise
+    equal, History records equal, each kernel launched once a round in
+    the three runs.  (2) ``lm_params`` ([lmtrain]'s trained bf16 tree)
+    round-trips bitwise through a checkpoint, write and read seconds and
+    GB/s printed.  (3) The reference-written fixture under ``tests/data``
+    loads on the card bitwise equal to the file's arrays.  Returns
+    ({kernel: launches in (1)}, {kernel: their routes})."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.ckpt import load_checkpoint, save_checkpoint
+    from repro_torch.core.pytree import tree_flatten, tree_map
+    from repro_torch.core.server import FederatedServer, ServerConfig
+    from repro_torch.fl.engine import ExecutionConfig
+
+    n, c, T, _, batcher, spec, loss_fn, init = paper_cell(seed)
+    launches, routes = {}, {}
+
+    def records(h):
+        return [(r.t, r.m, r.m_actual, r.d2s, r.d2d, r.psi_bound, r.eta)
+                for r in h.records]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend, record_mixed, kernel in (
+                ("fused", False, "aggregate"),
+                ("sparse", True, "sparse_mix_aggregate")):
+            for scan in (False, True):
+                server = FederatedServer(
+                    spec.build(), loss_fn, init, batcher,
+                    ServerConfig(T=T, t_max=CKPT_ROUNDS, seed=seed),
+                    execution=ExecutionConfig(backend=backend, scan=scan,
+                                              record_mixed=record_mixed))
+                plan, batches = server._plan_and_batches()
+                engine = server.engine
+                reset_counters(counters)
+                full, h_full = engine.execute(plan, init, batches)
+                head, h_head = engine.execute(plan[:CKPT_AT], init,
+                                              batches[:CKPT_AT])
+                path = save_checkpoint(f"{tmp}/{backend}{scan}", CKPT_AT,
+                                       head, meta={"t0": CKPT_AT})
+                like = tree_map(torch.zeros_like, head)
+                restored, meta = load_checkpoint(path, like)
+                devs = {str(x.device) for x in tree_flatten(restored)[0]}
+                tail, h_tail = engine.execute(plan[CKPT_AT:], restored,
+                                              batches[CKPT_AT:])
+                torch.cuda.synchronize()
+                counts = {k: f.launches for k, f in counters.items()
+                          if f.launches}
+                groups = counts.get(kernel, 0) // (2 * CKPT_ROUNDS)
+                if counts != {kernel: groups * 2 * CKPT_ROUNDS} or \
+                        groups < 1:
+                    raise AssertionError(f"[ckpt] {backend}: launches "
+                                         f"{counts}")
+                launches[kernel] = launches.get(kernel, 0) + counts[kernel]
+                if hasattr(counters[kernel], "routes"):
+                    got = dict(counters[kernel].routes)
+                    if got != {"generic": 0, "staged": counts[kernel]}:
+                        raise AssertionError(f"[ckpt] {kernel} routes {got}")
+                    for r, k in got.items():
+                        routes.setdefault(kernel, dict.fromkeys(got, 0))
+                        routes[kernel][r] += k
+                same = all(torch.equal(a, b) for a, b in zip(
+                    tree_flatten(full)[0], tree_flatten(tail)[0]))
+                hist_same = records(h_head) + records(h_tail) == \
+                    records(h_full)
+                print(f"[ckpt] paper cell on {backend}"
+                      f"{' record_mixed' if record_mixed else ''} "
+                      f"({'scanned' if scan else 'sequential'}): "
+                      f"{CKPT_ROUNDS} rounds == {CKPT_AT} + checkpoint "
+                      f"(restored on {sorted(devs)}, step "
+                      f"{meta['step']}) + {CKPT_ROUNDS - CKPT_AT}: params "
+                      f"bitwise {same}, History {hist_same}; "
+                      f"{counts[kernel]} {kernel} launches")
+                if not (same and hist_same and devs == {"cuda:0"}):
+                    raise AssertionError(f"[ckpt] resume on {backend} "
+                                         "differs from the uninterrupted run")
+                del server, engine, full, head, tail, restored, like
+
+        # (2) [lmtrain]'s trained bf16 params through a checkpoint
+        leaves = tree_flatten(lm_params)[0]
+        nbytes = sum(x.numel() * x.element_size() for x in leaves)
+        dtypes = sorted({str(x.dtype) for x in leaves})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(f"{tmp}/lm", 1, lm_params)
+        w_s = time.perf_counter() - t0
+        like = tree_map(torch.empty_like, lm_params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back, _ = load_checkpoint(path, like)
+        torch.cuda.synchronize()
+        r_s = time.perf_counter() - t0
+        same = all(a.dtype == b.dtype and a.device == b.device
+                   and torch.equal(a.view(torch.int16), b.view(torch.int16))
+                   for a, b in zip(tree_flatten(back)[0], leaves))
+        print(f"[ckpt] [lmtrain]'s trained params: {len(leaves)} leaves, "
+              f"{sum(x.numel() for x in leaves):,} values {dtypes}, "
+              f"{nbytes / 1e9:.3f} GB: write {w_s:.2f} s "
+              f"({nbytes / w_s / 1e9:.2f} GB/s, card -> host -> .npz), read "
+              f"{r_s:.2f} s ({nbytes / r_s / 1e9:.2f} GB/s, .npz -> host -> "
+              f"card); restored bitwise: {same}")
+        if dtypes != ["torch.bfloat16"] or not same:
+            raise AssertionError("[ckpt] the bf16 tree did not round-trip")
+        del back, like
+
+    # (3) the reference-written file, onto the card
+    with np.load(CKPT_FIXTURE) as npz:
+        arrays = {k: npz[k] for k in npz.files}
+    like = {"head": [torch.zeros(arrays["head/0"].shape, device="cuda"),
+                     torch.zeros(arrays["head/1"].shape, dtype=torch.int32,
+                                 device="cuda")],
+            "layer": {k: torch.zeros(arrays[f"layer/{k}"].shape,
+                                     device="cuda") for k in ("b", "w")},
+            "step_count": torch.zeros(arrays["step_count"].shape,
+                                      dtype=torch.int32, device="cuda")}
+    got, meta = load_checkpoint(str(CKPT_FIXTURE), like)
+    from repro_torch.core.pytree import tree_flatten_with_paths
+    same = all(str(x.device) == "cuda:0"
+               and np.array_equal(x.cpu().numpy(), arrays[k])
+               and x.cpu().numpy().dtype == arrays[k].dtype
+               for k, x in tree_flatten_with_paths(got)[0])
+    print(f"[ckpt] reference-written {CKPT_FIXTURE.relative_to(ROOT)} "
+          f"({CKPT_FIXTURE.stat().st_size:,} bytes, keys {meta['keys']}): "
+          f"on the card bitwise {same}")
+    if not same:
+        raise AssertionError("[ckpt] the reference's file did not load")
+    return launches, routes
+
+
+# -- [dryrun] -----------------------------------------------------------------
+
+# the production combos [dryrun] runs (single pod, 256 fake ranks), in the
+# background from the build on: every arch's decode_32k and long_500k,
+# every prefill_32k but deepseek-v2's (160 experts a layer on the meta
+# loop route, ~1 min), train_4k for stablelm-1.6b and mamba2-1.3b (T = 5)
+DRYRUN_COMBOS = (
+    [("stablelm-1.6b", "train_4k"), ("mamba2-1.3b", "train_4k")]
+    + [(a, s) for s in ("decode_32k", "long_500k", "prefill_32k")
+       for a in ("qwen3-32b", "musicgen-large", "mamba2-1.3b",
+                 "internvl2-1b", "zamba2-2.7b", "deepseek-v2-236b",
+                 "phi3.5-moe-42b-a6.6b", "qwen1.5-4b", "qwen2-7b",
+                 "stablelm-1.6b")
+       if (a, s) != ("deepseek-v2-236b", "prefill_32k")])
+DRYRUN_LOG = ROOT / "build" / "dryrun_torch.log"
+DRYRUN_OUT = ROOT / "build" / "dryrun_torch"
+DRYRUN_TIMEOUT_S = 900
+# the card branch of a MoE (grouped_mm) on FakeTensorMode CUDA tensors
+DRYRUN_CUDA_COMBO = ("phi3.5-moe-42b-a6.6b", "decode_32k")
+
+
+def dryrun_start():
+    """Start the production dry-runs (DRYRUN_COMBOS) in a background
+    process on the host's CPU (meta stand-ins: it never touches the card),
+    its lines into DRYRUN_LOG; ``phase_dryrun`` reads them."""
+    import os
+    code = ("import sys, time, traceback\n"
+            "from repro_torch.launch import dryrun\n"
+            "t0 = time.time(); bad = 0\n"
+            f"for a, s in {DRYRUN_COMBOS!r}:\n"
+            "    try:\n"
+            f"        rec = dryrun.run_combo(a, s, out_dir={str(DRYRUN_OUT)!r})\n"
+            "        print(dryrun.ok_line(rec), flush=True)\n"
+            "    except Exception:\n"
+            "        bad += 1\n"
+            "        print(f'FAIL {a} {s}', flush=True)\n"
+            "        traceback.print_exc(file=sys.stdout)\n"
+            "print(f'TOTAL {time.time() - t0:.1f} s', flush=True)\n"
+            "sys.exit(1 if bad else 0)\n")
+    DRYRUN_LOG.parent.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    log = open(DRYRUN_LOG, "w")
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
+
+
+def _dryrun_tp_prefill(arch: str, shape, batch: int, seq: int):
+    """The dry-run's tally of [tp] (b)'s prefill step: rank 0 of a fake
+    world of ``prod(shape)`` ranks, meta stand-ins, the same config, batch
+    and sequence as ``_tp_serve``'s warm-up."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.fl import distributed as D
+    from repro_torch.launch import dryrun, shapes
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.roofline import cost_of
+
+    world = 1
+    for s in shape:
+        world *= s
+    dryrun.fake_world(world)
+    try:
+        mesh = make_debug_mesh(tuple(shape), device="cpu")
+        cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
+        whole, specs = shapes.param_structs(Model(cfg, device="meta"), mesh)
+        local = shapes._local(whole, specs, mesh, "meta")
+        prefill = D.make_prefill_step(cfg, mesh, (), seq + 2)
+        toks = torch.empty((batch, seq), dtype=torch.int64, device="meta")
+        return cost_of(prefill, local, toks, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dryrun(proc, seed: int, tp_tally=None) -> None:
+    """The dry-run (``launch/dryrun.py``, ``roofline``).  (1) The
+    production combos ``dryrun_start`` ran in the background: every
+    record's line, all OK; and DRYRUN_CUDA_COMBO here on FakeTensorMode
+    CUDA stand-ins (the MoE's ``grouped_mm`` branch), its FLOPs and
+    collectives equal to the meta run's.  (2) qwen2-7b's [lm] 'ref'
+    forward (LM_BATCH x LM_SEQ, bf16, full size): the op_cost count on
+    fake CUDA tensors equal to ``FlopCounterMode``'s around the real
+    forward on the card, exactly; MemTracker's peak beside
+    ``torch.cuda.max_memory_allocated``; the forward's ms (CUDA events)
+    beside ``roofline_report``'s compute and memory seconds.  (3)
+    ``tp_tally``, the collectives one rank of [tp] (b) tallied around its
+    real qwen2-7b prefill, equal to the dry-run's of the same step."""
+    import dataclasses
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.utils.flop_counter import FlopCounterMode
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_leaves, tree_map
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import Model
+    from repro_torch.roofline import OpCost, roofline_report
+
+    # (1) the background combos
+    try:
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = DRYRUN_LOG.read_text().splitlines()
+    for line in lines:
+        if line.startswith(("OK", "FAIL", "TOTAL")):
+            print(f"[dryrun] {line}")
+    oks = [ln for ln in lines if ln.startswith("OK")]
+    if rc != 0 or len(oks) != len(DRYRUN_COMBOS):
+        print("\n".join(lines[-60:]))
+        raise AssertionError(f"[dryrun] {len(oks)} of {len(DRYRUN_COMBOS)} "
+                             f"combos OK (exit {rc})")
+    arch, shape_name = DRYRUN_CUDA_COMBO
+    try:
+        rec = dryrun.run_combo(arch, shape_name, out_dir=str(DRYRUN_OUT),
+                               tag="cuda", device="cuda")
+    finally:
+        dist.destroy_process_group()
+    meta = json.loads((DRYRUN_OUT / f"{arch}__{shape_name}__16x16.json")
+                      .read_text())
+    same = all(rec[k] == meta[k] for k in (
+        "flops_per_device", "collective_per_device", "collective_per_axis",
+        "n_collective_ops"))
+    print(f"[dryrun] {dryrun.ok_line(rec)} (FakeTensorMode on cuda, the "
+          f"card's branches); FLOPs and collectives equal the meta run's: "
+          f"{same}; bytes {rec['bytes_per_device']:.6e} vs "
+          f"{meta['bytes_per_device']:.6e}")
+    if not same:
+        raise AssertionError("[dryrun] fake CUDA and meta counts differ")
+
+    # (2) the [lm] 'ref' forward: fake count == the card's
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="ref")
+    model = Model(cfg)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init(g)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                           generator=g, device=dev)
+    with torch.no_grad():
+        model.forward(params, tokens)                     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with FlopCounterMode(display=False) as fc:
+            model.forward(params, tokens)
+        torch.cuda.synchronize()
+        real_peak = torch.cuda.max_memory_allocated()
+        real_flops = fc.get_total_flops()
+        ms = cuda_ms(lambda: model.forward(params, tokens), iters=3,
+                     warmup=1)
+    mode = FakeTensorMode()
+    with mode:
+        fparams = tree_map(lambda x: torch.empty(
+            x.shape, dtype=x.dtype, device=x.device), params)
+        ftokens = torch.empty(tokens.shape, dtype=tokens.dtype, device=dev)
+    del params
+    torch.cuda.empty_cache()
+    mem = MemTracker()
+    mem.track_external(*tree_leaves(fparams), ftokens)
+    with mode, torch.no_grad(), OpCost() as cost, mem:
+        model.forward(fparams, ftokens)
+    fake = cost.result()
+    fake_peak = max(v.get("Total", 0) for v in
+                    mem.get_tracker_snapshot("peak").values())
+    rep = roofline_report(arch=LM_ARCH, shape=f"{LM_BATCH}x{LM_SEQ}",
+                          mesh="1", chips=1, flops_global=fake["flops"],
+                          bytes_global=fake["bytes"], collectives=fake,
+                          cfg=cfg, kind="prefill",
+                          tokens=LM_BATCH * LM_SEQ)
+    print(f"[dryrun] {LM_ARCH} 'ref' forward {LM_BATCH}x{LM_SEQ} bf16: "
+          f"FLOPs on fake CUDA tensors {fake['flops']:.6e}, "
+          f"FlopCounterMode around the card's forward {real_flops:.6e}: "
+          f"equal {fake['flops'] == real_flops}; peak MemTracker (fake) "
+          f"{fake_peak / 1e9:.3f} GB vs torch.cuda.max_memory_allocated "
+          f"{real_peak / 1e9:.3f} GB; measured {ms:.2f} ms vs roofline "
+          f"(H100 published peaks) compute {rep.compute_s * 1e3:.2f} ms, "
+          f"memory {rep.memory_s * 1e3:.2f} ms ({fake['bytes']:.4e} bytes "
+          f"in the ideal-fusion model): {rep.dominant}-bound, "
+          f"{max(rep.compute_s, rep.memory_s) * 1e3 / ms:.1%} of the "
+          f"larger term")
+    if fake["flops"] != real_flops or real_flops <= 0:
+        raise AssertionError("[dryrun] the fake FLOP count is not the "
+                             "card's")
+    del fparams, mode
+    torch.cuda.empty_cache()
+
+    # (3) [tp] (b)'s prefill: the rank's collectives == the dry-run's
+    if tp_tally is None:
+        raise AssertionError("[dryrun] [tp] (b) left no prefill tally")
+    dry = _dryrun_tp_prefill(TP_SERVE_ARCH, TP_SHAPE, LM_BATCH, LM_SEQ)
+    keys = ("collectives", "collectives_by_axis", "collective_ops")
+    same = all(dry[k] == tp_tally[k] for k in keys)
+    print(f"[dryrun] [tp] (b) {TP_SERVE_ARCH} prefill at mesh {TP_SHAPE}: "
+          f"rank 0's real run tallied {tp_tally['collective_ops']} "
+          f"ops, {tp_tally['collectives']} bytes by kind, "
+          f"{tp_tally['collectives_by_axis']} by axis; the dry-run "
+          f"{dry['collective_ops']}, {dry['collectives']}, "
+          f"{dry['collectives_by_axis']}: equal {same}")
+    if not same:
+        raise AssertionError("[dryrun] the dry-run's collectives are not "
+                             "the real prefill's")
 
 
 def main() -> int:
@@ -4474,6 +4866,17 @@ def main() -> int:
 
     phase_build()
     lap("[build]")
+    dry = dryrun_start()
+    try:
+        return _phases(name, lap, dry)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+
+
+def _phases(name, lap, dry) -> int:
+    import torch
     rows = phase_kernels(70, 1_663_488)
     rows += phase_sparse_kernels(SEED)
     rows += phase_quant_kernels(SEED)
@@ -4497,15 +4900,26 @@ def main() -> int:
     launches["flash_attention"] = phase_lm(SEED, kernel_counters())
     launches["flash_attention"] += phase_zoo(SEED, kernel_counters())
     lap("[lm] [zoo]")
-    lm_launches, lm_rows = phase_lmtrain(SEED, kernel_counters())
+    trained = {}
+    lm_launches, lm_rows = phase_lmtrain(SEED, kernel_counters(), trained)
     for kernel, count in lm_launches.items():
         launches[kernel] += count
     routes["mix_aggregate"]["staged"] += lm_launches["mix_aggregate"]
+    ckpt_launches, ckpt_routes = phase_ckpt(SEED, trained.pop("params"),
+                                            kernel_counters())
+    for kernel, count in ckpt_launches.items():
+        launches[kernel] += count
+    for kernel, by_route in ckpt_routes.items():
+        for r, count in by_route.items():
+            routes[kernel][r] += count
+    torch.cuda.empty_cache()
     launches["aggregate"] += phase_mesh(SEED, kernel_counters())
-    lap("[lmtrain] [mesh]")
+    lap("[lmtrain] [ckpt] [mesh]")
     for kernel, count in phase_tp(SEED).items():
         launches[kernel] += count
     lap("[tp]")
+    phase_dryrun(dry, SEED, TP_PREFILL_TALLY.get(TP_SERVE_ARCH))
+    lap("[dryrun]")
     for row in rows:
         if row["name"] in lm_rows:
             row["lm_payload"] = lm_rows[row["name"]]

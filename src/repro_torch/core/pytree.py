@@ -14,7 +14,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
 
-__all__ = ["tree_flatten", "tree_unflatten", "tree_leaves", "tree_map"]
+__all__ = ["tree_flatten", "tree_unflatten", "tree_leaves", "tree_map",
+           "tree_flatten_with_paths"]
 
 PyTree = Any
 # treedef: "*" for a leaf, None for None, else (kind, keys, children);
@@ -37,6 +38,22 @@ def _walk(node, leaves: List[Any]) -> TreeDef:
         return (kind, len(node), tuple(_walk(c, leaves) for c in node))
     leaves.append(node)
     return "*"
+
+
+def _walk_paths(node, prefix: str, out: List[Tuple[str, Any]]) -> None:
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk_paths(node[k], f"{prefix}{k}/", out)
+        return
+    if isinstance(node, (list, tuple)):
+        fields = getattr(node, "_fields", None)
+        for i, c in enumerate(node):
+            _walk_paths(c, f"{prefix}{'.' + fields[i] if fields else i}/",
+                        out)
+        return
+    out.append((prefix[:-1], node))
 
 
 def _build(d: TreeDef, it) -> PyTree:
@@ -63,6 +80,18 @@ def tree_flatten(tree: PyTree) -> Tuple[List[Any], TreeDef]:
     leaves: List[Any] = []
     treedef = _walk(tree, leaves)
     return leaves, treedef
+
+
+def tree_flatten_with_paths(tree: PyTree
+                            ) -> Tuple[List[Tuple[str, Any]], TreeDef]:
+    """``([(path, leaf), ...], treedef)`` in ``tree_flatten`` order.  A
+    path joins its keys with '/' as the reference's checkpoints key their
+    leaves (``jax.tree_util.tree_flatten_with_path``): a dict key as
+    itself, a list or tuple index as its number, a NamedTuple field as
+    ``.name``."""
+    out: List[Tuple[str, Any]] = []
+    _walk_paths(tree, "", out)
+    return out, tree_flatten(tree)[1]
 
 
 def tree_unflatten(treedef: TreeDef, leaves) -> PyTree:

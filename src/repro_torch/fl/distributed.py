@@ -113,9 +113,12 @@ MIXINGS = ("ring", "gather", "einsum", "fused", "fused_rs")
 
 def mesh_device(mesh) -> torch.device:
     """This rank's device: the CPU for a gloo mesh on the CPU, its
-    current card otherwise."""
+    current card otherwise; on a dry-run's fake process group
+    (``launch/dryrun.py``) card 0, without touching CUDA."""
     if mesh.device_type == "cpu":
         return torch.device("cpu")
+    if "fake" in str(dist.get_backend()):
+        return torch.device(mesh.device_type, 0)
     return torch.device(mesh.device_type, torch.cuda.current_device())
 
 
@@ -200,9 +203,10 @@ def gather_params(local: PyTree, cfg: ModelConfig, mesh,
 def batch_rows(mesh, batch_axes, batch: int) -> slice:
     """The rows of a ``batch``-row batch this rank serves: the batch split
     evenly over ``batch_axes`` (an axis name or a tuple of them,
-    outermost first), ranks that share their indices there serving the
-    same rows."""
-    axes = (batch_axes,) if isinstance(batch_axes, str) else tuple(batch_axes)
+    outermost first; None: every rank serves every row), ranks that share
+    their indices there serving the same rows."""
+    axes = () if batch_axes is None else (batch_axes,) \
+        if isinstance(batch_axes, str) else tuple(batch_axes)
     idx, size = 0, 1
     for a in axes:
         n = int(mesh.shape[mesh.mesh_dim_names.index(a)])

@@ -70,6 +70,7 @@ from typing import Any, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from . import sharding
 from .config import ModelConfig
@@ -164,7 +165,7 @@ def expert_matmul(xs: torch.Tensor, w: torch.Tensor, sizes: torch.Tensor,
         expert_matmul.routes[route] += 1
         return out
     parts, start = [], 0
-    for e, n in enumerate(sizes.tolist()):     # one host sync a call
+    for e, n in enumerate(_host_sizes(sizes, xs.shape[0])):
         if n:
             parts.append(xs[start:start + n] @ w[e])
             expert_matmul.routes[route] += 1
@@ -173,6 +174,23 @@ def expert_matmul(xs: torch.Tensor, w: torch.Tensor, sizes: torch.Tensor,
 
 
 expert_matmul.routes = dict.fromkeys(ROUTES, 0)
+
+
+def _abstract(t: torch.Tensor) -> bool:
+    """A tensor without data: on the meta device or a ``FakeTensor``."""
+    return t.is_meta or is_fake(t)
+
+
+def _host_sizes(sizes: torch.Tensor, rows: int):
+    """Each expert's row count on the host: one sync a call.  A dry-run's
+    abstract tensors (``launch/dryrun.py``) hold no counts; they take the
+    ``rows`` split as evenly as it goes, which gives every FLOP count the
+    real routing gives (2 x rows x K x N over the experts, whatever the
+    split)."""
+    if _abstract(sizes):
+        E = sizes.shape[0]
+        return [rows // E + (e < rows % E) for e in range(E)]
+    return sizes.tolist()
 
 
 def _experts_ragged(p: PyTree, xs, sizes, offsets, dtype) -> torch.Tensor:
@@ -285,7 +303,9 @@ def _moe_expert_parallel(cfg: ModelConfig, p: PyTree, xs: torch.Tensor,
     rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
     keep = rank < cap
     _EP_STATS["slots"] += T * k
-    _EP_STATS["dropped"] += int((~keep).sum())
+    # a dry-run's abstract tensors hold no routing: no slot counts as
+    # dropped
+    _EP_STATS["dropped"] += 0 if _abstract(keep) else int((~keep).sum())
     _EP_STATS["calls"] += 1
 
     E_loc = p["gate"].shape[0]

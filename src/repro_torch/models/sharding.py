@@ -554,10 +554,13 @@ def seq_route(group, x: torch.Tensor) -> str:
     'collective' (``all_gather_into_tensor`` / ``reduce_scatter_tensor``)
     for NCCL with CUDA tensors and gloo with CPU tensors, 'broadcast'
     (``broadcast`` / ``all_reduce`` and a slice) for gloo with CUDA
-    tensors, which runs only those two.  Any other pairing raises."""
+    tensors, which runs only those two.  A dry-run's fake group
+    (``launch/dryrun.py``) takes the production route, NCCL's
+    'collective'.  Any other pairing raises."""
     backend = str(dist.get_backend(group))
     if (backend == "nccl" and x.is_cuda) or (backend == "gloo"
-                                             and not x.is_cuda):
+                                             and not x.is_cuda) \
+            or "fake" in backend:
         return "collective"
     if backend == "gloo" and x.is_cuda:
         return "broadcast"

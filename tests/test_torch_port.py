@@ -43,7 +43,10 @@ def test_no_module_imports_jax_or_the_reference():
     root = SRC.parents[1] / "chip_smoke.py"
     assert [n for n in _imports(root) if n.split(".")[0] in FORBIDDEN] == []
     # the new subpackages are covered, and so are the example twins
-    assert {"control", "optim", "runtime"} <= {f.parent.name for f in files}
+    assert {"control", "optim", "runtime", "ckpt", "roofline"} <= \
+        {f.parent.name for f in files}
+    assert {"shapes.py", "dryrun.py", "op_cost.py"} <= \
+        {f.name for f in files}
     twins = sorted((SRC.parents[1] / "examples").glob("*_torch.py"))
     assert len(twins) >= 2
     assert [(t.name, n) for t in twins for n in _imports(t)
