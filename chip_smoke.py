@@ -203,6 +203,14 @@ Phases (each raises on failure; nothing is caught):
               and 4 / 2 / 6 / 6 layers: flash vs ref within 1e-4,
               prefill + decode vs the forward within 2e-3, ragged vs dense
               MoE within 2e-4, chunked vs full MLA within 2e-3.
+   serve   -- the serving CLI's own per-rank function
+              (``launch/serve.py::serve_rank``, what ``--devices 1`` runs:
+              a world-size-1 NCCL group in this process, the mesh steps)
+              for reduced qwen2-7b, phi3.5-moe and mamba2 (vocab 512,
+              fp32, batch 4, 32 prompt tokens, 16 new): the CLI's lines,
+              and its tokens and logits against the one-device
+              ``Model.prefill`` / ``decode`` on the weights it drew (the
+              greedy tokens equal, logits within 2e-4).
    lmtrain -- federated LM training (``LMT_*``): stablelm-1.6b at its
               published widths and LMT_LAYERS of its 24 layers in bf16
               from random
@@ -228,6 +236,14 @@ Phases (each raises on failure; nothing is caught):
               within rtol 2e-4 / atol 2e-5 of einsum, scanned ==
               sequential, all-ones active == None, remat on == off, all
               bitwise.
+   moetrain - [lmtrain]'s recipe on phi3.5-moe (``MOET_*``) at its
+              published widths and MOET_LAYERS of its 32 layers, MOET_S
+              tokens a client a step (the MoE's dense oracle under vmap;
+              its fp32 router makes a second dtype group, so each kernel
+              launches twice a round); ``expert_matmul.routes``
+              unchanged; fp32 pins at MOET_PIN_N clients of MOET_PIN_S
+              tokens, scanned == sequential bitwise (no trace, no
+              all-ones or remat pins).
    mesh    -- the mesh runtime (``fl/distributed.py``) on a world-size-1
               NCCL group in this process, mesh (1, 1, 1), the same model
               at MESH_LAYERS layers (1,024 tokens a step): each of the
@@ -260,8 +276,10 @@ Phases (each raises on failure; nothing is caught):
               16 / 16 heads, head dim 80, through flash) and (d)
               deepseek-v2 at 1 + TP_DSV2_MOE layers (MLA 64 heads a rank,
               tensor-parallel experts) the same way, top-1 at least
-              TP_TOP1_MIN for (c)'s archs (no router), fp32 gates on
-              TP_GATE_S tokens; (e) phi3.5-moe at TP_EP_LAYERS layers
+              TP_TOP1_MIN for (c)'s archs (no router; beside it both
+              bf16 runs' top-1 against a one-device fp32 run of the same
+              weights; read after every case's fp32 gate has run), fp32
+              gates on TP_GATE_S tokens; (e) phi3.5-moe at TP_EP_LAYERS layers
               with moe_sharding='expert' (8 whole experts a rank):
               forward and gradient against the one-device ragged path,
               the slots the capacity dropped, an fp32 gate at 8 tokens
@@ -297,18 +315,18 @@ Phases (each raises on failure; nothing is caught):
               six routed ones with the ``routes`` of their main-path
               launches; the launches are those of [train], [control],
               the quickstart, [stream], [ingest], [lmtrain], [ckpt],
-              [mesh] and [tp] (every rank's), flash's those of [lm],
-              [zoo] and [tp]; aggregate's and
-              mix_aggregate's rows also carry ``lm_payload``, their
-              numbers at [lmtrain]'s payload), the card's name and power
+              [moetrain], [mesh] and [tp] (every rank's), flash's those
+              of [lm], [zoo] and [tp]; aggregate's and mix_aggregate's
+              rows also carry ``lm_payload`` and ``moe_payload``, their
+              numbers at [lmtrain]'s and [moetrain]'s payloads), the
+              card's name and power
               limit (nvidia-smi), and the final ``{"ok": true,
               "device": {...}}`` line.
 
 The phases run in the order above, but for [ckpt], which follows
-[lmtrain], and [dryrun], whose combos start in the background after
-[build].  It imports only ``torch``, numpy and ``repro_torch`` (never
-JAX), and
-exits non-zero without a result when no CUDA card is present or when run
+[lmtrain] (and [moetrain] follows it), and [dryrun], whose combos start
+in the background after [build].  It imports only ``torch``, numpy and
+``repro_torch`` (never JAX), and exits non-zero without a result when no CUDA card is present or when run
 outside a checkout of the repository.
 """
 
@@ -3054,6 +3072,20 @@ LMT_PIN_LAYERS, LMT_PIN_S, MESH_S = 2, 1024, 1024
 # that the script, grown by [tp]'s archs, keeps to its time; [tp] trains
 # all 24
 LMT_LAYERS = MESH_LAYERS = 6
+# [moetrain]: phi3.5-moe at its published widths (src/repro/configs/
+# phi35_moe_42b.py, hf: microsoft/Phi-3.5-MoE-instruct) on [lmtrain]'s
+# recipe (n, c, T, rounds, remat, chunked attention, loss chunk, tokens),
+# at the depth 80 GB allows: one of its 32 layers is 1.56e9 values a
+# client, a (4, 1.56e9) bf16 payload, about [lmtrain]'s at 24 layers
+# (73.2 GB peak with record_mixed on an H100), and under vmap the MoE runs
+# the dense oracle (every expert on every token): at [lmtrain]'s 4,096 tokens
+# a client a step the phase alone peaks at 75.9 GB of the card's 85.0 (since
+# the engine frees each round's mixed deltas before the next), which leaves
+# too little for what the whole script may hold beside it, so MOET_S is cut
+# to 2,048 (every run peaks at 58.5 GB or under there).  Its fp32 pins take
+# the fewest clients and tokens.
+MOET_ARCH, MOET_LAYERS, MOET_S = "phi3.5-moe-42b-a6.6b", 1, 2048
+MOET_PIN_N, MOET_PIN_S = 2, 256
 # bf16 runs against each other are held by their change from the init
 # params, d = params - init, in norm: ||d - d_einsum|| / ||d_einsum||
 # (most bf16 steps round away, so the params themselves differ little
@@ -3077,13 +3109,14 @@ AGG_REL, MIXED_ULPS = 1e-5, 1
 ORACLE_F32 = dict(rtol=2e-4, atol=2e-5)
 
 
-def lm_train_config(**changes):
-    """stablelm-1.6b with the training settings: per-layer remat,
-    query-chunked attention (the flash kernel is forward-only),
-    sequence-chunked head and loss."""
+def lm_train_config(arch: str = LMT_ARCH, **changes):
+    """``arch`` (stablelm-1.6b by default) at its published widths with
+    the training settings: per-layer remat, query-chunked attention (the
+    flash kernel is forward-only), sequence-chunked head and loss;
+    ``changes`` (depth, dtype) on top."""
     import dataclasses
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(LMT_ARCH), remat=True,
+    return dataclasses.replace(get_config(arch), remat=True,
                                attn_impl="chunked",
                                loss_chunk=LMT_LOSS_CHUNK, **changes)
 
@@ -3098,11 +3131,13 @@ def lm_train_data(cfg, seed: int, S: int, n: int = LMT_N):
     return lambda rng, t: lm_batches(stream, rng, n, LMT_T, LMT_B, S)
 
 
-def _lm_server(cfg, params, sampler, seed, **execution):
+def _lm_server(cfg, params, sampler, seed, n=LMT_N, **execution):
+    """A ``FederatedServer`` on a ``k_regular`` network of ``n`` clients
+    in n / 2 clusters (LMT_C at LMT_N)."""
     from repro_torch import topology
     from repro_torch.core.server import FederatedServer, ServerConfig
     from repro_torch.fl.engine import ExecutionConfig
-    network = topology.make_spec("k_regular", n=LMT_N, c=LMT_C,
+    network = topology.make_spec("k_regular", n=n, c=max(n // 2, 1),
                                  k_range=(1, 2), p_fail=0.0).build()
     scfg = ServerConfig(T=LMT_T, t_max=LMT_ROUNDS, phi_max=1.0,
                         bound_kind="regular", seed=seed,
@@ -3194,9 +3229,14 @@ def _bitwise(name, a, b):
         raise AssertionError(f"{name}: not bitwise equal")
 
 
-def phase_lmtrain(seed: int, counters, keep=None):
-    """Federated training of stablelm-1.6b through Algorithm 1 on one
-    card.  (a) bf16 at full width and LMT_LAYERS layers: 2 rounds on
+def phase_lmtrain(seed: int, counters, keep=None, arch: str = LMT_ARCH,
+                  layers: int = LMT_LAYERS, S: int = LMT_S,
+                  pin_layers: int = LMT_PIN_LAYERS, pin_n: int = LMT_N,
+                  pin_s: int = LMT_PIN_S, extras: bool = True,
+                  tag: str = "[lmtrain]"):
+    """Federated training of ``arch`` (stablelm-1.6b; [moetrain]:
+    phi3.5-moe) through Algorithm 1 on one card.  (a) bf16 at full width
+    and ``layers`` layers, LMT_N clients of ``S`` tokens a step: 2 rounds on
     'einsum', on 'fused' (-> aggregate) and on 'fused' with record_mixed (->
     mix_aggregate) through ``FederatedServer`` with ``model_cfg``, the
     launch counts reset before each and read after; round ms, tokens/s,
@@ -3206,13 +3246,17 @@ def phase_lmtrain(seed: int, counters, keep=None):
     share), and the two kernels on its payload (packed deltas, (4,
     ~1.645e9) bf16) against their plain versions computed in column
     chunks, timed beside the plain versions, their byte bounds and
-    ``torch.matmul``.  (c) one traced 'aggregate' round.  (d) fp32 pins
-    at full width, 2 layers: the kernel backends within rtol 2e-4 / atol
-    2e-5 of einsum, scanned == sequential, all-ones active == None and
+    ``torch.matmul``; ``moe.expert_matmul.routes`` unchanged by (a) and
+    (b) (under vmap the MoE runs the dense oracle).  (c) one traced
+    'aggregate' round (with ``extras``).  (d) fp32 pins at full width,
+    ``pin_layers`` layers, ``pin_n`` clients of ``pin_s`` tokens: the
+    kernel backends within rtol 2e-4 / atol 2e-5 of einsum, scanned ==
+    sequential bitwise, and with ``extras`` all-ones active == None and
     remat on == off, bitwise.  Returns ``({kernel: launches in (a)},
     {kernel: row fields at this payload})``; ``keep`` (a dict), if given,
     gets the 'aggregate' run's trained params under "params"."""
     import dataclasses
+    import gc
     import numpy as np
     import torch
     from repro_torch.core.pytree import tree_map
@@ -3221,24 +3265,37 @@ def phase_lmtrain(seed: int, counters, keep=None):
     from repro_torch.fl import packing
     from repro_torch.kernels.mixing import ref
     from repro_torch.kernels.mixing.ops import combine_weights
+    from repro_torch.models import moe
     from repro_torch.models.model import Model
 
     dev = torch.device("cuda")
-    cfg = lm_train_config(n_layers=LMT_LAYERS)
+    cfg = lm_train_config(arch, n_layers=layers)
     model = Model(cfg)
+    # what earlier phases left in reference cycles is freed now, not when
+    # the collector next happens to run
+    gc.collect()
     torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
     n_params = model.param_count(params)
-    sampler = lm_train_data(cfg, seed, LMT_S)
-    tokens = LMT_N * LMT_T * LMT_B * LMT_S
-    print(f"[lmtrain] {cfg.name}: {cfg.n_layers} layers, d_model "
+    sampler = lm_train_data(cfg, seed, S)
+    tokens = LMT_N * LMT_T * LMT_B * S
+    expert_routes = dict(moe.expert_matmul.routes)
+    # one launch a round per dtype group (an MoE's fp32 router is one)
+    groups = packing.pack_spec(params).n_groups
+    print(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab_size}, {cfg.dtype}, {n_params:,} params "
+          f"{cfg.vocab_size}"
+          + (f", {cfg.n_experts} experts top-{cfg.experts_per_token}, "
+             f"moe_d_ff {cfg.moe_d_ff} (the dense oracle under vmap)"
+             if cfg.n_experts else "")
+          + f", {cfg.dtype}, {n_params:,} params "
           f"({n_params * 2 / 1e9:.2f} GB); remat {cfg.remat}, attn "
           f"{cfg.attn_impl}, loss_chunk {cfg.loss_chunk}; n {LMT_N}, c "
-          f"{LMT_C}, T {LMT_T}, B {LMT_B}, S {LMT_S}: {tokens:,} tokens a "
-          f"round, {LMT_ROUNDS} rounds a run")
+          f"{LMT_C}, T {LMT_T}, B {LMT_B}, S {S}: {tokens:,} tokens a "
+          f"round, {LMT_ROUNDS} rounds a run; {held:.2f} GB allocated "
+          "before the init")
 
     def run(backend, record_mixed=False, **kw):
         starts, ends, first = [], [], []
@@ -3254,6 +3311,8 @@ def phase_lmtrain(seed: int, counters, keep=None):
         server = _lm_server(cfg, params, sampler, seed, backend=backend,
                             record_mixed=record_mixed, **kw)
         reset_counters(counters)
+        gc.collect()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         starts.append(time.perf_counter())
@@ -3272,7 +3331,7 @@ def phase_lmtrain(seed: int, counters, keep=None):
     ref_server, ref_hist, ms, counts, _, peak, ref_first = run("einsum")
     if counts:
         raise AssertionError(f"einsum launched kernels: {counts}")
-    print(f"[lmtrain] einsum: round ms {[round(x, 1) for x in ms]}, "
+    print(f"{tag} einsum: round ms {[round(x, 1) for x in ms]}, "
           f"{tokens / (ms[-1] / 1e3):,.0f} tokens/s (round 1), peak "
           f"{peak:.2f} GB; m(t) {[r.m_actual for r in ref_hist.records]}")
     launches, rows, round_ms = {}, {}, {}
@@ -3284,11 +3343,11 @@ def phase_lmtrain(seed: int, counters, keep=None):
         if server.effective_backend != effective:
             raise AssertionError(f"{backend} dispatched "
                                  f"{server.effective_backend}")
-        if counts != {kernel: LMT_ROUNDS}:
+        if counts != {kernel: LMT_ROUNDS * groups}:
             raise AssertionError(f"{effective}: launches {counts}, not "
-                                 f"{{{kernel!r}: {LMT_ROUNDS}}}")
-        if kernel in routes and routes[kernel] != {"generic": 0,
-                                                   "staged": LMT_ROUNDS}:
+                                 f"{{{kernel!r}: {LMT_ROUNDS * groups}}}")
+        if kernel in routes and routes[kernel] != {
+                "generic": 0, "staged": LMT_ROUNDS * groups}:
             raise AssertionError(f"{kernel}: routes {routes[kernel]}")
         if cols(hist) != cols(ref_hist):
             raise AssertionError(f"{effective}: History differs from einsum")
@@ -3301,14 +3360,14 @@ def phase_lmtrain(seed: int, counters, keep=None):
         round_ms[effective] = ms[-1]
         if keep is not None and kernel == "aggregate":
             keep["params"] = server.params
-        print(f"[lmtrain] {backend} record_mixed={record_mixed} -> "
+        print(f"{tag} {backend} record_mixed={record_mixed} -> "
               f"{effective}: {counts[kernel]} {kernel} launches"
               + (f" (routes {routes[kernel]})" if kernel in routes else "")
               + f", round ms {[round(x, 1) for x in ms]}, "
               f"{tokens / (ms[-1] / 1e3):,.0f} tokens/s, peak {peak:.2f} "
               f"GB")
         for t, r in ((0, r0), (LMT_ROUNDS - 1, r1)):
-            print(f"[lmtrain]   after round {t}: einsum moved "
+            print(f"{tag}   after round {t}: einsum moved "
                   f"{r['moved']:.3%} of values from init, by "
                   f"{r['moved_ulps']:.2f} bf16 ulps on average (max "
                   f"{r['max_moved_ulps']:.1f}); {effective}'s change vs "
@@ -3361,7 +3420,7 @@ def phase_lmtrain(seed: int, counters, keep=None):
                   for c in range(0, p, chunk))
     x_max = max(float(X[:, c:c + chunk].abs().max())
                 for c in range(0, p, chunk))
-    print(f"[lmtrain] one 'aggregate' round, CUDA events: "
+    print(f"{tag} one 'aggregate' round, CUDA events: "
           f"{sgd_ms + rest_ms:.1f} ms, local SGD (client_deltas, {LMT_N} "
           f"clients x {LMT_T} steps, vmap(grad)) {sgd_ms:.1f} ms = "
           f"{sgd_ms / (sgd_ms + rest_ms):.2%} of it, pack + aggregate + "
@@ -3413,7 +3472,7 @@ def phase_lmtrain(seed: int, counters, keep=None):
     b_ms, b_by = bound(n * p * bf + n * f32 + p * f32, 2 * n * p)
     rows["aggregate"] = dict(ms=ms_k, plain_ms=ms_p, library_ms=ms_l,
                              bound_ms=b_ms, bound_by=b_by, max_abs_err=e_agg)
-    print(f"[lmtrain] aggregate @ LM payload ({n}, {p}) bf16, G "
+    print(f"{tag} aggregate @ LM payload ({n}, {p}) bf16, G "
           f"{fused.aggregate_row_groups(X)}: {ms_k:.4f} ms (plain, in "
           f"column chunks, {ms_p:.4f} ms, torch.matmul in bf16 "
           f"{ms_l:.4f} ms, bound {b_ms:.4f} ms by {b_by}: {b_ms / ms_k:.1%}"
@@ -3453,7 +3512,7 @@ def phase_lmtrain(seed: int, counters, keep=None):
     rows["mix_aggregate"] = dict(ms=ms_k, plain_ms=ms_p, library_ms=ms_l,
                                  bound_ms=b_ms, bound_by=b_by,
                                  max_abs_err=max(e_mix, e_ma))
-    print(f"[lmtrain] mix_aggregate @ LM payload ({n}, {p}) bf16, route "
+    print(f"{tag} mix_aggregate @ LM payload ({n}, {p}) bf16, route "
           f"{route}: {ms_k:.4f} ms (plain, in column chunks, {ms_p:.4f} "
           f"ms, torch.matmul in bf16 {ms_l:.4f} ms, bound {b_ms:.4f} ms by "
           f"{b_by}: {b_ms / ms_k:.1%} of it; mixed: max|mixed| "
@@ -3463,57 +3522,71 @@ def phase_lmtrain(seed: int, counters, keep=None):
           f"most {r_ma:.3e} of sum |w_i X_i| (gate {AGG_REL:.0e}))")
     del X, Bb, wb
     torch.cuda.empty_cache()
+    if moe.expert_matmul.routes != expert_routes:
+        raise AssertionError(f"{tag} expert_matmul routes {expert_routes} "
+                             f"-> {moe.expert_matmul.routes}: a grouped "
+                             "route ran under vmap")
+    if cfg.n_experts:
+        print(f"{tag} expert_matmul routes unchanged by the training "
+              f"({moe.expert_matmul.routes}): every MoE layer ran the "
+              "dense oracle under vmap")
 
     # (c) where a round's time goes: one traced 'aggregate' round
-    round_fn = make_round_fn(model.loss, "aggregate")
     args = (A, tau, m3, eta)
-    reset_counters(counters)
-    trace_device(lambda: round_fn(params, batch, *args),
-                 f"{cfg.name} bf16, one 'aggregate' round ({LMT_N} x "
-                 f"{LMT_T} x {LMT_S} tokens; warm from the runs above)",
-                 top=14, warm=False)
-    del params, model, batch, round_fn
+    if extras:
+        round_fn = make_round_fn(model.loss, "aggregate")
+        reset_counters(counters)
+        trace_device(lambda: round_fn(params, batch, *args),
+                     f"{cfg.name} bf16, one 'aggregate' round ({LMT_N} x "
+                     f"{LMT_T} x {S} tokens; warm from the runs above)",
+                     top=14, warm=False)
+        del round_fn
+    del params, model, batch
     torch.cuda.empty_cache()
 
-    # (d) the fp32 pins at full width, 2 layers
-    cfg32 = lm_train_config(n_layers=LMT_PIN_LAYERS, dtype="float32")
+    # (d) the fp32 pins at full width, pin_layers layers
+    cfg32 = lm_train_config(arch, n_layers=pin_layers, dtype="float32")
     m32 = Model(cfg32)
     p32 = m32.init(torch.Generator(device=dev).manual_seed(seed + 1))
-    s32 = lm_train_data(cfg32, seed, LMT_PIN_S)
-    einsum32 = _lm_server(cfg32, p32, s32, seed, backend="einsum")
+    s32 = lm_train_data(cfg32, seed, pin_s, n=pin_n)
+    einsum32 = _lm_server(cfg32, p32, s32, seed, n=pin_n, backend="einsum")
     einsum32.run()
     for backend, record_mixed, scan in (("fused", False, False),
                                         ("fused", True, False),
                                         ("fused", False, True)):
-        srv = _lm_server(cfg32, p32, s32, seed, backend=backend,
+        srv = _lm_server(cfg32, p32, s32, seed, n=pin_n, backend=backend,
                          record_mixed=record_mixed, scan=scan)
         srv.run()
         worst, _ = _leaves_close(f"fp32 {srv.effective_backend}",
                                  srv.params, einsum32.params, ORACLE_F32)
-        print(f"[lmtrain] fp32 pin, {cfg32.n_layers} layers, S "
-              f"{LMT_PIN_S}: {srv.effective_backend}"
+        print(f"{tag} fp32 pin, {cfg32.n_layers} layers, n {pin_n}, S "
+              f"{pin_s}: {srv.effective_backend}"
               f"{' scanned' if scan else ''} vs einsum max|d| {worst:.3e} "
               f"(rtol 2e-4, atol 2e-5)")
         if scan:
-            seq = _lm_server(cfg32, p32, s32, seed, backend=backend)
+            seq = _lm_server(cfg32, p32, s32, seed, n=pin_n, backend=backend)
             seq.run()
             _bitwise("fp32 scanned vs sequential", srv.params, seq.params)
-            print("[lmtrain] fp32 pin: scanned == sequential bitwise")
+            print(f"{tag} fp32 pin: scanned == sequential bitwise")
             del seq
         del srv
+    if not extras:
+        del einsum32, p32, m32
+        torch.cuda.empty_cache()
+        return launches, rows
     batch32 = tuple(b.to(dev) for b in s32(np.random.default_rng(seed), 0))
     for backend in ("aggregate", "fused", "einsum"):
         fn = make_round_fn(m32.loss, backend)
         _bitwise(f"fp32 all-ones active on {backend}",
                  fn(p32, batch32, *args, torch.ones(n, device=dev))[0],
                  fn(p32, batch32, *args)[0])
-    print("[lmtrain] fp32 pin: all-ones active == None bitwise on "
+    print(f"{tag} fp32 pin: all-ones active == None bitwise on "
           "aggregate, fused, einsum")
     off = make_round_fn(Model(dataclasses.replace(cfg32, remat=False))
                         .loss, "aggregate")(p32, batch32, *args)[0]
     on = make_round_fn(m32.loss, "aggregate")(p32, batch32, *args)[0]
     _bitwise("fp32 remat on vs off", on, off)
-    print("[lmtrain] fp32 pin: remat on == off bitwise")
+    print(f"{tag} fp32 pin: remat on == off bitwise")
     del einsum32, p32, m32, batch32, on, off
     torch.cuda.empty_cache()
     return launches, rows
@@ -3612,6 +3685,106 @@ def phase_mesh(seed: int, counters) -> int:
     return fused_launches
 
 
+def phase_moetrain(seed: int, counters):
+    """[moetrain]: ``phase_lmtrain``'s recipe on MOET_ARCH at full width
+    and MOET_LAYERS layers, MOET_S tokens a client a step; fp32 pins at
+    MOET_LAYERS layers, MOET_PIN_N clients of MOET_PIN_S tokens (no trace,
+    no all-ones or remat pins: [lmtrain] holds those on the same code)."""
+    import torch
+    from repro_torch.configs import get_config
+    full = get_config(MOET_ARCH)
+    print(f"[moetrain] cuts, each forced by the card's 80 GB: depth "
+          f"{MOET_LAYERS} of {full.n_layers} layers, {MOET_S:,} of "
+          f"[lmtrain]'s {LMT_S:,} tokens a client a step (the dense "
+          f"oracle's activations: at 4,096 the phase alone peaks at 75.9 "
+          f"GB); fp32 pins "
+          f"at {MOET_PIN_N} clients of "
+          f"{MOET_PIN_S} tokens; every width published")
+    # after the script's earlier phases the allocator's segments are cut
+    # to their sizes: in the whole script the record_mixed run (70.8 GB at
+    # its peak alone) found 23 GB reserved but unusable beside 49.8 GB
+    # allocated.  This phase grows its segments in place, as [tp]'s ranks
+    # do, and leaves the setting as it found it.
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        return phase_lmtrain(seed, counters, arch=MOET_ARCH,
+                             layers=MOET_LAYERS, S=MOET_S,
+                             pin_layers=MOET_LAYERS, pin_n=MOET_PIN_N,
+                             pin_s=MOET_PIN_S, extras=False,
+                             tag="[moetrain]")
+    finally:
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
+
+
+# -- [serve]: the serving CLI's own function -----------------------------------
+
+# the CLI's reduced configs (vocab 512, fp32, its defaults: batch 4, 32
+# prompt tokens, 16 new) on a world of one: a dense, an MoE and an SSD arch
+SERVE_ARCHS = ("qwen2-7b", "phi3.5-moe-42b-a6.6b", "mamba2-1.3b")
+SERVE_TOL = 2e-4
+
+
+def phase_serve(seed: int, counters) -> None:
+    """``launch/serve.py``'s per-rank function (``serve.serve_rank``, what
+    ``python -m repro_torch.launch.serve --devices 1`` runs) on the card,
+    a world-size-1 NCCL group in this process, for SERVE_ARCHS: the CLI's
+    lines (prefill and decode ms), and its tokens and logits against the
+    one-device ``Model.prefill`` / ``decode`` on the weights it drew (the
+    greedy tokens equal, logits within SERVE_TOL); the launches counted
+    (the reduced configs attend on 'ref': none)."""
+    import contextlib
+    import io
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+
+    for arch in SERVE_ARCHS:
+        args = serve.parse_args(["--devices", "1", "--arch", arch,
+                                 "--seed", str(seed)])
+        args.device = "cuda"
+        reset_counters(counters)
+        printed = io.StringIO()
+        with tempfile.TemporaryDirectory() as tmp, \
+                contextlib.redirect_stdout(printed):
+            out = serve.serve_rank(0, args, f"{tmp}/store")
+        counts = {k: f.launches for k, f in counters.items() if f.launches}
+        for line in printed.getvalue().splitlines():
+            print(f"[serve]   {line}")
+        cfg, params = out["cfg"], out["params"]
+        B, K, new = args.batch, args.prompt_len, args.new_tokens
+        rng = np.random.default_rng(seed)
+        prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, K)),
+                                  device="cuda")
+        model = Model(cfg)
+        with torch.no_grad():
+            logits, cache = model.prefill(params, prompts, max_len=K + new)
+            steps = [logits]
+            for i in range(new - 1):
+                logits, cache = model.decode(params, cache,
+                                             torch.argmax(logits, -1), K + i)
+                steps.append(logits)
+        want = torch.stack(steps, 1).float()
+        d = float((out["logits"] - want).abs().max())
+        same = torch.equal(out["tokens"], torch.argmax(want, -1))
+        print(f"[serve] {cfg.name} on mesh {out['mesh']}: "
+              f"{out['prefill_s'] * 1e3:.2f} ms prefill, "
+              f"{out['decode_s'] * 1e3 / (new - 1):.2f} ms a decode step; "
+              f"launches {counts or 'none'}; against Model.prefill / decode "
+              f"on its weights: max|dlogits| {d:.3e} (gate {SERVE_TOL}), "
+              f"greedy tokens {'equal' if same else 'DIFFER'}")
+        if not same or not torch.allclose(out["logits"], want,
+                                          rtol=SERVE_TOL, atol=SERVE_TOL) \
+                or not bool(torch.isfinite(out["logits"]).all()):
+            raise AssertionError(f"[serve] {arch}: the CLI's serve is not "
+                                 "the one-device path's")
+        del out, params, model, cache, want
+        torch.cuda.empty_cache()
+
+
 # -- phase 5c: tensor parallelism inside a client ------------------------------
 
 # The default run: two ranks on the one card (gloo takes CUDA tensors for
@@ -3632,7 +3805,11 @@ TP_SHAPE, TP_BACKEND = (1, 1, 2), "gloo"
 TP_CASES = (("fused", False), ("ring", False), ("ring", True))
 TP_SERVE_ARCH, TP_SERVE_LAYERS, TP_SERVE_TOL = "qwen2-7b", 4, 2e-4
 # served archs without a router ((c)): bf16 greedy tokens agree with one
-# device's this often at m = 2
+# device's this often at m = 2.  At m = 4 on four H100s over NCCL the
+# readings are mamba2 0.8125 and zamba2 0.875, with every fp32 gate held
+# and the one-device bf16 run itself at 0.84375 / 0.875 against an fp32
+# run of the same weights: bf16 noise, which this gate between two bf16
+# runs does not tell from a fault; it stays as set
 TP_TOP1_MIN = 0.9
 # (c) / (d): (case, arch, depth (None: whole), fp32 gate layers, bf16
 # top-1 gate (None: printed only)); each fp32 gate prefills TP_GATE_S
@@ -4009,6 +4186,12 @@ def _flash_on_rank(q, k, v, kw) -> dict:
     return res
 
 
+def _top1(a, b) -> float:
+    """The share of positions whose greedy token (argmax over the last
+    dim) ``a`` and ``b`` agree on."""
+    return float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+
 def _rank_heads(cfg, local) -> tuple:
     """The heads a rank's layer 0 holds: (q, kv) of GQA (zamba2's shared
     block), MLA's q heads, the SSD's heads."""
@@ -4042,12 +4225,16 @@ def _tp_serve(rank, arch, shape, seed, counters, depth=None,
     model fits beside the other ranks' shards (the greedy tokens' top-1
     agreement at least ``top1_min`` where given); then the fp32 gate at
     ``gate_layers`` layers on ``gate_s`` prompt tokens a row (LM_SEQ by
-    default)."""
+    default).  Where ``top1_min`` is given, rank 0 also runs the one-device
+    path in fp32 on the same weights (upcast) and tokens, and reads both
+    bf16 runs' top-1 against it: how far bf16 alone moves the greedy
+    tokens.  The top-1 gate is read by ``phase_tp`` once every case has
+    run, so a low reading does not stop the fp32 gates."""
     import dataclasses
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
-    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.core.pytree import tree_leaves, tree_map
     from repro_torch.fl import distributed as D
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.launch.mesh import make_debug_mesh
@@ -4088,11 +4275,15 @@ def _tp_serve(rank, arch, shape, seed, counters, depth=None,
         dec_ms = (time.perf_counter() - t0) * 1e3 / max(n_new - 1, 1)
         return torch.stack(steps, 1), pre_ms, dec_ms
 
-    def one_device(c, seed_w, toks, steps_of):
-        """The one-device prefill and decode on the whole weights, fed
-        the tokens ``steps_of`` picked."""
-        model = Model(c)
+    def one_device(c, seed_w, toks, steps_of, fp32=False):
+        """The one-device prefill and decode on the whole weights (with
+        ``fp32``, upcast and run in fp32), fed the tokens ``steps_of``
+        picked."""
         whole = layered_params(c, seed_w)
+        if fp32:
+            c = dataclasses.replace(c, dtype="float32")
+            whole = tree_map(lambda x: x.float(), whole)
+        model = Model(c)
         n = steps_of.shape[1]
         with torch.no_grad():
             lg, cache = model.prefill(whole, toks,
@@ -4146,22 +4337,20 @@ def _tp_serve(rank, arch, shape, seed, counters, depth=None,
     if rank == 0 and whole_gb < 45:
         # the one-device path on the same weights, fed the same tokens
         ref = one_device(cfg, seed + 10, tokens, logits)
-        top1 = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
         out["vs_one_device"] = dict(
-            max_abs=float((logits - ref).abs().max()), top1=top1)
+            max_abs=float((logits - ref).abs().max()),
+            top1=_top1(logits, ref))
+        if top1_min is not None:
+            f32 = one_device(cfg, seed + 10, tokens, logits, fp32=True)
+            out["vs_fp32"] = dict(one_device=_top1(ref, f32),
+                                  mesh=_top1(logits, f32))
+            del f32
         del ref
         torch.cuda.empty_cache()
-    ok = torch.tensor([1.0], device=dev)
-    if rank == 0 and "vs_one_device" in out:
-        print(f"[tp]   {arch} bf16 vs one device: {out['vs_one_device']}",
-              flush=True)
-        if top1_min is not None and \
-                out["vs_one_device"]["top1"] < top1_min:
-            ok.zero_()
-    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
-    if not ok.item():
-        raise AssertionError(f"[tp] {arch} bf16 top-1 against one device "
-                             f"below {top1_min} (rank 0 printed it)")
+        print(f"[tp]   {arch} bf16 at m = {shape[-1]} vs one device: "
+              f"{out['vs_one_device']}"
+              + (f"; top-1 against one device in fp32: {out['vs_fp32']}"
+                 if "vs_fp32" in out else ""), flush=True)
     del logits
 
     small = dataclasses.replace(cfg, n_layers=gate_layers, dtype="float32")
@@ -4441,7 +4630,7 @@ def phase_tp(seed: int, shape=TP_SHAPE, backend=TP_BACKEND,
                 f"[tp] {key} vs LocalEngine: moved {moved:.3%}, the "
                 f"change off by {rel} after each round, gate "
                 f"{TP_CHANGE_REL}")
-    flash = 0
+    flash, low = 0, []
     for arch, key in [(serve_arch, "serve")] + (
             [(a, f"serve/{a}") for c, a, *_ in TP_ZOO_SERVE if c in zoo]):
         sv = [x[key] for x in ranks]
@@ -4461,6 +4650,13 @@ def phase_tp(seed: int, shape=TP_SHAPE, backend=TP_BACKEND,
             line += (f"; vs one device: max|dlogits| {v['max_abs']:.3e}, "
                      f"top-1 agreement {v['top1']:.4%} "
                      + (f"(gate {gate})" if gate else "(not gated at bf16)"))
+            if "vs_fp32" in sv[0]:
+                f = sv[0]["vs_fp32"]
+                line += (f"; top-1 against the one-device fp32 run of the "
+                         f"same weights: one device bf16 "
+                         f"{f['one_device']:.4%}, mesh bf16 {f['mesh']:.4%}")
+            if gate and v["top1"] < gate:
+                low.append(f"{arch} {v['top1']:.4%}")
         print(line)
         if "flash" in sv[0]:
             f = [x["flash"] for x in sv]
@@ -4490,6 +4686,10 @@ def phase_tp(seed: int, shape=TP_SHAPE, backend=TP_BACKEND,
               f"{e['fp32_grad_rel']:.3e} (rtol = atol = {TP_SERVE_TOL})")
     TP_PREFILL_TALLY[serve_arch] = ranks[0]["serve"]["prefill_tally"]
     print(f"[tp] phase {time.perf_counter() - t_phase:.1f} s")
+    if low:
+        raise AssertionError(f"[tp] bf16 top-1 against one device at m = "
+                             f"{serve_shape[-1]} below {TP_TOP1_MIN}: "
+                             f"{', '.join(low)} (every fp32 gate held)")
     return {"aggregate": sum(x["fused"]["counts"].get("aggregate", 0)
                              for x in ranks),
             "flash_attention": flash}
@@ -4899,7 +5099,8 @@ def _phases(name, lap, dry) -> int:
     lap("[quickstart] [stream] [ingest] [scale]")
     launches["flash_attention"] = phase_lm(SEED, kernel_counters())
     launches["flash_attention"] += phase_zoo(SEED, kernel_counters())
-    lap("[lm] [zoo]")
+    phase_serve(SEED, kernel_counters())
+    lap("[lm] [zoo] [serve]")
     trained = {}
     lm_launches, lm_rows = phase_lmtrain(SEED, kernel_counters(), trained)
     for kernel, count in lm_launches.items():
@@ -4913,8 +5114,14 @@ def _phases(name, lap, dry) -> int:
         for r, count in by_route.items():
             routes[kernel][r] += count
     torch.cuda.empty_cache()
+    lap("[lmtrain] [ckpt]")
+    moe_launches, moe_rows = phase_moetrain(SEED, kernel_counters())
+    for kernel, count in moe_launches.items():
+        launches[kernel] += count
+    routes["mix_aggregate"]["staged"] += moe_launches["mix_aggregate"]
+    torch.cuda.empty_cache()
     launches["aggregate"] += phase_mesh(SEED, kernel_counters())
-    lap("[lmtrain] [ckpt] [mesh]")
+    lap("[moetrain] [mesh]")
     for kernel, count in phase_tp(SEED).items():
         launches[kernel] += count
     lap("[tp]")
@@ -4923,6 +5130,7 @@ def _phases(name, lap, dry) -> int:
     for row in rows:
         if row["name"] in lm_rows:
             row["lm_payload"] = lm_rows[row["name"]]
+            row["moe_payload"] = moe_rows[row["name"]]
         row["launches"] = launches[row["name"]]
         if row["name"] in routes:
             row["routes"] = routes[row["name"]]

@@ -209,6 +209,7 @@ def fused_mix_update(global_params: PyTree, deltas: PyTree, A: torch.Tensor,
         bufs = tuple(mask_clients(list(bufs), active))
     mixed_bufs, agg_rows = mix_aggregate_grouped(A, tau, m, bufs,
                                                  active=active)
+    del bufs    # the packed payload, freed before the epilogue's adds
     mixed = packing.unpack(mixed_bufs, spec)
     new_global = packing.apply_aggregate_row(global_params, agg_rows, spec)
     return new_global, mixed
@@ -234,8 +235,9 @@ def _mix_and_update(global_params, deltas, A, tau, m, *, mixing_backend,
         # one-pass path: the mask folds into the combine row
         # (combine_weights) -- the payload itself is never touched.
         spec = packing.pack_spec(deltas)
-        bufs = packing.pack(deltas, spec)
-        agg_rows = aggregate_grouped(A, tau, m, bufs, active=active)
+        # the packed payload is a temporary, freed before the epilogue
+        agg_rows = aggregate_grouped(A, tau, m, packing.pack(deltas, spec),
+                                     active=active)
         return packing.apply_aggregate_row(global_params, agg_rows,
                                            spec), None
     if mixing_backend in SPARSE_BACKENDS:
@@ -437,9 +439,10 @@ def make_scanned_rounds(loss_fn: LossFn, K: int,
             args = (params, batches, A, tau_seq[t], m_seq[t], eta_seq[t],
                     active)
             if quant is not None:
-                params, _, qstate = round_fn(*args, qstate)
+                params, mixed, qstate = round_fn(*args, qstate)
             else:
-                params, _ = round_fn(*args)
+                params, mixed = round_fn(*args)
+            del mixed    # not kept live into the next round
             seq.append(params)
         params_seq = tree_map(lambda *xs: torch.stack(xs), *seq)
         if quant is not None:

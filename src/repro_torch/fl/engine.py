@@ -385,6 +385,7 @@ class LocalEngine:
             out = round_fn(params, batches[t], A, tau_seq[t], m_seq[t],
                            eta_seq[t], active, *qargs)
             params, qargs = out[0], out[2:]   # quantized: (new qstate,)
+            del out   # the round's mixed deltas, freed before the next
             # record inline: only the current round's params stay live
             _append_record(plan, history, t, lambda p=params: p,
                            eval_fn, eval_every)
@@ -458,8 +459,8 @@ class LocalEngine:
                      col(w))
             else:
                 A = col(row.A)
-            params, _ = round_fn(params, batches[t], A, col(row.tau),
-                                 col(row.m), eta)
+            params = round_fn(params, batches[t], A, col(row.tau),
+                              col(row.m), eta)[0]
             rec = RoundRecord(
                 t=row.t, m=row.m_planned, m_actual=row.m_actual,
                 psi_bound=row.psi_bound, d2s=row.d2s, d2d=row.d2d,

@@ -408,9 +408,9 @@ class StreamEngine:
                 pass                     # params unchanged, m_actual = 0
             elif self._is_sync_closure(groups, cohorts, t):
                 active = active_seq[t] if active_seq is not None else None
-                params, _ = round_fn(params, batches[t], A_seq[t],
-                                     tau_seq[t], m_seq[t], eta_seq[t],
-                                     active)
+                params = round_fn(params, batches[t], A_seq[t],
+                                  tau_seq[t], m_seq[t], eta_seq[t],
+                                  active)[0]
             else:
                 params = self._aggregate_groups(
                     params, groups, cohorts, batches, A_seq, tau_seq,
@@ -552,9 +552,9 @@ class StreamEngine:
                 pass
             elif self._is_sync_closure(groups, cohorts, t):
                 active = active_seq[t] if active_seq is not None else None
-                params, _ = round_fn(params, batches[t], A_seq[t],
-                                     tau_seq[t], col(row.m), eta_seq[t],
-                                     active)
+                params = round_fn(params, batches[t], A_seq[t],
+                                  tau_seq[t], col(row.m), eta_seq[t],
+                                  active)[0]
             else:
                 params = self._aggregate_groups(
                     params, groups, cohorts, batches, A_seq, tau_seq,
