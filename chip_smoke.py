@@ -3086,6 +3086,34 @@ LMT_LAYERS = MESH_LAYERS = 6
 # the fewest clients and tokens.
 MOET_ARCH, MOET_LAYERS, MOET_S = "phi3.5-moe-42b-a6.6b", 1, 2048
 MOET_PIN_N, MOET_PIN_S = 2, 256
+# [zootrain]: [lmtrain]'s recipe (n, c, T, rounds, remat, chunked
+# attention, the loss chunk, LMT_S tokens a client a step) on the SSD
+# families at their published widths: mamba2-1.3b (src/repro/configs/
+# mamba2_1_3b.py, arXiv:2405.21060) and zamba2-2.7b (zamba2_2_7b.py,
+# arXiv:2411.15242), each cut in whole layers (zamba2: whole groups of
+# hybrid_attn_every Mamba blocks and the shared attention block, at
+# least two, so that the shared block's gradient comes from two call
+# sites) by two rules: a round peaks near ZOOT_TREES bf16 trees of the
+# params ([moetrain] on an H100: 58.50 GB at a 3.13 GB tree) plus the
+# activations, and must stay under ZOOT_PEAK_GB (>= 20 GB spare, as MOET_S
+# was cut for: zamba2 whole, 4.85 GB a tree, cannot run); and the phase
+# keeps to ZOOT_BUDGET_S of the script's time.  The SSD keeps dt_bias,
+# A_log and D in fp32: a second dtype group, one more launch of each
+# kernel a round.  (arch, layers, tokens a client a step, fp32 pin
+# layers, why the cut); the pins take ZOOT_PIN_N clients of ZOOT_PIN_S
+# tokens
+ZOOT_TREES, ZOOT_PEAK_GB, ZOOT_BUDGET_S = 18.7, 60, 150
+ZOOT_ARCHS = (
+    ("mamba2-1.3b", 16, LMT_S, 2,
+     "the phase's time: a phase runs 7 rounds, which take 19.2 s whole "
+     "and 9.95 s at 24 layers on an H100 (the phase then took 155.4 s)"),
+    ("zamba2-2.7b", 12, 2048, 12,
+     "the card's memory: zamba2's remat unit is a group (6 Mamba blocks "
+     "and the shared block), whose activations for 4 clients under vmap "
+     "peaked at 81.76 GB at 12 layers and 4,096 tokens on an H100 (48.65 "
+     "GB at 2,048); two groups, the fewest that give the shared block two "
+     "call sites"))
+ZOOT_PIN_N, ZOOT_PIN_S = 2, 256
 # bf16 runs against each other are held by their change from the init
 # params, d = params - init, in norm: ||d - d_einsum|| / ||d_einsum||
 # (most bf16 steps round away, so the params themselves differ little
@@ -3155,6 +3183,58 @@ def _ulp_of(v):
     return torch.ldexp(torch.ones_like(v), e - 8)
 
 
+def _change_sums(got, want, init, device, counted=None):
+    """``_change_stats``' running sums over the leaves of ``got``, ``want``
+    and ``init`` (each leaf moved to ``device`` and read a column chunk
+    at a time, so a GB leaf needs no GBs of temporaries), the leaves where
+    ``counted`` (a list of bools, default all) is false left out: [num,
+    den, moved, sum_ulps, differ, total] to add up and [max_moved,
+    max_ulps] to take the largest of, across trees or ranks."""
+    import torch
+    from repro_torch.core.pytree import tree_flatten
+    sums, maxes = [0.0] * 6, [0.0, 0.0]
+    chunk = 1 << 27
+    leaves = zip(tree_flatten(got)[0], tree_flatten(want)[0],
+                 tree_flatten(init)[0])
+    for k, (a, b, i) in enumerate(leaves):
+        if counted is not None and not counted[k]:
+            continue
+        a, b, i = (x.to(device).reshape(-1) for x in (a, b, i))
+        for c in range(0, a.numel(), chunk):
+            a32, b32, i32 = (x[c:c + chunk].float() for x in (a, b, i))
+            if not torch.isfinite(a32).all():
+                raise AssertionError("non-finite params")
+            dw = b32 - i32
+            on = dw != 0
+            moved_ulps = dw.abs()[on] / _ulp_of(
+                torch.maximum(i32.abs(), b32.abs())[on])
+            mag = torch.maximum(torch.maximum(a32.abs(), b32.abs()),
+                                i32.abs())
+            sums[0] += float((a32 - b32).double().square().sum())
+            sums[1] += float(dw.double().square().sum())
+            sums[2] += int(on.sum())
+            sums[3] += float(moved_ulps.double().sum())
+            sums[4] += int((a32 != b32).sum())
+            sums[5] += a32.numel()
+            if moved_ulps.numel():
+                maxes[0] = max(maxes[0], float(moved_ulps.max()))
+            maxes[1] = max(maxes[1], float(((a32 - b32).abs()
+                                            / _ulp_of(mag)).max()))
+            del a32, b32, i32, dw, on, moved_ulps, mag
+        del a, b, i
+    return sums, maxes
+
+
+def _change_finish(sums, maxes):
+    """The ``_change_stats`` dict from ``_change_sums``' totals."""
+    num, den, moved, sum_ulps, differ, total = sums
+    return dict(rel=(num / den) ** 0.5 if den else float(num > 0) * 1e9,
+                moved=moved / total,
+                moved_ulps=sum_ulps / moved if moved else 0.0,
+                max_moved_ulps=maxes[0], differ=differ / total,
+                max_ulps=maxes[1])
+
+
 def _change_stats(got, want, init, device):
     """Two bf16 runs from the same ``init`` (trees; a leaf of ``want`` may
     lie on the host, and is moved to ``device`` one leaf at a time): the
@@ -3166,38 +3246,38 @@ def _change_stats(got, want, init, device):
     the share of values where got != want, and ``max_ulps`` the largest
     |got - want| in bf16 ulps of max(|got|, |want|, |init|) (a sum that
     cancels rounds at its operands' ulp, not at its result's)."""
+    return _change_finish(*_change_sums(got, want, init, device))
+
+
+def _small_group_check(tag, A, w, X) -> None:
+    """Both kernels on a small fp32 dtype group of a training payload (X
+    (n, p): an MoE's router, the SSD's dt_bias / A_log / D) against their
+    plain versions, untimed: the fp32 rows, and each mixed value, within
+    AGG_REL of the sum of its products' magnitudes (fp32 sums of n
+    products in another order)."""
     import torch
-    from repro_torch.core.pytree import tree_flatten
-    num = den = 0.0
-    moved = differ = total = 0
-    sum_ulps = max_moved = max_ulps = 0.0
-    for a, b, i in zip(tree_flatten(got)[0], tree_flatten(want)[0],
-                       tree_flatten(init)[0]):
-        a32, b32 = a.to(device).float(), b.to(device).float()
-        i32 = i.to(device).float()
-        if not torch.isfinite(a32).all():
-            raise AssertionError("non-finite params")
-        dw = b32 - i32
-        num += float((a32 - b32).double().square().sum())
-        den += float(dw.double().square().sum())
-        on = dw != 0
-        moved_ulps = dw.abs()[on] / _ulp_of(torch.maximum(i32.abs(),
-                                                          b32.abs())[on])
-        moved += int(on.sum())
-        if moved_ulps.numel():
-            sum_ulps += float(moved_ulps.double().sum())
-            max_moved = max(max_moved, float(moved_ulps.max()))
-        differ += int((a32 != b32).sum())
-        mag = torch.maximum(torch.maximum(a32.abs(), b32.abs()), i32.abs())
-        max_ulps = max(max_ulps, float(((a32 - b32).abs()
-                                        / _ulp_of(mag)).max()))
-        total += a32.numel()
-        del a32, b32, i32, dw, on, moved_ulps, mag
-    return dict(rel=(num / den) ** 0.5 if den else float(num > 0) * 1e9,
-                moved=moved / total,
-                moved_ulps=sum_ulps / moved if moved else 0.0,
-                max_moved_ulps=max_moved, differ=differ / total,
-                max_ulps=max_ulps)
+    from repro_torch.kernels.mixing import fused, ref
+
+    if X.dtype != torch.float32:
+        raise AssertionError(f"{tag} a small {X.dtype} group: only fp32 "
+                             "ones are expected")
+    Xa = X.abs()
+    mixed, agg = fused.mix_aggregate_cuda(A, w, X)
+    want_m, want_a = ref.mix_aggregate_ref(A, w, X)
+    errs = {"aggregate": (fused.aggregate_cuda(w, X) - want_a,
+                          w.abs() @ Xa),
+            "mix_aggregate/agg": (agg - want_a, w.abs() @ Xa),
+            "mix_aggregate/mixed": (mixed - want_m, A.abs() @ Xa)}
+    print(f"{tag} the float32 group {tuple(X.shape)} vs the plain "
+          f"versions: max|err| "
+          + ", ".join(f"{k} {float(e.abs().max()):.3e}"
+                      for k, (e, _) in errs.items())
+          + f" (gate {AGG_REL:.0e} of the sum of |products|)")
+    for k, (e, scale) in errs.items():
+        if bool((e.abs() > AGG_REL * scale).any()):
+            raise AssertionError(f"{tag} {k} on the float32 group: off by "
+                                 f"more than {AGG_REL:.0e} of the sum of "
+                                 "|products|")
 
 
 def _leaves_close(name, got, want, tol):
@@ -3233,26 +3313,30 @@ def phase_lmtrain(seed: int, counters, keep=None, arch: str = LMT_ARCH,
                   layers: int = LMT_LAYERS, S: int = LMT_S,
                   pin_layers: int = LMT_PIN_LAYERS, pin_n: int = LMT_N,
                   pin_s: int = LMT_PIN_S, extras: bool = True,
-                  tag: str = "[lmtrain]"):
+                  tag: str = "[lmtrain]", max_peak_gb=None):
     """Federated training of ``arch`` (stablelm-1.6b; [moetrain]:
-    phi3.5-moe) through Algorithm 1 on one card.  (a) bf16 at full width
-    and ``layers`` layers, LMT_N clients of ``S`` tokens a step: 2 rounds on
+    phi3.5-moe; [zootrain]: mamba2, zamba2) through Algorithm 1 on one
+    card.  (a) bf16 at full width and ``layers`` layers, LMT_N clients of
+    ``S`` tokens a step: 2 rounds on
     'einsum', on 'fused' (-> aggregate) and on 'fused' with record_mixed (->
     mix_aggregate) through ``FederatedServer`` with ``model_cfg``, the
     launch counts reset before each and read after; round ms, tokens/s,
     peak GB; the kernel backends' change from init against einsum's
     (``_change_stats``) after round 0 and after the last.  (b) one
     'aggregate' round timed by CUDA events in its two calls (local SGD's
-    share), and the two kernels on its payload (packed deltas, (4,
-    ~1.645e9) bf16) against their plain versions computed in column
-    chunks, timed beside the plain versions, their byte bounds and
-    ``torch.matmul``; ``moe.expert_matmul.routes`` unchanged by (a) and
-    (b) (under vmap the MoE runs the dense oracle).  (c) one traced
+    share), and the two kernels on its payload's largest dtype group
+    (packed deltas, (4, ~1.645e9) bf16 for stablelm) against their plain
+    versions computed in column chunks, timed beside the plain versions,
+    their byte bounds and ``torch.matmul``, and on every other group (an
+    fp32 one) against the plain versions (``_small_group_check``);
+    ``moe.expert_matmul.routes`` unchanged by (a) and (b) (under vmap the
+    MoE runs the dense oracle).  (c) one traced
     'aggregate' round (with ``extras``).  (d) fp32 pins at full width,
     ``pin_layers`` layers, ``pin_n`` clients of ``pin_s`` tokens: the
     kernel backends within rtol 2e-4 / atol 2e-5 of einsum, scanned ==
     sequential bitwise, and with ``extras`` all-ones active == None and
-    remat on == off, bitwise.  Returns ``({kernel: launches in (a)},
+    remat on == off, bitwise.  Each run of (a) fails past ``max_peak_gb``
+    where given.  Returns ``({kernel: launches in (a)},
     {kernel: row fields at this payload})``; ``keep`` (a dict), if given,
     gets the 'aggregate' run's trained params under "params"."""
     import dataclasses
@@ -3285,11 +3369,16 @@ def phase_lmtrain(seed: int, counters, keep=None, arch: str = LMT_ARCH,
     # one launch a round per dtype group (an MoE's fp32 router is one)
     groups = packing.pack_spec(params).n_groups
     print(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab_size}"
+          f"{cfg.d_model}, "
+          + (f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, " if cfg.n_heads
+             else "")
+          + f"vocab {cfg.vocab_size}"
           + (f", {cfg.n_experts} experts top-{cfg.experts_per_token}, "
              f"moe_d_ff {cfg.moe_d_ff} (the dense oracle under vmap)"
              if cfg.n_experts else "")
+          + (f", SSD state {cfg.ssm_state}, head dim {cfg.ssm_head_dim}, "
+             f"expand {cfg.ssm_expand}, chunk {cfg.ssm_chunk}"
+             if cfg.ssm_state else "")
           + f", {cfg.dtype}, {n_params:,} params "
           f"({n_params * 2 / 1e9:.2f} GB); remat {cfg.remat}, attn "
           f"{cfg.attn_impl}, loss_chunk {cfg.loss_chunk}; n {LMT_N}, c "
@@ -3322,6 +3411,9 @@ def phase_lmtrain(seed: int, counters, keep=None, arch: str = LMT_ARCH,
         routes = {k: dict(f.routes) for k, f in counters.items()
                   if f.launches and hasattr(f, "routes")}
         peak = torch.cuda.max_memory_allocated() / 1e9
+        if max_peak_gb is not None and peak > max_peak_gb:
+            raise AssertionError(f"{tag} {cfg.name} on {backend}: peak "
+                                 f"{peak:.2f} GB, over {max_peak_gb} GB")
         return server, hist, ms, counts, routes, peak, first[0]
 
     def cols(h):
@@ -3411,8 +3503,18 @@ def phase_lmtrain(seed: int, counters, keep=None, arch: str = LMT_ARCH,
     sgd_ms, rest_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
     del new
     spec = packing.pack_spec(deltas)
-    X = packing.pack(deltas, spec)[0]
+    bufs = list(packing.pack(deltas, spec))
     del deltas
+    # the largest group (the bf16 weights) is checked and timed below;
+    # the others (an MoE's fp32 router, the SSD's fp32 dt_bias / A_log /
+    # D) are held against the plain versions here
+    big = max(range(len(bufs)), key=lambda g: bufs[g].numel())
+    w = combine_weights(A, tau, m3).contiguous()
+    for g, Xg in enumerate(bufs):
+        if g != big:
+            _small_group_check(tag, A, w, Xg)
+    X = bufs[big]
+    del bufs
     torch.cuda.empty_cache()
     n, p = X.shape
     chunk = 1 << 27
@@ -3426,9 +3528,8 @@ def phase_lmtrain(seed: int, counters, keep=None, arch: str = LMT_ARCH,
           f"{sgd_ms / (sgd_ms + rest_ms):.2%} of it, pack + aggregate + "
           f"apply {rest_ms:.1f} ms; its payload X {tuple(X.shape)} "
           f"{str(X.dtype).split('.')[1]}, {X.numel() * 2 / 1e9:.2f} GB, "
-          f"{spec.n_groups} dtype group: {nonzero / X.numel():.3%} of "
+          f"{spec.n_groups} dtype group(s): {nonzero / X.numel():.3%} of "
           f"values nonzero, max|X| {x_max:.3e}")
-    w = combine_weights(A, tau, m3).contiguous()
     absw = w.abs()
     f32, bf = 4, 2
 
@@ -3718,6 +3819,70 @@ def phase_moetrain(seed: int, counters):
             "expandable_segments:False")
 
 
+def zoot_memory_depth(arch: str) -> int:
+    """The most layers of ``arch`` (whole hybrid groups) whose bf16 tree,
+    ZOOT_TREES times over, stays under ZOOT_PEAK_GB."""
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    step = full.hybrid_attn_every if full.family == "hybrid" else 1
+    fits = [n for n in range(step, full.n_layers + 1, step)
+            if lm_train_config(arch, n_layers=n).param_count() * 2
+            * ZOOT_TREES <= ZOOT_PEAK_GB * 1e9]
+    return max(fits, default=0)
+
+
+def phase_zootrain(seed: int, counters):
+    """[zootrain]: ``phase_lmtrain``'s recipe on each of ZOOT_ARCHS at its
+    published widths, cut depth and tokens a client a step, every
+    run's peak under ZOOT_PEAK_GB; fp32 pins at the pin depth, ZOOT_PIN_N
+    clients of ZOOT_PIN_S tokens (no trace, no all-ones or remat pins:
+    [lmtrain] holds those on the same code).  Returns ({kernel: launches
+    summed over the archs}, {arch: {kernel: row fields at its
+    payload}})."""
+    import torch
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    launches, rows = {}, {}
+    # segments grown in place, as [moetrain]'s, the setting restored after
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        for arch, layers, S, pin_layers, why in ZOOT_ARCHS:
+            full = get_config(arch)
+            cap = zoot_memory_depth(arch)
+            tree = lm_train_config(arch, n_layers=layers).param_count() * 2
+            print(f"[zootrain] {arch}: {layers} of {full.n_layers} layers"
+                  + (f" ({layers // full.hybrid_attn_every} groups of "
+                     f"{full.hybrid_attn_every} Mamba blocks + the shared "
+                     "block)" if full.family == "hybrid" else "")
+                  + (f", {S:,} of [lmtrain]'s {LMT_S:,} tokens a client a "
+                     "step" if S != LMT_S else "")
+                  + f", a {tree / 1e9:.2f} GB bf16 tree (the tree rule, "
+                  f"{ZOOT_TREES} trees <= {ZOOT_PEAK_GB} GB, allows {cap} "
+                  f"layers); cut by {why}"
+                  + f"; fp32 pins at {pin_layers} layers, {ZOOT_PIN_N} "
+                  f"clients of {ZOOT_PIN_S} tokens; every width published",
+                  flush=True)
+            if layers > cap:
+                raise AssertionError(f"[zootrain] {arch} at {layers} layers "
+                                     f"is past the memory rule's {cap}")
+            got, got_rows = phase_lmtrain(
+                seed, counters, arch=arch, layers=layers, S=S,
+                pin_layers=pin_layers, pin_n=ZOOT_PIN_N, pin_s=ZOOT_PIN_S,
+                extras=False, tag="[zootrain]", max_peak_gb=ZOOT_PEAK_GB)
+            for kernel, count in got.items():
+                launches[kernel] = launches.get(kernel, 0) + count
+            rows[arch] = got_rows
+            torch.cuda.empty_cache()
+    finally:
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
+    print(f"[zootrain] phase {time.perf_counter() - t0:.1f} s (budget "
+          f"{ZOOT_BUDGET_S} s)")
+    return launches, rows
+
+
 # -- [serve]: the serving CLI's own function -----------------------------------
 
 # the CLI's reduced configs (vocab 512, fp32, its defaults: batch 4, 32
@@ -3804,13 +3969,22 @@ TP_SHAPE, TP_BACKEND = (1, 1, 2), "gloo"
 # (schedule, sequence parallel): (a) and (f)
 TP_CASES = (("fused", False), ("ring", False), ("ring", True))
 TP_SERVE_ARCH, TP_SERVE_LAYERS, TP_SERVE_TOL = "qwen2-7b", 4, 2e-4
-# served archs without a router ((c)): bf16 greedy tokens agree with one
-# device's this often at m = 2.  At m = 4 on four H100s over NCCL the
-# readings are mamba2 0.8125 and zamba2 0.875, with every fp32 gate held
-# and the one-device bf16 run itself at 0.84375 / 0.875 against an fp32
-# run of the same weights: bf16 noise, which this gate between two bf16
-# runs does not tell from a fault; it stays as set
+# served archs without a router ((c)), the bf16 greedy tokens (LM_BATCH x
+# LM_NEW = 32 of them).  At m = 2 they agree with one device's at least
+# TP_TOP1_MIN of the time (mamba2 and zamba2 0.9375 on an H100, two gloo
+# ranks).  At m = 4 two bf16 runs drift further apart with no fault: on
+# four H100s over NCCL mamba2 read 0.8125 and zamba2 0.875 with every fp32
+# gate held, and the one-device bf16 run itself read 0.84375 / 0.875
+# against a one-device fp32 run of the same weights.  So from m = 4 on
+# (``top1_low``) the m-way run's top-1 against that fp32 run must be no
+# worse than the one-device bf16 run's, less TP_TOP1_DELTA (2 of the 32
+# tokens; bf16 alone moved zamba2's by 1 of 32 at m = 2).  On four H100s
+# a sound run reads mesh 0.875 against one device's 0.84375 (mamba2) and
+# 0.875 / 0.875 (zamba2); a run whose rank 0 scales its SSD out-projection
+# partial sum by 0.75 before the all-reduce reads 0.0625 against 0.78125
+# and 0.875.
 TP_TOP1_MIN = 0.9
+TP_TOP1_DELTA = 1 / 16
 # (c) / (d): (case, arch, depth (None: whole), fp32 gate layers, bf16
 # top-1 gate (None: printed only)); each fp32 gate prefills TP_GATE_S
 # tokens a row (fewer chances for a router's top-k to flip on a last-bit
@@ -3821,13 +3995,28 @@ TP_ZOO_SERVE = (("c", "mamba2-1.3b", None, 6, TP_TOP1_MIN),
                 ("d", "deepseek-v2-236b", 1 + TP_DSV2_MOE, 2, None))
 TP_GATE_S = 256
 # the cases (c) - (e) phase_tp runs after (a), (f) and (b)
-TP_ZOO = ("c", "d", "e")
+TP_ZOO = ("c", "d", "e")   # the four-card recipe adds "g" (below)
 # (e): layers, the bf16 batch (B, S), the fp32 gate's layers and tokens
 # (at 8 tokens top-2 of 16 experts the capacity, max(2 T k / E, 8) = 8,
 # holds every token: no slot can be dropped, so the gate compares the
 # same function)
 TP_EP_ARCH, TP_EP_LAYERS, TP_EP_B, TP_EP_S = "phi3.5-moe-42b-a6.6b", 4, 1, 1024
 TP_EP_GATE_LAYERS, TP_EP_GATE_S = 2, 8
+# (g), in the four-card recipe: deepseek-v2 (src/repro/configs/
+# deepseek_v2_236b.py, arXiv:2405.04434) trained federated at its
+# published widths and 1 + 1 of its 60 layers (the dense one and one MoE
+# layer: ~5.4e9 values a client, 3.77e9 of them the 160 experts; at n = 2
+# a single-host round holds >= 4 bf16 trees of 21 GB, so one card cannot
+# take it), moe_sharding 'tensor' (the expert layout refuses under a
+# model group), TP_TRAIN_S tokens a client a step, LMT_T steps,
+# LMT_ROUNDS rounds on mesh ``shape`` ((1, 2, 2): 2 clients of 2 ranks)
+# on each of TP_TRAIN_MIXINGS (schedule, zero), 'fused' and 'ring' held
+# against 'einsum' on the same mesh by CHANGE_REL / MOVED_MIN; then fp32
+# on mesh ``serve_shape`` ((1, 1, 4)): one client's loss and gradient on
+# TP_TRAIN_GATE_S tokens against the one-device path, within ORACLE_F32
+TP_TRAIN_ARCH, TP_TRAIN_LAYERS, TP_TRAIN_S = "deepseek-v2-236b", 2, 1024
+TP_TRAIN_MIXINGS = (("einsum", False), ("fused", False), ("ring", True))
+TP_TRAIN_GATE_S = 256
 # flash on a rank's own layer-0 q / k / v against its plain version, bf16
 # ([flash]'s tolerance)
 TP_FLASH_TOL = 2e-2
@@ -4123,6 +4312,10 @@ def _tp_rank(rank, tmp, shape, backend, zero, serve_arch, serve_shape, seed,
                     top1_min=top1)
         if "e" in zoo:
             out["ep"] = _tp_ep(rank, serve_shape, seed)
+        # (g) deepseek-v2 trained federated over the clients' model axis
+        if "g" in zoo:
+            out["train"] = _tp_train(rank, shape, serve_shape, seed,
+                                     counters)
         with open(Path(tmp) / f"rank{rank}.json", "w") as f:
             json.dump(out, f)
         dist.barrier()
@@ -4192,6 +4385,21 @@ def _top1(a, b) -> float:
     return float((a.argmax(-1) == b.argmax(-1)).float().mean())
 
 
+def top1_low(m: int, top1: float, vs_fp32=None) -> bool:
+    """Whether an m-way bf16 serve run fails the top-1 rule: at m < 4 its
+    greedy tokens agree with the one-device bf16 run's (``top1``) less
+    than TP_TOP1_MIN of the time; from m = 4 on, against the one-device
+    fp32 run (``vs_fp32``: {'mesh': .., 'one_device': ..}, both bf16 runs'
+    top-1 against it), it is more than TP_TOP1_DELTA under the one-device
+    bf16 run."""
+    if m < 4:
+        return top1 < TP_TOP1_MIN
+    if vs_fp32 is None:
+        raise ValueError(f"the top-1 rule at m = {m} needs the one-device "
+                         "fp32 run's readings")
+    return vs_fp32["mesh"] < vs_fp32["one_device"] - TP_TOP1_DELTA
+
+
 def _rank_heads(cfg, local) -> tuple:
     """The heads a rank's layer 0 holds: (q, kv) of GQA (zamba2's shared
     block), MLA's q heads, the SSD's heads."""
@@ -4223,13 +4431,13 @@ def _tp_serve(rank, arch, shape, seed, counters, depth=None,
     / v (from the warm-up, ``_flash_on_rank``); against the one-device
     ``Model.prefill`` / ``decode`` on the same weights where the whole
     model fits beside the other ranks' shards (the greedy tokens' top-1
-    agreement at least ``top1_min`` where given); then the fp32 gate at
-    ``gate_layers`` layers on ``gate_s`` prompt tokens a row (LM_SEQ by
-    default).  Where ``top1_min`` is given, rank 0 also runs the one-device
-    path in fp32 on the same weights (upcast) and tokens, and reads both
-    bf16 runs' top-1 against it: how far bf16 alone moves the greedy
-    tokens.  The top-1 gate is read by ``phase_tp`` once every case has
-    run, so a low reading does not stop the fp32 gates."""
+    agreement); then the fp32 gate at ``gate_layers`` layers on ``gate_s``
+    prompt tokens a row (LM_SEQ by default).  Where ``top1_min`` is given
+    (a gated arch), rank 0 also runs the one-device path in fp32 on the
+    same weights (upcast) and tokens, and reads both bf16 runs' top-1
+    against it: how far bf16 alone moves the greedy tokens.  ``phase_tp``
+    reads the top-1 rule (``top1_low``) once every case has run, so a low
+    reading does not stop the fp32 gates."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -4504,6 +4712,169 @@ def _tp_ep(rank, shape, seed) -> dict:
     return out
 
 
+def _tp_train(rank, shape, serve_shape, seed, counters) -> dict:
+    """(g) of ``phase_tp`` on one rank: TP_TRAIN_ARCH trained federated on
+    mesh ``shape`` (each client split over its 'model' ranks), bf16 at
+    full width and TP_TRAIN_LAYERS layers, through ``make_train_step`` on
+    each of TP_TRAIN_MIXINGS from the same init shards: ms a round, the
+    launches counted from 0 ('fused': one aggregate a dtype group a round,
+    on the rank's shard), GB a rank; each round's change from init
+    against einsum's (``_change_sums`` on each rank's own shards,
+    all-reduced: no rank gathers a whole tree).  Then fp32 on mesh
+    ``serve_shape``: one client's loss and gradient
+    (``torch.func.grad_and_value`` of ``Model.loss`` on the rank's shards)
+    against the one-device path on the same weights, which rank 0 runs
+    first and keeps on its card; the verdict all-reduced, read by
+    ``phase_tp``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.fl import distributed as D
+    from repro_torch.fl import packing
+    from repro_torch.launch.mesh import client_index, make_debug_mesh
+    from repro_torch.models import sharding
+    from repro_torch.models.model import Model
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_debug_mesh(shape)
+    n = int(np.prod(shape[:-1]))
+    cfg = lm_train_config(TP_TRAIN_ARCH, n_layers=TP_TRAIN_LAYERS)
+    rng = np.random.default_rng(seed + 50)
+    sampler = lm_train_data(cfg, seed + 50, TP_TRAIN_S, n=n)
+    xs, ys = zip(*(sampler(rng, t) for t in range(LMT_ROUNDS)))
+    toks = torch.cat([torch.stack(xs), torch.stack(ys)[..., -1:]],
+                     dim=-1).to(dev)                  # (K, n, T, B, S+1)
+    # one cluster of n clients, doubly stochastic A; round 0 samples
+    # every client, later rounds one
+    A = (0.5 * torch.eye(n) + 0.5 / n).expand(LMT_ROUNDS, n, n).to(dev)
+    tau = torch.zeros(LMT_ROUNDS, n)
+    tau[0] = 1.0
+    for t in range(1, LMT_ROUNDS):
+        tau[t, t % n] = 1.0
+    m, tau = tau.sum(1).to(dev), tau.to(dev)
+    eta = torch.full((LMT_ROUNDS,), LMT_ETA, device=dev)
+    local = _one_rank_at_a_time(
+        mesh, lambda: layered_params(cfg, seed + 50, _placer(cfg, mesh)))
+    groups = packing.pack_spec(local).n_groups
+    zlocal = D.shard_params(D.gather_params(local, cfg, mesh), cfg, mesh,
+                            zero=True)
+    torch.cuda.empty_cache()
+    # the change from init is summed over each rank's own shards, each
+    # value once: the clients hold equal copies, and a leaf the placement
+    # keeps whole lies on every model rank
+    mrank = int(mesh.get_local_rank("model"))
+    counted = [client_index(mesh) == 0 and ("model" in spec or mrank == 0)
+               for spec in D.param_layout(cfg, mesh)]
+    out = {"layers": cfg.n_layers, "clients": n, "groups": groups,
+           "tokens": n * LMT_T * TP_TRAIN_S}
+    ref = []          # einsum's shards after each round, this rank's
+    for mixing, zero in TP_TRAIN_MIXINGS:
+        step = D.make_train_step(cfg, mesh, mixing=mixing, zero=zero)
+        p = zlocal if zero else local
+        ms = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters(counters)
+        for t in range(LMT_ROUNDS):
+            dist.barrier()
+            t0 = time.perf_counter()
+            p = step(p, toks[t], A[t], tau[t], m[t], eta[t])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            mine = D.shard_params(D.gather_params(p, cfg, mesh, zero=True),
+                                  cfg, mesh) if zero else p
+            if mixing == "einsum":
+                ref.append(mine)
+                continue
+            sums, maxes = _change_sums(mine, ref[t], local, dev, counted)
+            sums = torch.tensor(sums, dtype=torch.float64, device=dev)
+            maxes = torch.tensor(maxes, dtype=torch.float64, device=dev)
+            dist.all_reduce(sums)
+            dist.all_reduce(maxes, op=dist.ReduceOp.MAX)
+            out[f"change/{mixing}/r{t}"] = _change_finish(sums.tolist(),
+                                                          maxes.tolist())
+            del mine
+        counts = {k: f.launches for k, f in counters.items() if f.launches}
+        want = {"aggregate": LMT_ROUNDS * groups} if mixing == "fused" \
+            else {}
+        if counts != want:
+            raise AssertionError(f"[tp] (g) rank {rank} {mixing}: launches "
+                                 f"{counts}, not {want}")
+        out[mixing] = dict(
+            ms=ms, counts=counts, zero=zero,
+            local_gb=sum(x.numel() * x.element_size()
+                         for x in tree_leaves(p)) / 1e9,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del p, step
+        torch.cuda.empty_cache()
+    del local, zlocal, ref, toks
+    torch.cuda.empty_cache()
+
+    # fp32: one client's loss and gradient on serve_shape's model group
+    mesh = make_debug_mesh(serve_shape)
+    group = mesh.get_group("model")
+    msize = int(serve_shape[-1])
+    c32 = lm_train_config(TP_TRAIN_ARCH, n_layers=TP_TRAIN_LAYERS,
+                          dtype="float32")
+    model = Model(c32)
+    g = torch.Generator(device=dev).manual_seed(seed + 51)
+    tk = torch.randint(0, c32.vocab_size, (1, TP_TRAIN_GATE_S + 1),
+                       generator=g, device=dev)
+    batch = (tk[:, :-1], tk[:, 1:])
+    want = None
+    if rank == 0:
+        # the one-device path first, its gradient kept on the card (21.6 GB
+        # of fp32 at 1 + 1 layers) and its params freed
+        torch.cuda.reset_peak_memory_stats()
+        whole = layered_params(c32, seed + 52)
+        grads, loss = torch.func.grad_and_value(model.loss)(whole, batch)
+        del whole
+        want = (float(loss), tree_leaves(grads))
+        del grads, loss
+        out["fp32_one_device_peak_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+    dist.barrier()
+    local = _one_rank_at_a_time(
+        mesh, lambda: layered_params(c32, seed + 52, _placer(c32, mesh)))
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with sharding.model_parallel(group):
+        grads, loss = torch.func.grad_and_value(model.loss)(local, batch)
+    torch.cuda.synchronize()
+    out["fp32_ms"] = (time.perf_counter() - t0) * 1e3
+    del local
+    ok, worst_abs, worst_rel = True, 0.0, 0.0
+    if rank == 0:
+        out["fp32_loss"] = (float(loss), want[0])
+        ok = bool(torch.isclose(loss.cpu().double(),
+                                torch.tensor(want[0], dtype=torch.float64),
+                                **ORACLE_F32))
+    for i, (x, spec) in enumerate(zip(tree_leaves(grads),
+                                      D.param_layout(c32, mesh))):
+        whole = sharding.gather_shard(x, spec, group, msize)
+        if rank == 0:
+            ref_i, want[1][i] = want[1][i], None
+            d = (whole - ref_i).abs()
+            worst_abs = max(worst_abs, float(d.max()))
+            worst_rel = max(worst_rel, float(
+                (whole - ref_i).norm() / ref_i.norm().clamp_min(1e-30)))
+            ok = ok and bool(torch.isfinite(whole).all()) and \
+                torch.allclose(whole, ref_i, **ORACLE_F32)
+            del ref_i, d
+        del whole
+    del grads, loss
+    flag = torch.tensor([1.0 if ok else 0.0], device=dev)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    out.update(fp32_ok=bool(flag.item()), fp32_grad_max_abs=worst_abs,
+               fp32_grad_rel=worst_rel, fp32_mesh=list(serve_shape),
+               fp32_s=TP_TRAIN_GATE_S)
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_tp(seed: int, shape=TP_SHAPE, backend=TP_BACKEND,
              zero: bool = False, serve_arch: str = TP_SERVE_ARCH,
              serve_shape=None, zoo=TP_ZOO) -> dict:
@@ -4523,8 +4894,9 @@ def phase_tp(seed: int, shape=TP_SHAPE, backend=TP_BACKEND,
     one-rank round.  (b) ``serve_arch`` bf16, full width and depth, on
     mesh ``serve_shape`` (default ``shape``) through the mesh prefill /
     decode steps (``_tp_serve``); then the cases of ``zoo``: (c) / (d)
-    TP_ZOO_SERVE the same way and (e) the expert-parallel MoE
-    (``_tp_ep``).  Each rank
+    TP_ZOO_SERVE the same way, (e) the expert-parallel MoE (``_tp_ep``)
+    and (g) TP_TRAIN_ARCH trained federated (``_tp_train``; the
+    four-card recipe).  Each rank
     counts its own launches (``kernel_counters`` in its process).
     Returns the launches of the main paths summed over the ranks:
     {"aggregate": .., "flash_attention": ..}."""
@@ -4569,6 +4941,9 @@ def phase_tp(seed: int, shape=TP_SHAPE, backend=TP_BACKEND,
           "steps" + "".join(f"; ({c}) {a}" for c, a, *_ in TP_ZOO_SERVE
                             if c in zoo)
           + (f"; (e) {TP_EP_ARCH} expert-parallel" if "e" in zoo else "")
+          + (f"; (g) {TP_TRAIN_ARCH} trained at {TP_TRAIN_LAYERS} layers on "
+             f"mesh {tuple(shape)}, fp32 at {serve_shape}" if "g" in zoo
+             else "")
           + f"; this process holds {torch.cuda.memory_allocated() / 1e9:.2f}"
           f" GB ({torch.cuda.memory_reserved() / 1e9:.2f} reserved)",
           flush=True)
@@ -4647,16 +5022,25 @@ def phase_tp(seed: int, shape=TP_SHAPE, backend=TP_BACKEND,
         if "vs_one_device" in sv[0]:
             v = sv[0]["vs_one_device"]
             gate = sv[0]["top1_min"]
+            m_serve = int(serve_shape[-1])
             line += (f"; vs one device: max|dlogits| {v['max_abs']:.3e}, "
                      f"top-1 agreement {v['top1']:.4%} "
-                     + (f"(gate {gate})" if gate else "(not gated at bf16)"))
-            if "vs_fp32" in sv[0]:
-                f = sv[0]["vs_fp32"]
+                     + (f"(gate {gate})" if gate and m_serve < 4 else
+                        "(not gated: m >= 4)" if gate else
+                        "(not gated at bf16)"))
+            f = sv[0].get("vs_fp32")
+            if f is not None:
                 line += (f"; top-1 against the one-device fp32 run of the "
                          f"same weights: one device bf16 "
-                         f"{f['one_device']:.4%}, mesh bf16 {f['mesh']:.4%}")
-            if gate and v["top1"] < gate:
-                low.append(f"{arch} {v['top1']:.4%}")
+                         f"{f['one_device']:.4%}, mesh bf16 {f['mesh']:.4%}"
+                         + (f" (gate: mesh >= one device - "
+                            f"{TP_TOP1_DELTA:.4f})" if gate and m_serve >= 4
+                            else ""))
+            if gate and top1_low(m_serve, v["top1"], f):
+                low.append(f"{arch} {v['top1']:.4%}"
+                           + (f" (against fp32: mesh {f['mesh']:.4%}, one "
+                              f"device {f['one_device']:.4%})"
+                              if m_serve >= 4 else ""))
         print(line)
         if "flash" in sv[0]:
             f = [x["flash"] for x in sv]
@@ -4684,15 +5068,74 @@ def phase_tp(seed: int, shape=TP_SHAPE, backend=TP_BACKEND,
               f"({e['fp32_stats']['dropped']} dropped): logits max|d| "
               f"{e['fp32_logits']:.3e}, gradient max ||d|| / ||g|| "
               f"{e['fp32_grad_rel']:.3e} (rtol = atol = {TP_SERVE_TOL})")
+    bad = _tp_train_report(ranks, shape) if "g" in zoo else []
     TP_PREFILL_TALLY[serve_arch] = ranks[0]["serve"]["prefill_tally"]
     print(f"[tp] phase {time.perf_counter() - t_phase:.1f} s")
+    if bad:
+        raise AssertionError("[tp] (g) " + "; ".join(bad))
     if low:
-        raise AssertionError(f"[tp] bf16 top-1 against one device at m = "
-                             f"{serve_shape[-1]} below {TP_TOP1_MIN}: "
-                             f"{', '.join(low)} (every fp32 gate held)")
+        rule = (f"below {TP_TOP1_MIN}" if serve_shape[-1] < 4 else
+                f"more than {TP_TOP1_DELTA:.4f} under the one-device bf16 "
+                "run's against fp32")
+        raise AssertionError(f"[tp] bf16 top-1 at m = {serve_shape[-1]} "
+                             f"{rule}: {', '.join(low)} (every fp32 gate "
+                             "held)")
     return {"aggregate": sum(x["fused"]["counts"].get("aggregate", 0)
+                             + x.get("train", {}).get("fused", {}).get(
+                                 "counts", {}).get("aggregate", 0)
                              for x in ranks),
             "flash_attention": flash}
+
+
+def _tp_train_report(ranks, shape) -> list:
+    """(g)'s lines from the ranks' records; returns what failed its
+    gates: 'fused' / 'ring' off einsum's change by more than CHANGE_REL
+    after round 0 / the last, einsum moving under MOVED_MIN, the fp32
+    loss or gradient off the one-device path."""
+    tr = [x["train"] for x in ranks]
+    r0, bad = tr[0], []
+    for mixing, zero in TP_TRAIN_MIXINGS:
+        per = [x[mixing] for x in tr]
+        ms = [max(x["ms"][t] for x in per) for t in range(LMT_ROUNDS)]
+        line = (f"[tp] (g) {TP_TRAIN_ARCH} at {r0['layers']} layers, mesh "
+                f"{tuple(shape)} ({r0['clients']} clients), {mixing}"
+                f"{' zero' if zero else ''}: round ms "
+                f"{[round(x, 1) for x in ms]} (slowest rank), "
+                f"{r0['tokens'] / (ms[-1] / 1e3):,.0f} tokens/s (last "
+                f"round); launches a rank "
+                f"{[x['counts'] or 'none' for x in per]} ({r0['groups']} "
+                f"dtype groups); shards "
+                f"{[round(x['local_gb'], 3) for x in per]} GB a rank, peak "
+                f"{[round(x['peak_gb'], 2) for x in per]} GB")
+        if mixing != "einsum":
+            r = [r0[f"change/{mixing}/r{t}"] for t in range(LMT_ROUNDS)]
+            line += (f"; einsum moved {r[0]['moved']:.3%} / "
+                     f"{r[-1]['moved']:.3%} of values; the change off "
+                     f"einsum's by ||d - d_einsum|| / ||d_einsum|| "
+                     f"{r[0]['rel']:.4e} / {r[-1]['rel']:.4e} after rounds "
+                     f"0 / {LMT_ROUNDS - 1} (gates {CHANGE_REL[0]} / "
+                     f"{CHANGE_REL[1]}), {r[-1]['differ']:.4%} of values "
+                     "differ")
+            if r[0]["rel"] > CHANGE_REL[0] or r[-1]["rel"] > CHANGE_REL[1]:
+                bad.append(f"{mixing} vs einsum: change off by "
+                           f"{r[0]['rel']:.3e} / {r[-1]['rel']:.3e}")
+            if min(r[0]["moved"], r[-1]["moved"]) < MOVED_MIN:
+                bad.append(f"einsum moved {r[0]['moved']:.3%} / "
+                           f"{r[-1]['moved']:.3%}, under {MOVED_MIN:.0%}")
+        print(line)
+    loss = r0["fp32_loss"]
+    print(f"[tp] (g) fp32 at mesh {tuple(r0['fp32_mesh'])}, "
+          f"{r0['layers']} layers, 1x{r0['fp32_s']} tokens: loss "
+          f"{loss[0]:.6f} vs one device {loss[1]:.6f}; gradient max|d| "
+          f"{r0['fp32_grad_max_abs']:.3e}, max ||d|| / ||g|| over leaves "
+          f"{r0['fp32_grad_rel']:.3e} (rtol {ORACLE_F32['rtol']}, atol "
+          f"{ORACLE_F32['atol']}): {'held' if r0['fp32_ok'] else 'FAILED'}"
+          f"; the sharded loss + gradient {max(x['fp32_ms'] for x in tr):.1f}"
+          f" ms (slowest rank); the one-device path peaked at "
+          f"{r0['fp32_one_device_peak_gb']:.2f} GB on rank 0's card")
+    if not r0["fp32_ok"]:
+        bad.append("fp32 loss or gradient off the one-device path")
+    return bad
 
 
 # -- [ckpt] -----------------------------------------------------------------
@@ -4839,17 +5282,23 @@ def phase_ckpt(seed: int, lm_params, counters) -> dict:
 # -- [dryrun] -----------------------------------------------------------------
 
 # the production combos [dryrun] runs (single pod, 256 fake ranks), in the
-# background from the build on: every arch's decode_32k and long_500k,
-# every prefill_32k but deepseek-v2's (160 experts a layer on the meta
-# loop route, ~1 min), train_4k for stablelm-1.6b and mamba2-1.3b (T = 5)
+# background from the build on: every arch's decode_32k, long_500k and
+# prefill_32k, and train_4k (T = 5) where it keeps the background within
+# the script's time.  Host seconds a train_4k combo on the card's host
+# (four at a time beside a training phase): internvl2-1b 49.9, qwen2-7b
+# 51.4, qwen1.5-4b 67.8, musicgen-large 84.5 (run), phi3.5-moe 94.7,
+# qwen3-32b 121.5, zamba2-2.7b 122.5, deepseek-v2 538.8 (left out: the
+# background's ~208 s would pass the ~670 s the phases give it);
+# deepseek-v2's prefill_32k 54.3
 DRYRUN_COMBOS = (
-    [("stablelm-1.6b", "train_4k"), ("mamba2-1.3b", "train_4k")]
+    [(a, "train_4k") for a in ("stablelm-1.6b", "mamba2-1.3b",
+                               "internvl2-1b", "qwen2-7b", "qwen1.5-4b",
+                               "musicgen-large")]
     + [(a, s) for s in ("decode_32k", "long_500k", "prefill_32k")
        for a in ("qwen3-32b", "musicgen-large", "mamba2-1.3b",
                  "internvl2-1b", "zamba2-2.7b", "deepseek-v2-236b",
                  "phi3.5-moe-42b-a6.6b", "qwen1.5-4b", "qwen2-7b",
-                 "stablelm-1.6b")
-       if (a, s) != ("deepseek-v2-236b", "prefill_32k")])
+                 "stablelm-1.6b")])
 DRYRUN_LOG = ROOT / "build" / "dryrun_torch.log"
 DRYRUN_OUT = ROOT / "build" / "dryrun_torch"
 DRYRUN_TIMEOUT_S = 900
@@ -5120,8 +5569,15 @@ def _phases(name, lap, dry) -> int:
         launches[kernel] += count
     routes["mix_aggregate"]["staged"] += moe_launches["mix_aggregate"]
     torch.cuda.empty_cache()
+    lap("[moetrain]")
+    zoo_launches, zoo_rows = phase_zootrain(SEED, kernel_counters())
+    for kernel, count in zoo_launches.items():
+        launches[kernel] += count
+    routes["mix_aggregate"]["staged"] += zoo_launches["mix_aggregate"]
+    torch.cuda.empty_cache()
+    lap("[zootrain]")
     launches["aggregate"] += phase_mesh(SEED, kernel_counters())
-    lap("[moetrain] [mesh]")
+    lap("[mesh]")
     for kernel, count in phase_tp(SEED).items():
         launches[kernel] += count
     lap("[tp]")
@@ -5131,6 +5587,8 @@ def _phases(name, lap, dry) -> int:
         if row["name"] in lm_rows:
             row["lm_payload"] = lm_rows[row["name"]]
             row["moe_payload"] = moe_rows[row["name"]]
+            for arch, by_kernel in zoo_rows.items():
+                row[f"{arch.split('-')[0]}_payload"] = by_kernel[row["name"]]
         row["launches"] = launches[row["name"]]
         if row["name"] in routes:
             row["routes"] = routes[row["name"]]

@@ -227,10 +227,17 @@ def _ssd_with_state(cfg: ModelConfig, p: PyTree, x: torch.Tensor,
     # intra-chunk (attention form)
     scores = torch.einsum("bcqhn,bcshn->bchqs", Ch, Bh)       # (B,nc,H,Q,Q)
     cum_h = cum.permute(0, 1, 3, 2)                           # (B,nc,H,Q)
-    # exp(cum[q] - cum[s]) overflows to inf above the diagonal: those
-    # entries are dropped by the where (a multiply by a mask gives NaN)
-    decay = torch.exp(cum_h[..., :, None] - cum_h[..., None, :])
+    # exp(cum[q] - cum[s]) overflows to inf above the diagonal (at the
+    # published chunk of 128, dt |A| sums past 88.7 there).  The reference
+    # takes the exp and drops those entries by a where after it, which
+    # keeps the forward finite but gives a NaN gradient (the where's zero
+    # gradient times inf).  The exponent is masked to -inf before the exp
+    # here: the same values on and below the diagonal, exact zeros above,
+    # and a finite gradient; equal to the reference's wherever its
+    # gradient is finite.
     causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(torch.where(
+        causal, cum_h[..., :, None] - cum_h[..., None, :], float("-inf")))
     M = torch.where(causal, scores * decay, 0.0)
     del scores, decay
     Mdt = M * dt.permute(0, 1, 3, 2)[:, :, :, None, :]        # weight dt[s]

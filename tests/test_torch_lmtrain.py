@@ -130,11 +130,15 @@ def _oracle(name, K_run=1):
 
 
 @functools.lru_cache(maxsize=None)
-def _quant_oracle(name):
+def _quant_oracle(name, carry=False):
     """The reference's quantized einsum rounds (K sequential) of
     ``name`` and, a round at a time, one grid step of every value summed
     over the clients with the combine row's weights (the port's
-    quantizer on the port's deltas, as ``tests/test_torch_quant.py``)."""
+    quantizer on the port's deltas, as ``tests/test_torch_quant.py``).
+    With ``carry`` a client's previous grid step counts too, at its
+    weight this round: a rounding decision that flipped in round t - 1
+    (on a client whose weight was 0 then) stays in that client's
+    error-feedback residual, and the residual is sent in round t."""
     jcfg, cfg = _cfgs(name)
     jm, m_ = JModel(jcfg), Model(cfg, device="cpu")
     jp0, (batch, A, tau, m, eta), _ = _oracle(name, K)
@@ -151,15 +155,17 @@ def _quant_oracle(name):
     js, ts = jpacking.init_quant_state(jspec, N), \
         packing.init_quant_state(spec, N)
     jp, allow, out = jp0, torch.zeros(spec.padded), []
+    prev = torch.zeros(N, spec.padded)
     for t in range(K):
         tb = tuple(torch.from_numpy(b[t]) for b in batch)
         xq = packing.pack(client_deltas(m_.loss, tp, tb, torch.tensor(
             eta[t])), spec)[0] + ts[0][0]
         steps = (xq.reshape(N, -1, q.block).abs().amax(2) / q.qmax) \
             .repeat_interleave(q.block, 1)
-        allow += combine_weights(torch.from_numpy(A[t]),
-                                 torch.from_numpy(tau[t]),
-                                 torch.tensor(m[t])).abs() @ steps
+        w = combine_weights(torch.from_numpy(A[t]), torch.from_numpy(tau[t]),
+                            torch.tensor(m[t])).abs()
+        allow += w @ (steps + prev if carry else steps)
+        prev = steps
         tp, _, ts = tfn(tp, tb, torch.from_numpy(A[t]),
                         torch.from_numpy(tau[t]), torch.tensor(m[t]),
                         torch.tensor(eta[t]), None, ts)
