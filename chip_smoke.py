@@ -57,7 +57,9 @@ Phases (each raises on failure; nothing is caught):
    gemv    -- the two GEMVs (aggregate in fp32 and bf16,
               aggregate_dequant on int8 / int4 / fp8, block 512) at both
               shapes the main paths give them: the paper's (70 x
-              1,663,488) and the scale round's (100,000 x 7,936 fp32 /
+              1,663,488; there also int8 at block 128, the paper
+              experiment's, its quantizer held to the CPU's bitwise) and
+              the scale round's (100,000 x 7,936 fp32 /
               bf16, 100,000 x 8,192 quantized), each against its plain
               version (rtol / atol 1e-5) and a second call bitwise equal
               to the first, with its row groups G, its time, its bound and
@@ -147,6 +149,21 @@ Phases (each raises on failure; nothing is caught):
               clients repeat, the 'adam' ones move on); ms a call.
    quickstart -- ``examples/quickstart_torch.py`` once on the card, its
               table printed, its columns the plan's.
+   paper   -- ``examples/fl_paper_experiment_torch.py`` (the paper's Sec. 6
+              experiment) on the card at its defaults, the CNN at full
+              width, n = 70, c = 7, T = 5, batch 16, 15 rounds, both D2S
+              cases: its five runs (semidec, semidec-exact, semidec-int8
+              on 'aggregate' with int8 at block 128 -> aggregate_dequant,
+              fedavg, colrel), rows, summary and savings printed with each
+              run's wall s, ms a round after the first and whether its
+              params stayed finite; every row's cost, m and byte columns
+              exactly those of the host's ``RoundPlan`` and the packed
+              layout's arithmetic, accuracies finite in [0, 1], one
+              aggregate_dequant launch a round on semidec-int8 and no
+              other launch; semidec-int8 after every round against its
+              quantized 'einsum' oracle (built with the twin's
+              ``experiment``) by [train]'s quant rule, non-finite values
+              where the oracle's are.
    stream  -- the semi-async runtime at the same width, 4 rounds, through
               ``FederatedServer(execution=ExecutionConfig(stream=...))``:
               a pristine ``StreamConfig()`` on 'fused' bitwise the
@@ -314,7 +331,7 @@ Phases (each raises on failure; nothing is caught):
 6. report  -- a ``{"kernels": [...]}`` JSON line (nine kernels; the
               six routed ones with the ``routes`` of their main-path
               launches; the launches are those of [train], [control],
-              the quickstart, [stream], [ingest], [lmtrain], [ckpt],
+              the quickstart, [paper], [stream], [ingest], [lmtrain], [ckpt],
               [moetrain], [mesh] and [tp] (every rank's), flash's those
               of [lm], [zoo] and [tp]; aggregate's and mix_aggregate's
               rows also carry ``lm_payload`` and ``moe_payload``, their
@@ -990,11 +1007,15 @@ def phase_quant_kernels(seed: int):
 # 7,936 fp32 columns or 8,192 quantized ones (block 512)
 GEMV_SHAPES = (("paper", 70, 1_663_488, 1_663_488),
                ("scale", 100_000, 7_936, 8_192))
+# the quant block of the paper experiment's int8 run ([paper], phase 3c)
+PAPER_BLOCK = 128
 
 
 def phase_gemv(seed: int):
     """The two GEMVs (aggregate, aggregate_dequant) at every shape the main
-    paths give them: the paper's (70 x 1,663,488) and the scale round's
+    paths give them: the paper's (70 x 1,663,488; int8 also at block 128,
+    [paper]'s, quantized on the card and held to the CPU quantizer
+    bitwise) and the scale round's
     (100,000 x 7,936 fp32 / bf16, 100,000 x 8,192 int8 / int4 / fp8 at
     block 512), each held against its plain version and timed beside its
     bound and ``torch.matmul`` (for the dequant kernel: dequantize_group
@@ -1068,17 +1089,34 @@ def phase_gemv(seed: int):
                    2 * n * p_f, e, fused.aggregate_row_groups(X))
             del X
         X = torch.randn(n, p_q, generator=g, device=dev)
-        for storage in ("int8", "int4", "fp8"):
-            quant = packing.QuantSpec(storage=storage, block=block)
+        # the paper experiment's int8 payload is at block 128 (4x the
+        # scales of block 512); its quantizer is held to the CPU's there
+        cases = [(storage, block) for storage in ("int8", "int4", "fp8")]
+        if label == "paper":
+            cases.append(("int8", PAPER_BLOCK))
+        for storage, blk in cases:
+            quant = packing.QuantSpec(storage=storage, block=blk)
             Xq, S = packing.quantize_group(X, quant)
-            q = dict(storage=storage, block=block)
+            if blk != block:
+                Xq_h, S_h = packing.quantize_group(X.cpu(), quant)
+                if not (torch.equal(Xq.cpu(), Xq_h)
+                        and torch.equal(S.cpu(), S_h)):
+                    raise AssertionError(f"{label} {storage} block {blk}: "
+                                         "the CUDA quantizer differs from "
+                                         "the CPU's")
+                del Xq_h, S_h
+                print(f"[quant] {label} ({n}, {p_q}) {storage} block {blk}: "
+                      "CUDA quantizer == CPU quantizer bitwise (containers "
+                      "and scales)")
+            q = dict(storage=storage, block=blk)
             kernel = partial(fused.aggregate_dequant_cuda, w, Xq, S, **q)
             e = check("aggregate_dequant", kernel,
-                      ref.aggregate_dequant_ref(w, Xq, S, storage, block))
+                      ref.aggregate_dequant_ref(w, Xq, S, storage, blk))
             report("quant", "aggregate_dequant",
-                   f"{label} ({n}, {p_q}) {storage}", kernel,
+                   f"{label} ({n}, {p_q}) {storage}"
+                   + (f" block {blk}" if blk != block else ""), kernel,
                    cuda_ms(lambda: ref.aggregate_dequant_ref(
-                       w, Xq, S, storage, block), iters=5),
+                       w, Xq, S, storage, blk), iters=5),
                    "yardstick, two calls, dequantize_group + torch.matmul",
                    cuda_ms(lambda: torch.matmul(w, packing.dequantize_group(
                        Xq, S, quant)), iters=10),
@@ -1116,6 +1154,12 @@ def reset_counters(counters) -> None:
         f.launches = 0
         if hasattr(f, "routes"):
             f.routes = dict.fromkeys(f.routes, 0)
+
+
+def bookkeeping(h):
+    """A History's plan-decided columns and its total cost."""
+    return ([(r.t, r.m, r.m_actual, r.d2s, r.d2d, r.psi_bound, r.eta)
+             for r in h.records], h.ledger.total_cost)
 
 
 def paper_cell(seed: int):
@@ -1217,10 +1261,6 @@ def phase_train(rounds: int, seed: int):
           f"{[round(x, 1) for x in ref_ms]}, test_acc "
           f"{[r.metrics['test_acc'] for r in ref_hist.records]}")
 
-    def bookkeeping(h):
-        return ([(r.t, r.m, r.m_actual, r.d2s, r.d2d, r.psi_bound, r.eta)
-                 for r in h.records], h.ledger.total_cost)
-
     # launches a run must make: one a round per dtype group on the packed
     # paths, one a round per leaf on the leaf-wise 'pallas' path; the
     # staged route takes every launch of the packed (70, 1,663,488) f32
@@ -1302,14 +1342,13 @@ def phase_train(rounds: int, seed: int):
     trace_device(lambda: run("fused", False, False, evaluate=False),
                  f"aggregate path, {rounds} sequential rounds (no eval)")
     quant_launches, quant_routes = train_quant(
-        run, server_for, loss_fn, bookkeeping, counters, groups, rounds)
+        run, server_for, loss_fn, counters, groups, rounds)
     launches.update(quant_launches)
     path_routes.update(quant_routes)
     return launches, path_routes
 
 
-def train_quant(run, server_for, loss_fn, bookkeeping, counters, groups,
-                rounds):
+def train_quant(run, server_for, loss_fn, counters, groups, rounds):
     """The quantized payload path at full width (error feedback on, block
     512): int8 on 'fused' (-> aggregate_dequant), 'fused' with
     record_mixed (-> mix_aggregate_dequant), 'sparse' (-> the ELL combine
@@ -1321,13 +1360,8 @@ def train_quant(run, server_for, loss_fn, bookkeeping, counters, groups,
     Returns the dequant kernels' launches and the routed ones' routes."""
     import torch
     from repro_torch.core.pytree import tree_flatten
-    from repro_torch.core.rounds import client_deltas, make_round_fn
     from repro_torch.fl import packing
-    from repro_torch.fl.engine import (ExecutionConfig, _device_columns,
-                                       _quant_setup, _to_device)
-    from repro_torch.kernels.mixing import ops
 
-    dev = torch.device("cuda")
     paths = [("int8", "fused", False, "aggregate", "aggregate_dequant"),
              ("int8", "fused", True, "fused", "mix_aggregate_dequant"),
              ("int8", "sparse", False, "sparse_aggregate",
@@ -1340,51 +1374,14 @@ def train_quant(run, server_for, loss_fn, bookkeeping, counters, groups,
     for storage in ("int8", "int4", "fp8"):
         quant = packing.QuantSpec(storage=storage, block=512)
         srv, hist_srv = run("einsum", False, False, quant=quant)[:2]
-        final_srv = srv.params
-        # the same oracle replayed round by round (the server's plan,
-        # batches and device columns), to learn each round's grid steps:
-        # a value within a few ulps of a rounding boundary can round the
-        # other way on a kernel path, whose mixing sums in another order,
-        # and moves the aggregate by at most |w_i| * step_i
-        server = server_for("einsum", False, False, quant)
-        plan, batches = server._plan_and_batches()
-        A_seq, tau_seq, m_seq, eta_seq, active_seq = _device_columns(
-            plan, dev)
-        params = _to_device(server.params, dev)
-        n = plan.n_clients
-        _, qs = _quant_setup(ExecutionConfig(quant=quant), plan, params,
-                             "einsum", dev)
-        round_fn = make_round_fn(loss_fn, "einsum", quant=quant)
-        allow, quant_ms = 0.0, None
-        for t in range(plan.n_rounds):
-            batch = _to_device(batches[t], dev)
-            active = None if active_seq is None else active_seq[t]
-            deltas = client_deltas(loss_fn, params, batch, eta_seq[t])
-            pspec = packing.pack_spec(deltas, quant=quant)
-            bufs = packing.pack(deltas, pspec)
-            x = bufs[0] + qs[0][0]
-            steps = x.reshape(n, -1, 512).abs().amax(2) / quant.qmax
-            wrow = ops.combine_weights(A_seq[t], tau_seq[t], m_seq[t],
-                                       active)
-            allow = allow + wrow.abs() @ steps
-            if quant_ms is None:
-                quant_ms = cuda_ms(lambda: packing.quantize_packed(
-                    bufs, pspec, qs[0]), iters=10)
-            params, _, qs = round_fn(params, batch, A_seq[t], tau_seq[t],
-                                     m_seq[t], eta_seq[t], active, qs)
-        torch.cuda.synchronize()
-        oracle_leaves = tree_flatten(params)[0]
-        if not all(torch.equal(a, b) for a, b in zip(
-                oracle_leaves, tree_flatten(final_srv)[0])):
-            raise AssertionError(f"{storage}: the replayed einsum oracle "
-                                 "differs from the server's")
-        allow_leaves = tree_flatten(packing.unpack_row(
-            allow.repeat_interleave(512), pspec))[0]
+        oracle_leaves, allow_leaves, quant_ms, shape = quant_replay(
+            server_for("einsum", False, False, quant), loss_fn, quant,
+            srv.params, storage)
         oracles[storage] = (hist_srv, oracle_leaves, allow_leaves)
         print(f"[train] quant {storage} (block 512, error feedback): einsum "
               f"oracle sequential, replayed bitwise; the plain-PyTorch "
-              f"quantizer takes {quant_ms:.4f} ms of a round at ({n}, "
-              f"{pspec.padded}) (CUDA events, round 0's deltas)")
+              f"quantizer takes {quant_ms:.4f} ms of a round at {shape} "
+              "(CUDA events, round 0's deltas)")
     for storage, backend, record_mixed, effective, kernel in paths:
         quant = packing.QuantSpec(storage=storage, block=512)
         hist_o, leaves_o, allow_o = oracles[storage]
@@ -1416,19 +1413,9 @@ def train_quant(run, server_for, loss_fn, bookkeeping, counters, groups,
                 raise AssertionError(f"quant {effective}: History "
                                      "bookkeeping differs from einsum")
             leaves = tree_flatten(server.params)[0]
-            worst, flipped = 0.0, 0
-            for a, b, c in zip(leaves, leaves_o, allow_o):
-                if a.shape != b.shape or not torch.isfinite(a).all():
-                    raise AssertionError(f"quant {effective}: bad params")
-                d = (a - b).abs()
-                plain = d <= 1e-5 + 1e-4 * b.abs()
-                if not (plain | (d <= c + 1e-5 + 1e-4 * b.abs())).all():
-                    raise AssertionError(
-                        f"quant {storage} {effective} scan={scan}: params "
-                        f"differ from einsum by {float(d.max()):.3e}, past "
-                        "the one-step allowance")
-                flipped += int((~plain).sum())
-                worst = max(worst, float(d.max()))
+            worst, flipped, _ = within_one_step(
+                leaves, leaves_o, allow_o,
+                f"quant {storage} {effective} scan={scan}")
             finals[scan] = leaves
             print(f"[train] quant {storage} {backend} "
                   f"record_mixed={record_mixed} -> {effective}, "
@@ -1453,6 +1440,105 @@ def train_quant(run, server_for, loss_fn, bookkeeping, counters, groups,
                  f"quant int8 aggregate path, {rounds} sequential rounds "
                  "(no eval)")
     return launches, path_routes
+
+
+def quant_replay(server, loss_fn, quant, final, what, each_round=None):
+    """A quantized 'einsum' server's run replayed round by round (the
+    server's plan, batches and device columns), to learn each round's grid
+    steps: a value within a few ulps of a rounding boundary can round the
+    other way on a kernel path, whose mixing sums in another order, and
+    moves the aggregate by at most |w_i| * step_i.  The replay must end
+    on ``final``, the params of the same oracle run through its server,
+    bitwise.  Returns ``(oracle_leaves, allow_leaves, quant_ms, shape)``:
+    the allowance summed over the rounds, leaf by leaf, and the ms of the
+    plain-PyTorch quantizer on round 0's packed payload of ``shape``.
+    ``each_round``, a list, gets ``(oracle_leaves, allow_leaves)`` after
+    every round."""
+    import torch
+    from repro_torch.core.pytree import tree_flatten
+    from repro_torch.core.rounds import client_deltas, make_round_fn
+    from repro_torch.fl import packing
+    from repro_torch.fl.engine import (ExecutionConfig, _device_columns,
+                                       _quant_setup, _to_device)
+    from repro_torch.kernels.mixing import ops
+
+    dev = torch.device("cuda")
+    plan, batches = server._plan_and_batches()
+    A_seq, tau_seq, m_seq, eta_seq, active_seq = _device_columns(plan, dev)
+    params = _to_device(server.params, dev)
+    n = plan.n_clients
+    _, qs = _quant_setup(ExecutionConfig(quant=quant), plan, params,
+                         "einsum", dev)
+    round_fn = make_round_fn(loss_fn, "einsum", quant=quant)
+    allow, quant_ms = 0.0, None
+    for t in range(plan.n_rounds):
+        batch = _to_device(batches[t], dev)
+        active = None if active_seq is None else active_seq[t]
+        deltas = client_deltas(loss_fn, params, batch, eta_seq[t])
+        pspec = packing.pack_spec(deltas, quant=quant)
+        bufs = packing.pack(deltas, pspec)
+        x = bufs[0] + qs[0][0]
+        steps = x.reshape(n, -1, quant.block).abs().amax(2) / quant.qmax
+        wrow = ops.combine_weights(A_seq[t], tau_seq[t], m_seq[t], active)
+        allow = allow + wrow.abs() @ steps
+        if quant_ms is None:
+            quant_ms = cuda_ms(lambda: packing.quantize_packed(
+                bufs, pspec, qs[0]), iters=10)
+        params, _, qs = round_fn(params, batch, A_seq[t], tau_seq[t],
+                                 m_seq[t], eta_seq[t], active, qs)
+        if each_round is not None:
+            each_round.append((tree_flatten(params)[0], tree_flatten(
+                packing.unpack_row(allow.repeat_interleave(quant.block),
+                                   pspec))[0]))
+    torch.cuda.synchronize()
+    oracle_leaves = tree_flatten(params)[0]
+    if not all(_same_bits(a, b)
+               for a, b in zip(oracle_leaves, tree_flatten(final)[0])):
+        raise AssertionError(f"{what}: the replayed einsum oracle differs "
+                             "from the server's")
+    allow_leaves = tree_flatten(packing.unpack_row(
+        allow.repeat_interleave(quant.block), pspec))[0]
+    return oracle_leaves, allow_leaves, quant_ms, (n, pspec.padded)
+
+
+def within_one_step(leaves, leaves_o, allow_o, what, nonfinite=False):
+    """[train]'s quant rule: each value within rtol 1e-4 / atol 1e-5 of the
+    quantized einsum oracle's or, where a rounding decision flipped,
+    within the one-step allowance ``allow_o`` (one grid step times the
+    combine weight, summed over the rounds) on top.  With ``nonfinite``
+    a run that diverged is held too: its NaN / inf values must lie where
+    the oracle's do and equal them, and the rule holds the finite rest.
+    Returns ``(worst, flipped, finite)``: the largest difference, the
+    values past rtol / atol and the values compared."""
+    import torch
+    worst, flipped, finite = 0.0, 0, 0
+    for a, b, c in zip(leaves, leaves_o, allow_o):
+        ok = torch.isfinite(a)
+        if a.shape != b.shape or not (nonfinite or ok.all()):
+            raise AssertionError(f"{what}: bad params")
+        if not (torch.equal(ok, torch.isfinite(b))
+                and _same_bits(a[~ok], b[~ok])):
+            raise AssertionError(f"{what}: non-finite params differ from "
+                                 "the oracle's")
+        a, b, c = a[ok], b[ok], c[ok]
+        d = (a - b).abs()
+        plain = d <= 1e-5 + 1e-4 * b.abs()
+        if not (plain | (d <= c + 1e-5 + 1e-4 * b.abs())).all():
+            raise AssertionError(
+                f"{what}: params differ from einsum by "
+                f"{float(d.max()):.3e}, past the one-step allowance")
+        flipped += int((~plain).sum())
+        finite += int(a.numel())
+        if a.numel():
+            worst = max(worst, float(d.max()))
+    return worst, flipped, finite
+
+
+def _same_bits(a, b) -> bool:
+    """``torch.equal`` that takes NaN for equal to NaN."""
+    import torch
+    return torch.equal(a.isnan(), b.isnan()) and \
+        torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
 
 
 def mix_alone(loss_fn, init, batcher, spec, rounds, seed, counters):
@@ -1911,22 +1997,28 @@ def phase_hetero(seed: int):
     torch.cuda.empty_cache()
 
 
+def _load_example(name):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase_quickstart(counters):
     """``examples/quickstart_torch.py`` once on the card, its table
     printed; its m(t) / psi / D2D columns must be the port's plan's and
     its accuracies finite.  Returns the aggregate launches of its run."""
-    import importlib.util
     import math
     from repro_torch import topology
     from repro_torch.core.server import ServerConfig
     from repro_torch.fl.plan import RoundPlan
 
-    path = ROOT / "examples" / "quickstart_torch.py"
-    spec = importlib.util.spec_from_file_location("quickstart_torch", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
     reset_counters(counters)
-    server, hist = mod.main(["--device", "cuda"])
+    server, hist = _load_example("quickstart_torch").main(
+        ["--device", "cuda"])
     counts = {k: f.launches for k, f in counters.items()}
     rounds = len(hist.records)
     plan = RoundPlan.connectivity_aware(
@@ -1947,6 +2039,231 @@ def phase_quickstart(counters):
           f"/ D2D equal the plan's, final acc "
           f"{hist.records[-1].metrics['acc']:.3f}")
     return counts["aggregate"]
+
+
+# the experiment's D2S cases: [paper] runs both, and holds the
+# semidec-int8 run of each against its quantized einsum oracle
+PAPER_CASES = ("high", "low")
+PAPER_ROUNDS = 15   # the twin's default --rounds
+# the twin's runs in order: (row, algorithm, CASES key of m_fixed, bound
+# kind, quantized)
+PAPER_RUNS = (("semidec", "semidec", None, "auto", False),
+              ("semidec-exact", "semidec", None, "exact", False),
+              ("semidec-int8", "semidec", None, "auto", True),
+              ("fedavg", "fedavg", "m_fedavg", "auto", False),
+              ("colrel", "colrel", "m_colrel", "auto", False))
+
+
+def _timed_runs(experiment, counters, log):
+    """``experiment`` (the twin's) with every server it builds run under a
+    clock and fresh kernel counts: each ``server.run`` appends ``{server,
+    hist, wall_s, round_ms, counts, finite, rounds}`` to ``log`` (a
+    round's ms: from the end of the previous round's evaluation to the
+    start of its own; ``finite``: whether each round's params are;
+    ``rounds``: a quantized run's params after each round, for [paper]'s
+    oracle)."""
+    import torch
+    from repro_torch.core.pytree import tree_flatten
+
+    def timed(server):
+        inner = server.run
+        keep = server.execution.quant is not None
+
+        def run(eval_fn=None, **kw):
+            stamps, exits, finite, rounds = [], [], [], []
+
+            def timed_eval(p):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                out = eval_fn(p)
+                leaves = tree_flatten(p)[0]
+                finite.append(all(bool(torch.isfinite(x).all())
+                                  for x in leaves))
+                if keep:
+                    rounds.append([x.detach().clone() for x in leaves])
+                torch.cuda.synchronize()
+                exits.append(time.perf_counter())
+                return out
+
+            reset_counters(counters)
+            exits.append(time.perf_counter())
+            hist = inner(eval_fn=timed_eval, **kw)
+            torch.cuda.synchronize()
+            log.append(dict(
+                server=server, hist=hist,
+                wall_s=time.perf_counter() - exits[0],
+                round_ms=[(a - b) * 1e3 for a, b in zip(stamps, exits)],
+                counts={k: f.launches for k, f in counters.items()},
+                finite=finite, rounds=rounds))
+            return hist
+        server.run = run
+        return server
+
+    def wrapped(*args, **kwargs):
+        exp = experiment(*args, **kwargs)
+        make = exp.make_server
+        exp.make_server = lambda *a, **k: timed(make(*a, **k))
+        return exp
+    return wrapped
+
+
+def phase_paper(counters):
+    """``examples/fl_paper_experiment_torch.py`` on the card at its
+    defaults (the paper's CNN, n = 70, c = 7, T = 5, batch 16, 15 rounds),
+    both cases: (a) its rows, summary and savings, wall s and ms a round
+    per run; (b) each row's plan and byte columns exactly those of the
+    host's ``RoundPlan`` for its algorithm, bound kind and m_fixed and of
+    the packed layout's arithmetic, every accuracy finite in [0, 1], one
+    aggregate_dequant launch a round on the semidec-int8 run and no
+    launch elsewhere; (c) the semidec-int8 run against its quantized
+    einsum oracle, built with the twin's own ``experiment``, by [train]'s
+    quant rule.  Returns the aggregate_dequant launches."""
+    import inspect
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch import topology
+    from repro_torch.core.metrics import CommLedger
+    from repro_torch.core.pytree import tree_flatten
+    from repro_torch.core.server import ServerConfig
+    from repro_torch.fl.plan import RoundPlan
+    from repro_torch.models import cnn
+
+    t_phase = time.perf_counter()
+    twin = _load_example("fl_paper_experiment_torch")
+    experiment, log = twin.experiment, []
+    twin.experiment = _timed_runs(experiment, counters, log)
+    # the twin's setting: n = 70 clients in c = 7 clusters, T = 5
+    setting = {k: v.default for k, v in inspect.signature(
+        experiment).parameters.items()}
+    rounds, n, c, T = (PAPER_ROUNDS, setting["n"], setting["clusters"],
+                       setting["T"])
+    # the packed layout's arithmetic: the CNN's leaves in one fp32 group,
+    # padded to 128 columns; int8 stores a byte a value and an fp32 scale
+    # a block of PAPER_BLOCK
+    P = sum(int(x.numel()) for x in tree_flatten(cnn.init_cnn(SEED))[0])
+    P_pad = -(-P // 128) * 128
+    bytes_fp32, bytes_int8 = 4 * P_pad, P_pad + P_pad // PAPER_BLOCK * 4
+    ctors = {"semidec": RoundPlan.connectivity_aware,
+             "fedavg": RoundPlan.fedavg, "colrel": RoundPlan.colrel}
+    launches = 0
+    for case in PAPER_CASES:
+        log.clear()
+        t0 = time.perf_counter()
+        rows = twin.main(["--device", "cuda", "--case", case,
+                          "--rounds", str(rounds)])
+        case_s = time.perf_counter() - t0
+        cfg = twin.CASES[case]
+        if [r["algorithm"] for r in rows] != [x[0] for x in PAPER_RUNS] \
+                or len(log) != len(PAPER_RUNS):
+            raise AssertionError(f"[paper] {case}: runs {rows}")
+        for row, entry, (name, algorithm, m_key, bound_kind, quantized) in \
+                zip(rows, log, PAPER_RUNS):
+            m_fixed = None if m_key is None else cfg[m_key]
+            plan = ctors[algorithm](
+                topology.make_spec("k_regular", n=n, c=c, k_range=(6, 9),
+                                   p_fail=cfg["p"]).build(),
+                ServerConfig(T=T, t_max=rounds, phi_max=cfg["phi_max"],
+                             m_fixed=m_fixed, seed=setting["seed"],
+                             bound_kind=bound_kind))
+            ledger = CommLedger()
+            for d2s, d2d in zip(plan.d2s_t, plan.d2d_t):
+                ledger.add_round(d2s, d2d)
+            pb = bytes_int8 if quantized else bytes_fp32
+            want = dict(total_d2s=ledger.total_d2s,
+                        total_d2d=ledger.total_d2d,
+                        total_cost=float(ledger.total_cost),
+                        mean_m=float(np.mean(plan.m_actual_t)),
+                        payload_bytes_per_upload=pb,
+                        uplink_bytes=ledger.total_d2s * pb)
+            got = {k: row[k] for k in want}
+            accs = [r.metrics["test_acc"] for r in entry["hist"].records]
+            counts = entry["counts"]
+            kernel_runs = counts["aggregate_dequant"] if quantized else 0
+            backend = "aggregate" if quantized else "einsum"
+            print(f"[paper] {case} {name}: {json.dumps(row)}")
+            finite = entry["finite"]
+            print(f"[paper] {case} {name}: {entry['wall_s']:.2f} s wall, "
+                  f"{np.mean(entry['round_ms'][1:]):.2f} ms a round after "
+                  f"the first (round 0 {entry['round_ms'][0]:.1f} ms; "
+                  f"{entry['server'].effective_backend} backend), launches "
+                  f"{ {k: v for k, v in counts.items() if v} }; params "
+                  + ("finite after every round" if all(finite) else
+                     f"finite after {finite.index(False)} of {rounds} "
+                     "rounds, then not"))
+            if got != want:
+                raise AssertionError(f"[paper] {case} {name}: columns {got}"
+                                     f" differ from the host plan's {want}")
+            if not all(math.isfinite(a) and 0.0 <= a <= 1.0
+                       for a in accs + [row["final_acc"]]):
+                raise AssertionError(f"[paper] {case} {name}: accuracies "
+                                     f"{accs}")
+            if entry["server"].effective_backend != backend \
+                    or sum(counts.values()) != kernel_runs \
+                    or kernel_runs != (rounds if quantized else 0):
+                raise AssertionError(f"[paper] {case} {name}: launches "
+                                     f"{counts} on {backend}")
+            launches += kernel_runs
+        if any(rows[2][k] != rows[0][k] for k in
+               ("total_d2s", "total_d2d", "total_cost", "mean_m")):
+            raise AssertionError(f"[paper] {case}: semidec-int8's plan "
+                                 "differs from semidec's")
+        print(f"[paper] {case}: 5 runs in {case_s:.1f} s; every row's "
+              "plan and byte columns equal the host plan's and the packed "
+              f"layout's ({bytes_fp32:,} B fp32 / {bytes_int8:,} B int8 an "
+              f"upload); {launches} aggregate_dequant launches so far, "
+              "none of any other kernel")
+        # (c) the semidec-int8 run against its quantized einsum oracle,
+        # from the twin's own construction (not timed, not counted), after
+        # every round: a run that diverges is held to the oracle's
+        # non-finite values and, before that, by the rule
+        t0 = time.perf_counter()
+        int8_run, each = log[2], []
+        exp = experiment(case, rounds, "cnn", device="cuda")
+        reset_counters(counters)
+        oracle = exp.make_server("semidec", quant=exp.int8,
+                                 backend="einsum")
+        hist_o = oracle.run()
+        quant_ms, shape = quant_replay(
+            exp.make_server("semidec", quant=exp.int8, backend="einsum"),
+            exp.loss_fn, exp.int8, oracle.params, f"[paper] {case}",
+            each_round=each)[2:]
+        if any(f.launches for f in counters.values()):
+            raise AssertionError("[paper] the einsum oracle launched "
+                                 "kernels")
+        if bookkeeping(int8_run["hist"]) != bookkeeping(hist_o):
+            raise AssertionError(f"[paper] {case}: semidec-int8's History "
+                                 "bookkeeping differs from its oracle's")
+        if len(int8_run["rounds"]) != rounds or len(each) != rounds:
+            raise AssertionError(f"[paper] {case}: {len(each)} oracle "
+                                 f"rounds, {len(int8_run['rounds'])} kept")
+        worst, flipped, compared = 0.0, 0, []
+        for t, (leaves, (leaves_o, allow_o)) in enumerate(
+                zip(int8_run["rounds"], each)):
+            w, f, k = within_one_step(
+                leaves, leaves_o, allow_o,
+                f"[paper] {case} semidec-int8 round {t}", nonfinite=True)
+            worst, flipped = max(worst, w), flipped + f
+            compared.append(k)
+        if not compared[0]:
+            raise AssertionError(f"[paper] {case}: no finite value to hold "
+                                 "after round 0")
+        print(f"[paper] {case} semidec-int8 against the quantized einsum "
+              f"oracle (int8, block {exp.int8.block}, error feedback; "
+              f"replayed bitwise), after each of {rounds} rounds: "
+              f"bookkeeping equal, finite values compared a round "
+              f"{compared} (the rest non-finite where the oracle's are), "
+              f"max|params - einsum| {worst:.3e} ({flipped} past rtol 1e-4 "
+              "/ atol 1e-5, all within the one-step allowance); the plain "
+              f"quantizer {quant_ms:.4f} ms at {shape}; "
+              f"{time.perf_counter() - t0:.1f} s")
+    twin.experiment = experiment
+    log.clear()
+    torch.cuda.empty_cache()
+    print(f"[paper] phase: {time.perf_counter() - t_phase:.1f} s, "
+          f"{launches} aggregate_dequant launches")
+    return launches
 
 
 # -- phase 3c: the semi-async and wall-clock runtimes -------------------------
@@ -5542,10 +5859,12 @@ def _phases(name, lap, dry) -> int:
     phase_hetero(SEED)
     lap("[flash] [train] [control] [hetero]")
     launches["aggregate"] += phase_quickstart(kernel_counters())
+    launches["aggregate_dequant"] += phase_paper(kernel_counters())
+    lap("[quickstart] [paper]")
     launches["aggregate"] += phase_stream(STREAM_ROUNDS, SEED)
     launches["aggregate"] += phase_ingest(STREAM_ROUNDS, SEED)
     phase_scale(SEED)
-    lap("[quickstart] [stream] [ingest] [scale]")
+    lap("[stream] [ingest] [scale]")
     launches["flash_attention"] = phase_lm(SEED, kernel_counters())
     launches["flash_attention"] += phase_zoo(SEED, kernel_counters())
     phase_serve(SEED, kernel_counters())
