@@ -1,0 +1,4 @@
+"""h2d_ms.lm: ``h2d_ms`` read in the LM cells, where it moves
+``round_ms.lm`` (the LM cells' round time, with a bound of its own)."""
+
+from chipbench.metrics.h2d_ms import read  # noqa: F401
