@@ -74,6 +74,7 @@ from torch.func import grad, vmap
 
 from repro_torch.core.pytree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
+from repro_torch.core.spans import span
 from repro_torch.fl import packing
 from repro_torch.kernels.mixing.ops import (
     aggregate_grouped, aggregate_grouped_q, mix_aggregate_grouped,
@@ -154,9 +155,10 @@ def client_deltas(loss_fn: LossFn, global_params: PyTree,
     leading axis n_clients.  The clients are batched with
     ``torch.func.vmap`` (convolution, pooling, log-softmax and gather all
     have batching rules, so no per-client loop is needed)."""
-    finals = vmap(lambda b: local_sgd(loss_fn, global_params, b, eta))(
-        client_batches)
-    return tree_map(lambda f, g: f - g[None], finals, global_params)
+    with span("repro_torch.local_sgd"):
+        finals = vmap(lambda b: local_sgd(loss_fn, global_params, b, eta))(
+            client_batches)
+        return tree_map(lambda f, g: f - g[None], finals, global_params)
 
 
 def mask_clients(tree: PyTree, active: torch.Tensor) -> PyTree:
@@ -217,47 +219,48 @@ def fused_mix_update(global_params: PyTree, deltas: PyTree, A: torch.Tensor,
 
 def _mix_and_update(global_params, deltas, A, tau, m, *, mixing_backend,
                     active=None):
-    if mixing_backend in ("einsum", "pallas"):
-        # materializing backends: a dropped client's delta is zeroed
-        # before eq. 3 and its upload removed from the eq.-4 sum.
-        if active is not None:
-            deltas = mask_clients(deltas, active)
-            tau = tau * active
-        if mixing_backend == "einsum":
-            mixed = mix_deltas(A, deltas)
-        else:
-            mixed = mix_pytree(A, deltas)
-        return global_update(global_params, mixed, tau, m), mixed
-    if mixing_backend == "fused":
-        return fused_mix_update(global_params, deltas, A, tau, m,
-                                active=active)
-    if mixing_backend == "aggregate":
-        # one-pass path: the mask folds into the combine row
-        # (combine_weights) -- the payload itself is never touched.
-        spec = packing.pack_spec(deltas)
-        # the packed payload is a temporary, freed before the epilogue
-        agg_rows = aggregate_grouped(A, tau, m, packing.pack(deltas, spec),
-                                     active=active)
-        return packing.apply_aggregate_row(global_params, agg_rows,
-                                           spec), None
-    if mixing_backend in SPARSE_BACKENDS:
-        idx, w = A      # ELL pair (n, d_max), never an (n, n) matrix
-        spec = packing.pack_spec(deltas)
-        bufs = packing.pack(deltas, spec)
-        if mixing_backend == "sparse_aggregate":
-            agg_rows = sparse_aggregate_grouped(idx, w, tau, m, bufs,
-                                                active=active)
+    with span("repro_torch.mix_update"):
+        if mixing_backend in ("einsum", "pallas"):
+            # materializing backends: a dropped client's delta is zeroed
+            # before eq. 3 and its upload removed from the eq.-4 sum.
+            if active is not None:
+                deltas = mask_clients(deltas, active)
+                tau = tau * active
+            if mixing_backend == "einsum":
+                mixed = mix_deltas(A, deltas)
+            else:
+                mixed = mix_pytree(A, deltas)
+            return global_update(global_params, mixed, tau, m), mixed
+        if mixing_backend == "fused":
+            return fused_mix_update(global_params, deltas, A, tau, m,
+                                    active=active)
+        if mixing_backend == "aggregate":
+            # one-pass path: the mask folds into the combine row
+            # (combine_weights) -- the payload itself is never touched.
+            spec = packing.pack_spec(deltas)
+            # the packed payload is a temporary, freed before the epilogue
+            agg_rows = aggregate_grouped(A, tau, m, packing.pack(deltas, spec),
+                                         active=active)
             return packing.apply_aggregate_row(global_params, agg_rows,
                                                spec), None
-        # the mixed leg streams the payload as given: zero dropped rows
-        if active is not None:
-            bufs = tuple(mask_clients(list(bufs), active))
-        mixed_bufs, agg_rows = sparse_mix_aggregate_grouped(
-            idx, w, tau, m, bufs, active=active)
-        return (packing.apply_aggregate_row(global_params, agg_rows, spec),
-                packing.unpack(mixed_bufs, spec))
-    check_backend(mixing_backend)
-    raise AssertionError(mixing_backend)   # pragma: no cover
+        if mixing_backend in SPARSE_BACKENDS:
+            idx, w = A      # ELL pair (n, d_max), never an (n, n) matrix
+            spec = packing.pack_spec(deltas)
+            bufs = packing.pack(deltas, spec)
+            if mixing_backend == "sparse_aggregate":
+                agg_rows = sparse_aggregate_grouped(idx, w, tau, m, bufs,
+                                                    active=active)
+                return packing.apply_aggregate_row(global_params, agg_rows,
+                                                   spec), None
+            # the mixed leg streams the payload as given: zero dropped rows
+            if active is not None:
+                bufs = tuple(mask_clients(list(bufs), active))
+            mixed_bufs, agg_rows = sparse_mix_aggregate_grouped(
+                idx, w, tau, m, bufs, active=active)
+            return (packing.apply_aggregate_row(global_params, agg_rows, spec),
+                    packing.unpack(mixed_bufs, spec))
+        check_backend(mixing_backend)
+        raise AssertionError(mixing_backend)   # pragma: no cover
 
 
 def check_quant_backend(mixing_backend: str) -> None:
@@ -298,48 +301,49 @@ def _mix_and_update_quant(global_params, deltas, A, tau, m, *,
     of the combine row (aggregate leg).  The quantizer state still
     advances for dropped clients -- quantization happens before the
     network, the drop on it."""
-    spec, stored, scales, new_qstate = _quantize_deltas(
-        deltas, quant=quant, qstate=qstate)
+    with span("repro_torch.mix_update"):
+        spec, stored, scales, new_qstate = _quantize_deltas(
+            deltas, quant=quant, qstate=qstate)
 
-    def done(agg_rows, mixed_bufs=None):
-        return (packing.apply_aggregate_row(global_params, agg_rows, spec),
-                None if mixed_bufs is None
-                else packing.unpack(mixed_bufs, spec), new_qstate)
+        def done(agg_rows, mixed_bufs=None):
+            return (packing.apply_aggregate_row(global_params, agg_rows, spec),
+                    None if mixed_bufs is None
+                    else packing.unpack(mixed_bufs, spec), new_qstate)
 
-    if mixing_backend == "einsum":
-        # the oracle: mix the dequantized fp32 buffers with the same mask
-        # recipe as the unquantized einsum branch
-        dq = packing.dequantize_packed(stored, scales, spec)
-        if active is not None:
-            dq = tuple(mask_clients(list(dq), active))
-            tau = tau * active
-        A32, tau32 = A.float(), tau.float()
-        mixed_bufs = tuple(A32 @ b for b in dq)
-        return done(tuple((tau32 @ mb) / m for mb in mixed_bufs),
-                    mixed_bufs)
-    if mixing_backend == "aggregate":
-        return done(aggregate_grouped_q(A, tau, m, stored, scales,
-                                        quant=quant, active=active))
-    if mixing_backend == "sparse_aggregate":
-        idx, w = A
-        return done(sparse_aggregate_grouped_q(idx, w, tau, m, stored,
-                                               scales, quant=quant,
-                                               active=active))
-    if mixing_backend in ("fused", "sparse"):
-        # mask the mixed leg on the scales: one multiply on the small side
-        # buffer, the payload is never touched
-        if active is not None:
-            scales = tuple(mask_clients(list(scales), active))
-        if mixing_backend == "fused":
-            mixed_bufs, agg_rows = mix_aggregate_grouped_q(
-                A, tau, m, stored, scales, quant=quant, active=active)
-        else:
+        if mixing_backend == "einsum":
+            # the oracle: mix the dequantized fp32 buffers with the same mask
+            # recipe as the unquantized einsum branch
+            dq = packing.dequantize_packed(stored, scales, spec)
+            if active is not None:
+                dq = tuple(mask_clients(list(dq), active))
+                tau = tau * active
+            A32, tau32 = A.float(), tau.float()
+            mixed_bufs = tuple(A32 @ b for b in dq)
+            return done(tuple((tau32 @ mb) / m for mb in mixed_bufs),
+                        mixed_bufs)
+        if mixing_backend == "aggregate":
+            return done(aggregate_grouped_q(A, tau, m, stored, scales,
+                                            quant=quant, active=active))
+        if mixing_backend == "sparse_aggregate":
             idx, w = A
-            mixed_bufs, agg_rows = sparse_mix_aggregate_grouped_q(
-                idx, w, tau, m, stored, scales, quant=quant, active=active)
-        return done(agg_rows, mixed_bufs)
-    check_quant_backend(mixing_backend)
-    raise AssertionError(mixing_backend)   # pragma: no cover
+            return done(sparse_aggregate_grouped_q(idx, w, tau, m, stored,
+                                                   scales, quant=quant,
+                                                   active=active))
+        if mixing_backend in ("fused", "sparse"):
+            # mask the mixed leg on the scales: one multiply on the small side
+            # buffer, the payload is never touched
+            if active is not None:
+                scales = tuple(mask_clients(list(scales), active))
+            if mixing_backend == "fused":
+                mixed_bufs, agg_rows = mix_aggregate_grouped_q(
+                    A, tau, m, stored, scales, quant=quant, active=active)
+            else:
+                idx, w = A
+                mixed_bufs, agg_rows = sparse_mix_aggregate_grouped_q(
+                    idx, w, tau, m, stored, scales, quant=quant, active=active)
+            return done(agg_rows, mixed_bufs)
+        check_quant_backend(mixing_backend)
+        raise AssertionError(mixing_backend)   # pragma: no cover
 
 
 def make_round_fn(loss_fn: LossFn, mixing_backend: str = "einsum", *,

@@ -40,6 +40,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from .metrics import CommLedger
+from .spans import span
 
 __all__ = ["ServerConfig", "RoundRecord", "History", "FederatedServer"]
 
@@ -165,8 +166,9 @@ class FederatedServer:
             raise ValueError(
                 f"plan is for {plan.n_clients} clients, network has "
                 f"{self.network.n}")
-        batches = [self.batch_sampler(self.rng, t)
-                   for t in range(plan.n_rounds)]
+        with span("repro_torch.batches"):
+            batches = [self.batch_sampler(self.rng, t)
+                       for t in range(plan.n_rounds)]
         return plan, batches
 
     def run(self, eval_fn: Optional[EvalFn] = None, eval_every: int = 1,
@@ -212,8 +214,9 @@ class FederatedServer:
                                                 "sparse_aggregate")
             loop = ControlLoop(self.network, self.config, controller,
                                algorithm=self.algorithm, sparse=sparse)
-            batches = [self.batch_sampler(self.rng, t)
-                       for t in range(self.config.t_max)]
+            with span("repro_torch.batches"):
+                batches = [self.batch_sampler(self.rng, t)
+                           for t in range(self.config.t_max)]
             self.params, history = execute_controlled(
                 loop, self.params, batches, eval_fn=eval_fn,
                 eval_every=eval_every,

@@ -73,6 +73,7 @@ from repro_torch.core.rounds import (SPARSE_BACKENDS, check_backend,
                                      make_round_fn, make_scanned_rounds)
 from repro_torch.core.sparse import SparseAseq
 from repro_torch.core.server import History, RoundRecord
+from repro_torch.core.spans import span
 from . import packing
 from .plan import RoundPlan, _check_quant_type
 
@@ -322,7 +323,12 @@ def _append_record(plan: RoundPlan, history: History, t: int, get_params,
 class LocalEngine:
     """Single-host runtime: ``repro_torch.core.rounds`` round functions
     on ``device`` (``cuda`` unless given; ``resolve_device``), in full
-    fp32 on the card (``set_fp32_policy``)."""
+    fp32 on the card (``set_fp32_policy``).
+
+    ``staged_bytes`` only grows: both execute paths add the ``nbytes`` of
+    every tensor they move to the device from the host (plan columns,
+    params, batches; the quantizer state is made on the device and
+    moves nothing).  Read it as a difference around a run."""
 
     def __init__(self, loss_fn, cfg: ExecutionConfig, device=None):
         if cfg.mesh is not None:
@@ -344,6 +350,19 @@ class LocalEngine:
         self.loss_fn = loss_fn
         # filled by execute_controlled: the realized RoundPlan artifact
         self.last_realized_plan = None
+        self.staged_bytes = 0
+
+    def _stage(self, tree: PyTree) -> PyTree:
+        """``tree`` on the engine's device; the bytes of each leaf that
+        had to move there are added to ``staged_bytes``."""
+        def move(x):
+            x = torch.as_tensor(x)
+            y = x.to(self.device)
+            if y is not x:
+                self.staged_bytes += y.nbytes
+            return y
+
+        return tree_map(move, tree)
 
     def execute(self, plan, params, batches, *, eval_fn=None, eval_every=1,
                 energy_ratio=0.1):
@@ -354,14 +373,17 @@ class LocalEngine:
         K = plan.n_rounds
         device = self.device
         sparse = self.backend in SPARSE_BACKENDS
-        A_seq, tau_seq, m_seq, eta_seq, active_seq = _device_columns(
-            plan, device, sparse)
+        with span("repro_torch.stage"):
+            # the columns built on the host, then moved like the batches
+            cols = self._stage(_device_columns(plan, torch.device("cpu"),
+                                               sparse))
+            params = self._stage(params)
+            batches = [self._stage(b) for b in batches]
+            quant, qstate = _quant_setup(self.cfg, plan, params,
+                                         self.backend, device)
+        A_seq, tau_seq, m_seq, eta_seq, active_seq = cols
         history = History(algorithm=plan.algorithm,
                           ledger=CommLedger(energy_ratio=energy_ratio))
-        params = _to_device(params, device)
-        batches = [_to_device(b, device) for b in batches]
-        quant, qstate = _quant_setup(self.cfg, plan, params, self.backend,
-                                     device)
         qargs = () if quant is None else (qstate,)
 
         if self.cfg.scan:
@@ -431,16 +453,16 @@ class LocalEngine:
                 f"loop sparsity ({getattr(loop, '_sparse')}) must match "
                 f"the engine backend {self.backend!r} ({sparse})")
         K = len(batches)
-        device = self.device
         history = History(algorithm=loop.algorithm,
                           ledger=CommLedger(energy_ratio=energy_ratio))
-        params = _to_device(params, device)
-        batches = [_to_device(b, device) for b in batches]
+        with span("repro_torch.stage"):
+            params = self._stage(params)
+            batches = [self._stage(b) for b in batches]
         round_fn = make_round_fn(self.loss_fn, self.backend)
 
         def col(a):
-            return torch.as_tensor(np.asarray(a), dtype=torch.float32,
-                                   device=device)
+            return self._stage(torch.as_tensor(np.asarray(a),
+                                               dtype=torch.float32))
 
         for t in range(K):
             row, telemetry = loop.next_row()
@@ -455,7 +477,7 @@ class LocalEngine:
                 del tree
             if sparse:
                 idx, w = row.A.ell()
-                A = (torch.as_tensor(idx, dtype=torch.int32, device=device),
+                A = (self._stage(torch.as_tensor(idx, dtype=torch.int32)),
                      col(w))
             else:
                 A = col(row.A)

@@ -97,6 +97,7 @@ from repro_torch.core.bounds import exact_phi_ell, \
 from repro_torch.core.graphs import SparseClusterGraph
 from repro_torch.core.metrics import count_d2d_transmissions
 from repro_torch.core.sparse import SparseA, SparseAseq
+from repro_torch.core.spans import span
 from repro_torch.topology import TopologySpec
 
 from . import faults as _faults
@@ -415,9 +416,11 @@ class RoundPlan:
         spec = getattr(network, "spec", None)
         spec = spec if isinstance(spec, TopologySpec) else None
         seed = int(config.seed) if rng is None else None
-        gen = plan_rows(network, config, algorithm, rng, sparse=sparse)
-        return cls.from_rows([next(gen) for _ in range(config.t_max)],
-                             algorithm=algorithm, topology=spec, seed=seed)
+        with span("repro_torch.plan"):
+            gen = plan_rows(network, config, algorithm, rng, sparse=sparse)
+            return cls.from_rows([next(gen) for _ in range(config.t_max)],
+                                 algorithm=algorithm, topology=spec,
+                                 seed=seed)
 
     @classmethod
     def connectivity_aware(cls, network, config,
