@@ -84,6 +84,17 @@ Phases (each raises on failure; nothing is caught):
               tensor-core peak) and ``scaled_dot_product_attention``'s as
               the yardstick, and at zamba2's head dim 80 beside the
               library's.
+   flash_bwd -- the flash backward kernels against their plain version
+              (``flash_attention_bwd_ref``) on the forward's o and lse:
+              at the stablelm-2-1.6b training cell's shape (B 4, 32
+              heads of 64, S 4,096, causal), at head dim 128 with GQA
+              and at zamba2's 80; within one bf16 ulp of the largest
+              value, a second call bitwise equal; the time at the cell's
+              shape beside the plain version's, its bound and the
+              library's backward.  The training phases below count both
+              kernels' launches: a forward per GQA attention call and
+              one more for its recomputation, a backward per call
+              (``flash_launches``).
 3. train   -- Algorithm 1 end to end at full width through
               ``FederatedServer``: n = 70 clients in c = 7 clusters,
               ``k_regular`` k in [6, 9] with p_fail = 0.1, the McMahan
@@ -238,7 +249,8 @@ Phases (each raises on failure; nothing is caught):
               step from ``make_token_stream`` / ``lm_batches``, 2 rounds
               each on 'einsum', 'fused' (-> aggregate) and 'fused' with
               record_mixed (-> mix_aggregate, staged), launches counted
-              from 0 a run; the kernel backends' change from the init
+              from 0 a run (every run's attention: ``flash_launches``);
+              the kernel backends' change from the init
               params against einsum's after round 0 and after the last
               (CHANGE_REL), einsum moving
               at least MOVED_MIN of the values; round ms, tokens/s, peak
@@ -268,7 +280,8 @@ Phases (each raises on failure; nothing is caught):
               against LocalEngine's
               round function at n = 1 (the change from init within
               CHANGE_REL[0]); 'fused' launches
-              aggregate once a round.
+              aggregate once a round, every schedule the flash kernels
+              as ``flash_launches`` says.
    tp      -- tensor parallelism inside a client (``models/sharding.py``):
               two ranks spawned on the card (gloo, which takes CUDA
               tensors for all_reduce / broadcast; NCCL refuses two ranks
@@ -276,7 +289,8 @@ Phases (each raises on failure; nothing is caught):
               at all 24 layers and [mesh]'s inputs on 'fused' and
               'ring', a rank's launches
               counted from 0 ('fused': aggregate once a round on its
-              shard), scanned == sequential bitwise, the gathered
+              shard; the flash kernels on its heads, ``flash_launches``),
+              scanned == sequential bitwise, the gathered
               params' change from init after every round within
               TP_CHANGE_REL of LocalEngine's round function's; fp32 pins
               at 2 layers against the one-rank round (rtol 2e-4 / atol
@@ -1144,7 +1158,26 @@ def kernel_counters():
             "mix_aggregate_dequant": fused.mix_aggregate_dequant_cuda,
             "sparse_mix_aggregate_dequant":
                 sparse.sparse_mix_aggregate_dequant_cuda,
-            "flash_attention": fa.flash_attention_cuda}
+            "flash_attention": fa.flash_attention_cuda,
+            "flash_attention_bwd": fa.flash_attention_bwd_cuda}
+
+
+def flash_launches(cfg, steps: int) -> dict:
+    """The flash kernels' launches that ``steps`` local-SGD steps of a
+    model at ``cfg`` make on the card (a step: one ``grad``, of every
+    client at once under ``vmap`` or of a rank's one client): a forward
+    a GQA attention call (zamba2: a group's shared block), another for
+    its recomputation under ``cfg.remat``, and a backward; none off the
+    kernel route (not bf16, head dims over 128, MLA, no attention, the
+    'ref' path)."""
+    from repro_torch.models.blocks import hybrid_groups
+    if cfg.dtype != "bfloat16" or cfg.attn_impl == "ref" or cfg.mla or \
+            not cfg.uses_attention or cfg.resolved_head_dim > 128:
+        return {}
+    calls = hybrid_groups(cfg)[0] if cfg.family == "hybrid" \
+        else cfg.n_layers
+    return {"flash_attention": calls * (1 + bool(cfg.remat)) * steps,
+            "flash_attention_bwd": calls * steps}
 
 
 def reset_counters(counters) -> None:
@@ -2883,6 +2916,125 @@ def phase_flash(seed: int):
             "library_ms": lib_ms}
 
 
+# the stablelm-2-1.6b training cell's attention (BENCHMARK.json's
+# stablelm2.fedtrain_4k): its 4 clients folded into the batch, 32 heads of
+# 64, 4,096 tokens, causal
+FLASH_BWD_CELL = (4, 32, 32, 4096, 64)
+# (label, B, Hq, Hkv, S, hd)
+FLASH_BWD_CASES = (
+    ("stablelm-2-1.6b training cell", *FLASH_BWD_CELL),
+    ("hd 128, GQA group 4", 1, 32, 8, 2048, 128),
+    ("zamba2's hd 80 (run at 128), GQA group 2", 1, 32, 16, 2048, 80),
+)
+
+
+def phase_flash_bwd(seed: int):
+    """The flash backward kernels (``flash_attention_bwd_cuda``) against
+    their plain version (``flash_attention_bwd_ref``) fed the kernel
+    forward's o and lse, bf16 in the model's layout, causal: at the
+    stablelm-2-1.6b training cell's shape, at head dim 128 with GQA and
+    at zamba2's 80 (run at 128).  Each output, and the forward's, lies
+    within one bf16 ulp of its largest value of the plain version's:
+    max|got - want| <= 2^-7 max|want| (the plain versions run a batch
+    row at a time: their fp32 scores); the lse within 1e-4; a second
+    backward call gives the same bits.  Then the backward's time at the
+    cell's shape beside the plain version's, its bound (five products at
+    the bf16 tensor-core peak) and ``scaled_dot_product_attention``'s
+    forward + backward less its forward as the yardstick.  Returns the
+    report row (its max|err| the cell's; launch count filled in by the
+    training phases)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+
+    def draw(B, H, S, hd):
+        return torch.randn(B, S, H, hd, generator=g,
+                           device=dev).to(torch.bfloat16).transpose(1, 2)
+
+    def by_row(fn, *ts):
+        """``fn`` over one batch row at a time, concatenated."""
+        outs = [fn(*(t[b:b + 1] for t in ts)) for b in range(ts[0].shape[0])]
+        if isinstance(outs[0], torch.Tensor):
+            return torch.cat(outs)
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+
+    def ulps(got, want):
+        return float((got.float() - want.float()).abs().max()) / \
+            float(want.float().abs().max())
+
+    worst = 0.0
+    for label, B, Hq, Hkv, S, hd in FLASH_BWD_CASES:
+        q, k, v, do = draw(B, Hq, S, hd), draw(B, Hkv, S, hd), \
+            draw(B, Hkv, S, hd), draw(B, Hq, S, hd)
+        o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
+        want_o, want_lse = by_row(
+            lambda *a: ref.flash_attention_ref(*a, with_lse=True), q, k, v)
+        e_o, e_lse = ulps(o, want_o), float((lse - want_lse).abs().max())
+        got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+        want = by_row(ref.flash_attention_bwd_ref, q, k, v, o, lse, do)
+        errs = [ulps(a, b) for a, b in zip(got, want)]
+        again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        torch.cuda.synchronize()
+        print(f"[flash_bwd] {label}: ({B}, {Hq}/{Hkv}, {S}, {hd}) bf16 "
+              f"causal: o {e_o:.2e}, lse {e_lse:.2e}; "
+              f"dq, dk, dv {', '.join(f'{e:.2e}' for e in errs)} of the "
+              f"largest value (limit {2 ** -7:.2e}, lse 1e-4); a second "
+              f"call bitwise equal: {same}")
+        if max(errs + [e_o]) > 2 ** -7 or e_lse > 1e-4 or not same:
+            raise AssertionError(f"flash_attention_bwd {label} disagrees "
+                                 "with its plain version or repeats "
+                                 "differently")
+        if label == FLASH_BWD_CASES[0][0]:
+            worst = max(float((a.float() - b.float()).abs().max())
+                        for a, b in zip(got, want))
+        del q, k, v, do, o, lse, want_o, want_lse, got, want, again
+        torch.cuda.empty_cache()
+
+    B, Hq, Hkv, S, hd = FLASH_BWD_CELL
+    q, k, v, do = draw(B, Hq, S, hd), draw(B, Hkv, S, hd), \
+        draw(B, Hkv, S, hd), draw(B, Hq, S, hd)
+    fwd_ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v,
+                                                     with_lse=True))
+    o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
+    ms = cuda_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, do))
+    plain_ms = cuda_ms(lambda: by_row(ref.flash_attention_bwd_ref, q, k, v,
+                                      o, lse, do), iters=2, warmup=1)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def lib_both():
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(
+            do)
+
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), iters=10)
+    lib_ms = cuda_ms(lib_both, iters=10) - lib_fwd
+    pairs = S * (S + 1) // 2
+    flops = 10 * B * Hq * hd * pairs     # s, dp, dv, dq, dk: 2 flops a MAC
+    nbytes = 2 * 4 * (B * Hq + B * Hkv) * S * hd + 2 * 4 * B * Hq * S
+    b_ms, b_by = bound(nbytes, flops, BF16_TC_FLOPS_PER_S)
+    print(f"[flash_bwd] flash_attention_bwd @ the stablelm-2-1.6b training "
+          f"cell ({B}, {Hq}/{Hkv}, {S}, {hd}) bf16 causal: {ms:.4f}"
+          f" ms (plain {plain_ms:.4f} ms a batch row at a time; "
+          f"scaled_dot_product_attention's backward {lib_ms:.4f} ms, its "
+          f"forward + backward less its forward's {lib_fwd:.4f}; kernel / "
+          f"library {ms / lib_ms:.2f}x; bound {b_ms:.4f} ms by {b_by} at "
+          f"the bf16 tensor-core peak: {b_ms / ms:.1%} of it; "
+          f"{flops / ms / 1e9:.1f} TFLOP/s of the function); the forward "
+          f"with its lse {fwd_ms:.4f} ms")
+    del q, k, v, do, o, lse, qg, kg, vg
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": None, "launches": 0, "max_abs_err": worst,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
 def phase_lm(seed: int, counters) -> int:
     """The port's ``Model`` on the card.  (a) qwen2-7b at full width and
     depth in bf16 from random weights: a forward with attn_impl='flash'
@@ -3457,7 +3609,7 @@ ORACLE_F32 = dict(rtol=2e-4, atol=2e-5)
 def lm_train_config(arch: str = LMT_ARCH, **changes):
     """``arch`` (stablelm-1.6b by default) at its published widths with
     the training settings: per-layer remat, query-chunked attention (the
-    flash kernel is forward-only), sequence-chunked head and loss;
+    flash kernels on the card in bf16), sequence-chunked head and loss;
     ``changes`` (depth, dtype) on top."""
     import dataclasses
     from repro_torch.configs import get_config
@@ -3737,13 +3889,17 @@ def phase_lmtrain(seed: int, counters, keep=None, arch: str = LMT_ARCH,
         return [(r.t, r.m, r.m_actual, r.d2s, r.d2d, r.psi_bound, r.eta)
                 for r in h.records]
 
+    # local SGD's attention in every run (bf16 on the card: the flash
+    # kernels, forward and backward)
+    flash = flash_launches(cfg, LMT_ROUNDS * LMT_T)
     ref_server, ref_hist, ms, counts, _, peak, ref_first = run("einsum")
-    if counts:
-        raise AssertionError(f"einsum launched kernels: {counts}")
+    if counts != flash:
+        raise AssertionError(f"einsum launched kernels {counts}, not the "
+                             f"flash kernels' {flash}")
     print(f"{tag} einsum: round ms {[round(x, 1) for x in ms]}, "
           f"{tokens / (ms[-1] / 1e3):,.0f} tokens/s (round 1), peak "
           f"{peak:.2f} GB; m(t) {[r.m_actual for r in ref_hist.records]}")
-    launches, rows, round_ms = {}, {}, {}
+    launches, rows, round_ms = dict(flash), {}, {}
     for backend, record_mixed, effective, kernel in (
             ("fused", False, "aggregate", "aggregate"),
             ("fused", True, "fused", "mix_aggregate")):
@@ -3752,9 +3908,10 @@ def phase_lmtrain(seed: int, counters, keep=None, arch: str = LMT_ARCH,
         if server.effective_backend != effective:
             raise AssertionError(f"{backend} dispatched "
                                  f"{server.effective_backend}")
-        if counts != {kernel: LMT_ROUNDS * groups}:
+        want = {kernel: LMT_ROUNDS * groups, **flash}
+        if counts != want:
             raise AssertionError(f"{effective}: launches {counts}, not "
-                                 f"{{{kernel!r}: {LMT_ROUNDS * groups}}}")
+                                 f"{want}")
         if kernel in routes and routes[kernel] != {
                 "generic": 0, "staged": LMT_ROUNDS * groups}:
             raise AssertionError(f"{kernel}: routes {routes[kernel]}")
@@ -3766,12 +3923,15 @@ def phase_lmtrain(seed: int, counters, keep=None, arch: str = LMT_ARCH,
         r1 = _change_stats(server.params, ref_server.params, params, dev)
         del first
         launches[kernel] = counts[kernel]
+        for k in flash:
+            launches[k] += counts[k]
         round_ms[effective] = ms[-1]
         if keep is not None and kernel == "aggregate":
             keep["params"] = server.params
         print(f"{tag} {backend} record_mixed={record_mixed} -> "
               f"{effective}: {counts[kernel]} {kernel} launches"
               + (f" (routes {routes[kernel]})" if kernel in routes else "")
+              + "".join(f", {counts[k]} {k}" for k in flash)
               + f", round ms {[round(x, 1) for x in ms]}, "
               f"{tokens / (ms[-1] / 1e3):,.0f} tokens/s, peak {peak:.2f} "
               f"GB")
@@ -4073,6 +4233,7 @@ def phase_mesh(seed: int, counters) -> int:
                           if f.launches}
                 wanted = {"aggregate": LMT_ROUNDS} if mixing == "fused" \
                     else {}
+                wanted.update(flash_launches(cfg, LMT_ROUNDS * LMT_T))
                 if counts != wanted:
                     raise AssertionError(f"[mesh] {mixing}: launches "
                                          f"{counts}, not {wanted}")
@@ -4544,6 +4705,8 @@ def _tp_rank(rank, tmp, shape, backend, zero, serve_arch, serve_shape, seed,
                     p = final
                 want = {"aggregate": LMT_ROUNDS} if mixing == "fused" \
                     else {}
+                # each rank trains its one client: T steps a round
+                want.update(flash_launches(cfg, LMT_ROUNDS * toks.shape[2]))
                 if counts != want:
                     raise AssertionError(f"[tp] rank {rank} {key}: "
                                          f"launches {counts}, not {want}")
@@ -5849,6 +6012,7 @@ def _phases(name, lap, dry) -> int:
     phase_gemv(SEED)
     lap("[kernels] [sparse] [quant] [gemv]")
     rows.append(phase_flash(SEED))
+    rows.append(phase_flash_bwd(SEED))
     launches, routes = phase_train(ROUNDS, SEED)
     control_launches, control_routes = phase_control(ROUNDS, SEED)
     for kernel, count in control_launches.items():
@@ -5867,6 +6031,7 @@ def _phases(name, lap, dry) -> int:
     lap("[stream] [ingest] [scale]")
     launches["flash_attention"] = phase_lm(SEED, kernel_counters())
     launches["flash_attention"] += phase_zoo(SEED, kernel_counters())
+    launches["flash_attention_bwd"] = 0       # the training phases' below
     phase_serve(SEED, kernel_counters())
     lap("[lm] [zoo] [serve]")
     trained = {}

@@ -6,7 +6,9 @@
 //                           (batch, q head), GQA (kv head = q head / group,
 //                           no KV copy), causal / sliding-window / kv-tail
 //                           masks, online softmax in fp32, rows that see
-//                           no key come out 0.
+//                           no key come out 0; on request (bf16 only) each
+//                           row's log-sum-exp, for the backward
+//                           (csrc/flash_attention_bwd.cu).
 //
 // Two routes, chosen by the dtype:
 //
@@ -40,6 +42,8 @@
 //                             const void* k,   // (B, Hkv, Sk, hd)
 //                             const void* v,   // (B, Hkv, Sk, hd)
 //                             void* o,         // (B, Hq, Sq, hd) out
+//                             float* lse,      // (B, Hq, Sq) out, or null;
+//                                              // bf16 only
 //                             const long long* strides,   // 12, see above
 //                             int B, int Hq, int Hkv, int Sq, int Sk,
 //                             int hd,          // 32, 64 or 128
@@ -119,7 +123,11 @@
 //   a static order (slower than the hardware's launch order).
 //
 //   Epilogue.  O / l (l == 0 gives 0), stored as bf16 pairs straight from
-//   registers into the strided output, rows past Sq skipped.
+//   registers into the strided output, rows past Sq skipped.  With an lse
+//   pointer, lane 0 of each row's quad writes (m + log2 l) * ln 2, the
+//   row's natural log-sum-exp of its scaled scores (-inf where l == 0);
+//   a null pointer writes nothing, so the inference callers do the same
+//   work as without it.
 //
 //   ptxas (sm_90a, CUDA 12.8): 168 registers at launch for each head dim
 //   (the consumers then run at 240), no spills; the [build] lines of
@@ -147,6 +155,7 @@
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {                   // in elements
   long long b, h, s;
@@ -613,7 +622,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
-                       __nv_bfloat16* __restrict__ o, Strides so, int Hq,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, Strides so, int Hq,
                        int Hkv, int Sq, int seq_k, int causal, int window,
                        float scale_log2) {
   using C = Cfg<HD>;
@@ -866,6 +876,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       lr += __shfl_xor_sync(0xffffffffu, lr, 1);
       lr += __shfl_xor_sync(0xffffffffu, lr, 2);
       inv[r] = lr == 0.f ? 1.f : 1.f / lr;
+      const int row = row0 + 8 * r;
+      if (lse != nullptr && lane % 4 == 0 && row < Sq)
+        lse[(static_cast<long long>(b) * Hq + h) * Sq + row] =
+            lr == 0.f ? -INFINITY : (m[r] + log2f(lr)) * kLn2;
     }
     __nv_bfloat16* ob = o + b * so.b + h * so.h;
 #pragma unroll
@@ -919,9 +933,9 @@ bool encode(PFN_cuTensorMapEncodeTiled_v12000 fn, CUtensorMap* map,
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const Strides* st, int B, int Hq, int Hkv, int Sq, int Sk,
-                   int seq_k, int causal, int window, float scale,
-                   cudaStream_t s) {
+                   float* lse, const Strides* st, int B, int Hq, int Hkv,
+                   int Sq, int Sk, int seq_k, int causal, int window,
+                   float scale, cudaStream_t s) {
   using C = Cfg<HD>;
   PFN_cuTensorMapEncodeTiled_v12000 fn = tensor_map_encoder();
   if (fn == nullptr) return cudaErrorNotSupported;
@@ -946,8 +960,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   dim3 grid(B * Hq, (Sq + BM - 1) / BM);
   kernel<<<grid, kThreads, C::SMEM, s>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), st[3], Hq, Hkv, Sq, seq_k,
-      causal, window, scale * kLog2e);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, st[3], Hq, Hkv, Sq,
+      seq_k, causal, window, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -957,14 +971,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // names the kernel launched (1 tensor cores, 0 fp32)
 template <bool TC>
 cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
-                      void* o, const Strides* st, int B, int Hq, int Hkv,
-                      int Sq, int Sk, int seq_k, int causal, int window,
-                      float scale, cudaStream_t s, int* route) {
+                      void* o, float* lse, const Strides* st, int B, int Hq,
+                      int Hkv, int Sq, int Sk, int seq_k, int causal,
+                      int window, float scale, cudaStream_t s, int* route) {
   cudaError_t err;
 #define REPRO_FLASH_CASE(HD)                                               \
   case HD:                                                                 \
-    err = TC ? tc::launch<HD>(q, k, v, o, st, B, Hq, Hkv, Sq, Sk, seq_k,   \
-                              causal, window, scale, s)                    \
+    err = TC ? tc::launch<HD>(q, k, v, o, lse, st, B, Hq, Hkv, Sq, Sk,     \
+                              seq_k, causal, window, scale, s)             \
              : fp32::launch<HD>(q, k, v, o, st, B, Hq, Hkv, Sq, Sk, seq_k, \
                                 causal, window, scale, s);                 \
     break;
@@ -989,25 +1003,28 @@ const char* repro_error_string(int code) {
 }
 
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* o, const long long* strides, int B, int Hq,
+                          void* o, float* lse, const long long* strides,
+                          int B, int Hq,
                           int Hkv, int Sq, int Sk, int hd, int seq_k,
                           int causal, int window, float scale, int dtype,
                           int device, void* stream, int* route) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || Hq <= 0 || Sq <= 0) return (int)cudaGetLastError();
-  if (Hkv <= 0 || Hq % Hkv != 0 || Sk < 0 || seq_k > Sk)
+  if (Hkv <= 0 || Hq % Hkv != 0 || Sk < 0 || seq_k > Sk ||
+      (lse != nullptr && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Strides st[4];
   for (int a = 0; a < 4; ++a)
     st[a] = Strides{strides[3 * a], strides[3 * a + 1], strides[3 * a + 2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return (int)launch_hd<true>(hd, q, k, v, o, st, B, Hq, Hkv, Sq, Sk,
+    return (int)launch_hd<true>(hd, q, k, v, o, lse, st, B, Hq, Hkv, Sq, Sk,
                                 seq_k, causal, window, scale, s, route);
   if (dtype == 0)
-    return (int)launch_hd<false>(hd, q, k, v, o, st, B, Hq, Hkv, Sq, Sk,
-                                 seq_k, causal, window, scale, s, route);
+    return (int)launch_hd<false>(hd, q, k, v, o, nullptr, st, B, Hq, Hkv,
+                                 Sq, Sk, seq_k, causal, window, scale, s,
+                                 route);
   return (int)cudaErrorInvalidValue;
 }
 

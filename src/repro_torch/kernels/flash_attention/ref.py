@@ -19,9 +19,21 @@
                              0), and the output is cast to ``q.dtype``.
                              Rows and columns are absolute positions
                              (no end alignment), columns at or past
-                             ``true_seq_k`` are masked.
+                             ``true_seq_k`` are masked.  With
+                             ``with_lse`` it also returns each row's
+                             log-sum-exp of its visible scaled scores
+                             (fp32, ``-inf`` for a row with no visible
+                             key): what the kernel saves for its
+                             backward.
+* ``flash_attention_bwd_ref`` -- the backward kernels' plain version:
+                             dq, dk, dv from q, k, v, the output, its
+                             LSE and the output's gradient, as the
+                             kernels compute them (the weights rebuilt as
+                             ``exp(s - lse)``, ``D = rowsum(do * o)`` in
+                             fp32, ``ds = p * (do v^T - D)``, every
+                             product in fp32).
 
-At bf16 the two differ only by the rounding of the weights.
+At bf16 the two forwards differ only by the rounding of the weights.
 """
 
 from __future__ import annotations
@@ -30,7 +42,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["attention_ref", "flash_attention_ref", "NEG_INF"]
+__all__ = ["attention_ref", "flash_attention_ref", "flash_attention_bwd_ref",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -71,8 +84,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
-                        true_seq_k: Optional[int] = None) -> torch.Tensor:
-    """q (B,Hq,Sq,hd), k/v (B,Hkv,Sk,hd) -> (B,Hq,Sq,hd) in q's dtype."""
+                        true_seq_k: Optional[int] = None,
+                        with_lse: bool = False):
+    """q (B,Hq,Sq,hd), k/v (B,Hkv,Sk,hd) -> (B,Hq,Sq,hd) in q's dtype, and
+    with ``with_lse`` the rows' log-sum-exp (B,Hq,Sq) fp32 beside it."""
     B, Hq, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -85,6 +100,41 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = s.amax(-1, keepdim=True)
     p = torch.where(ok, torch.exp(s - m), 0.0)
     l = p.sum(-1, keepdim=True)
-    l = torch.where(l == 0.0, 1.0, l)                     # dead rows -> 0
+    dead = l == 0.0
+    l = torch.where(dead, 1.0, l)                         # dead rows -> 0
     out = (p @ v.float()[:, :, None]) / l                 # (B,Hkv,G,Sq,hd)
-    return out.reshape(B, Hq, Sq, hd).to(q.dtype)
+    out = out.reshape(B, Hq, Sq, hd).to(q.dtype)
+    if not with_lse:
+        return out
+    lse = torch.where(dead, -torch.inf, m + torch.log(l))
+    return out, lse.reshape(B, Hq, Sq)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True,
+                            window: Optional[int] = None,
+                            true_seq_k: Optional[int] = None):
+    """q, o, do (B,Hq,Sq,hd), k/v (B,Hkv,Sk,hd), lse (B,Hq,Sq) fp32 ->
+    (dq, dk, dv) in q's dtype, dk / dv summed over each kv head's group
+    of q heads."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    seq_k = Sk if true_seq_k is None else true_seq_k
+    scale = hd ** -0.5
+    qg = q.reshape(B, Hkv, G, Sq, hd).float()
+    kf = k.float()[:, :, None]                            # (B,Hkv,1,Sk,hd)
+    vf = v.float()[:, :, None]
+    dog = do.reshape(B, Hkv, G, Sq, hd).float()
+    s = (qg @ kf.transpose(-1, -2)) * scale               # (B,Hkv,G,Sq,Sk)
+    ok = _visible(Sq, Sk, causal, window, 0, seq_k, q.device)
+    p = torch.where(ok, torch.exp(s - lse.reshape(B, Hkv, G, Sq, 1)), 0.0)
+    d = (dog * o.reshape(B, Hkv, G, Sq, hd).float()).sum(-1, keepdim=True)
+    ds = p * (dog @ vf.transpose(-1, -2) - d)
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qg).sum(2) * scale
+    dv = (p.transpose(-1, -2) @ dog).sum(2)
+    return (dq.reshape(B, Hq, Sq, hd).to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))

@@ -7,10 +7,14 @@ and sliding-window attention (the KV cache becomes a ring buffer of the
 window size, so memory is O(window), not O(context)).
 
 The full-sequence path can route through the hand-written CUDA
-flash-attention kernel (``cfg.attn_impl == 'flash'``); the plain path
-below is its oracle.  Decode writes the new token's K/V into the cache
-in place (the cache leaves are views of the stacked cache) and returns
-it.
+flash-attention kernels (``cfg.attn_impl == 'flash'``), forward and
+backward, so training can take it too; the plain path below is their
+oracle.  ``'chunked'`` takes the same kernels wherever they apply -- bf16
+on the card at a head dim up to 128, what its input shows -- and keeps
+the plain query-chunk loop elsewhere (the CPU, fp32, wider heads): the
+kernels hold O(S * tile) state, so the chunk's memory contract holds
+either way.  Decode writes the new token's K/V into the cache in place
+(the cache leaves are views of the stacked cache) and returns it.
 
 Tensor parallelism (``models.sharding``): a rank may hold whole heads of
 q / k / v (column slices, with their biases) and the matching rows of
@@ -30,6 +34,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
 from .config import ModelConfig
 from .layers import apply_rope, dense_init, rms_norm, rope_angles
 from . import sharding
@@ -140,11 +145,25 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     return _attend(_group(q, k.shape[2]), k, v, mask, q.dtype)
 
 
+def _kernel_route(q: torch.Tensor) -> bool:
+    """Whether ``_chunked_sdpa`` attends through the flash kernels: bf16 on
+    the card at a head dim they run (up to 128)."""
+    return q.is_cuda and q.dtype == torch.bfloat16 and \
+        q.shape[-1] <= HEAD_DIMS[-1]
+
+
 def _chunked_sdpa(q, k, v, window: Optional[int], cfg: ModelConfig):
     """Query-chunked causal attention: O(S * chunk) score memory instead of
     O(S^2).  Exact (full-row softmax per chunk).  The last chunk is cut at
-    S instead of padded (padded rows are sliced away in the reference)."""
+    S instead of padded (padded rows are sliced away in the reference).
+
+    On the kernel route (``_kernel_route``) one fused flash-attention call
+    (forward + backward kernels) replaces the chunk loop: its scores never
+    leave the chip, so no chunk needs recomputing."""
     B, S, Hq, hd = q.shape
+    if _kernel_route(q):
+        out = flash_ops.flash_attention(q, k, v, causal=True, window=window)
+        return out.reshape(B, S, Hq * hd)
     C = min(cfg.attn_chunk, S)
     j = torch.arange(S, device=q.device)[None, :]
     qg = _group(q, k.shape[2])

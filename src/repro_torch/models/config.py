@@ -77,8 +77,14 @@ class ModelConfig:
     dtype: str = "float32"                  # params/activations dtype
     tie_embeddings: bool = False
     remat: bool = True                      # activation checkpoint per layer
-    attn_impl: str = "ref"                  # 'ref' | 'chunked' | 'flash' (CUDA kernel)
-    attn_chunk: int = 512                   # query-chunk size for 'chunked'
+    # 'ref' | 'chunked' | 'flash' (CUDA kernels).  'chunked' runs the flash
+    # kernels too where its input is bf16 on the card at a head dim up to
+    # 128 (models/attention.py::_kernel_route), so on the card in bf16 the
+    # two name one path
+    attn_impl: str = "ref"
+    # query-chunk size of 'chunked''s plain route (the CPU, fp32, head dims
+    # over 128) and of MLA's chunked path; the kernel route has no chunks
+    attn_chunk: int = 512
     loss_chunk: int = 0                     # seq-chunked lm head+loss (0 = off)
     moe_sharding: str = "tensor"            # 'tensor' | 'expert' (all_to_all)
 

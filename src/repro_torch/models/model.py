@@ -19,8 +19,9 @@ and bf16 matmuls reduce in fp32, as the reference accumulates them.
 ``loss`` returns the value, with ``router_aux_weight`` times the MoE aux
 loss; its gradient (``torch.func.grad``, batched over clients by
 ``vmap`` in ``core.rounds``) is how the LMs train.  Training attends
-with ``ref`` or ``chunked``: the flash kernel is forward-only, as the
-reference's Pallas kernel is.
+with any ``attn_impl``: the flash kernels have a backward (the
+reference's Pallas kernel has none), and ``chunked`` takes them on the
+card in bf16.
 
 Under a model group (``models.sharding.model_parallel``) the parameters
 are a rank's tensor-parallel shards: the vocab dim of ``embed`` /

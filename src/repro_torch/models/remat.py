@@ -3,9 +3,11 @@ runs ``body`` and, in the backward pass, recomputes it from its inputs
 instead of keeping its activations -- the reference's ``jax.checkpoint``
 (``repro.models.blocks``), which ``cfg.remat`` applies to each stacked
 layer's body and zamba2's group body.  The port also recomputes each
-query chunk of chunked attention and each chunk of the chunked loss
-under ``cfg.remat``, so that a layer's backward holds one chunk's fp32
-scores, not all of them.
+chunk of the chunked loss under ``cfg.remat``, and each query chunk of
+chunked attention on its plain route (the CPU, fp32, head dims over
+128), so that a layer's backward holds one chunk's fp32 scores, not all
+of them; on the card in bf16 chunked attention runs the flash kernels,
+which keep no scores to recompute.
 
 ``torch.utils.checkpoint`` does not compose with ``torch.func.grad`` /
 ``vmap`` (its saved-tensor hooks and its legacy ``Function`` both

@@ -31,7 +31,13 @@ non-causal, masked kv tails, Sq != Sk and strided views (the reference's
 tolerances, 2e-5 / 2e-2), at head dims it runs zero-padded to the next
 instantiated one (zamba2's 80, and 48), and a reduced qwen2-7b on the
 card must launch it once a layer and agree with the 'ref' attention
-path, as must a reduced zamba2 at head dim 80 once a group.  The MoE's
+path, as must a reduced zamba2 at head dim 80 once a group.  The flash
+backward kernels are held against their plain version in bf16 (2e-2) at
+head dims 32 / 64 / 128 and 80, GQA, windows, a ragged S and a kv tail,
+and give the same bits on two calls; a reduced bf16 stablelm's client
+deltas through ``chunked`` launch the forward twice and the backward
+once a layer a step, replay bitwise, and agree with the plain chunk
+loop's in per-leaf update norms within the LM cell's limit.  The MoE's
 grouped GEMM route (``grouped_mm`` for bf16 on the card) agrees with
 the per-expert loop, and a bf16 top-6 MoE layer gives the same bits on
 two calls.  The two GEMVs
@@ -1175,3 +1181,126 @@ def test_lm_rounds_on_the_card(cuda):
         assert torch.equal(a, c)
     for a, b in zip(tree_leaves(outs[True]), tree_leaves(outs[False])):
         assert torch.equal(a, b)
+
+
+# (B, Hq, Hkv, S, hd, window, kv tail): GQA groups 1 / 2 / 3, ragged S,
+# windows, head dims 32 / 64 / 128 and zamba2's 80 (run at 128), and a
+# window past a kv tail, whose last rows see no key (lse -inf, grads 0)
+FLASH_BWD_CASES = [
+    (2, 4, 2, 333, 32, None, None),
+    (1, 4, 4, 256, 64, None, None),
+    (2, 8, 8, 517, 64, 100, None),
+    (1, 6, 2, 200, 128, 50, None),
+    (1, 4, 2, 190, 80, None, None),
+    (1, 3, 1, 77, 128, None, None),
+    (1, 2, 1, 200, 64, 16, 100),
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,hd,window,tail", FLASH_BWD_CASES)
+def test_flash_backward_kernels_match_their_plain_version(
+        cuda, B, Hq, Hkv, S, hd, window, tail):
+    """bf16 in the model's strided layout: the forward's log-sum-exp
+    against the plain version's (fp32 sums in another order, 1e-4); the
+    backward kernels' dq, dk, dv against ``flash_attention_bwd_ref`` fed
+    the kernel's o and lse (bf16 outputs, the forward's bf16 tolerance
+    2e-2); one count a call; a second call gives the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref
+
+    g = torch.Generator(device=cuda).manual_seed(S * hd + Hq)
+
+    def draw(H):
+        return torch.randn(B, S, H, hd, generator=g,
+                           device=cuda).to(BFLOAT).transpose(1, 2)
+
+    q, k, v, do = draw(Hq), draw(Hkv), draw(Hkv), draw(Hq)
+    kw = dict(causal=True, window=window, true_seq_k=tail)
+    o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    _, want_lse = ref.flash_attention_ref(q, k, v, with_lse=True, **kw)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    before = fa.flash_attention_bwd_cuda.launches
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    assert fa.flash_attention_bwd_cuda.launches == before + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for a, b, t in zip(got, want, (q, k, v)):
+        assert a.dtype == BFLOAT and a.shape == t.shape
+        if hd in fa.HEAD_DIMS:       # else a slice of a padded buffer
+            assert a.transpose(1, 2).is_contiguous()
+        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
+                                   atol=2e-2)
+    if tail is not None:
+        assert torch.isneginf(lse[..., tail + window:]).all()
+        assert not got[0][..., tail + window:, :].any()
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+
+
+def test_flash_backward_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops
+
+    q = torch.randn(1, 2, 8, 32, device=cuda, dtype=BFLOAT)
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        fa.flash_attention_bwd_cuda(q.float(), q.float(), q.float(),
+                                    q.float(), lse, q.float())
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd_cuda(q, q, q, q, lse[..., :4], q)
+    with pytest.raises(TypeError, match="log-sum-exp"):
+        fa.flash_attention_cuda(q.float(), q.float(), q.float(),
+                                with_lse=True)
+    x = torch.randn(1, 8, 2, 32, device=cuda, requires_grad=True)
+    with pytest.raises(TypeError, match="bf16"):           # fp32 gradient
+        ops.flash_attention(x, x, x).sum().backward()
+
+
+def test_lm_bf16_chunked_training_takes_the_flash_kernels(cuda, monkeypatch):
+    """A reduced bf16 stablelm's client deltas (``vmap`` over 3 clients of
+    ``grad``, T 2 steps, layer remat) through ``attn_impl='chunked'`` on
+    the card: each step launches the forward twice a layer (the layer's
+    forward and its recomputation) and the backward once, for all clients
+    at once; two runs give the same bits; and the deltas' per-leaf norms
+    agree with the plain chunk loop's (the kernel route turned off)
+    within the training cell's ``first_update_rel`` limit."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.core.rounds import client_deltas
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import attention
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config("stablelm-1.6b", reduced=True),
+                              dtype="bfloat16", remat=True,
+                              attn_impl="chunked", attn_chunk=64,
+                              loss_chunk=64)
+    n, T, S = 3, 2, 256
+    m = Model(cfg)
+    p = m.init(torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    x, y = (torch.randint(0, cfg.vocab_size, (n, T, 1, S), generator=g)
+            .to(cuda) for _ in range(2))
+    eta = torch.tensor(0.05, device=cuda)
+    fwd, bwd = fa.flash_attention_cuda.launches, \
+        fa.flash_attention_bwd_cuda.launches
+    got = client_deltas(m.loss, p, (x, y), eta)
+    assert fa.flash_attention_cuda.launches - fwd == 2 * cfg.n_layers * T
+    assert fa.flash_attention_bwd_cuda.launches - bwd == cfg.n_layers * T
+    again = client_deltas(m.loss, p, (x, y), eta)
+    for a, b in zip(tree_leaves(got), tree_leaves(again)):
+        assert torch.equal(a, b)
+    monkeypatch.setattr(attention, "_kernel_route", lambda q: False)
+    fwd = fa.flash_attention_cuda.launches
+    plain = client_deltas(m.loss, p, (x, y), eta)
+    assert fa.flash_attention_cuda.launches == fwd
+    # the benchmark's first_update_rel (chipbench/harness.py::compare):
+    # the worst leaf's gap of update norms over the larger of its norm
+    # and the median leaf's; the limit is the stablelm-2-1.6b training
+    # cell's
+    ng, nw = ([float(t.double().norm()) for t in tree_leaves(d)]
+              for d in (got, plain))
+    med = float(np.median(nw))
+    assert max(abs(a - b) / max(b, med) for a, b in zip(ng, nw)) < 0.0034

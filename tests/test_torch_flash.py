@@ -8,8 +8,19 @@ the CPU: the kernel's plain version, ``ref.flash_attention_ref``),
 the reference's own (``tests/test_kernels.py``): 2e-5 in fp32 and 2e-2
 in bf16.  The CUDA kernel itself runs only on a card
 (``tests/test_torch_cuda.py``, marker ``cuda``).
+
+The gradient: the backward kernels' plain version
+(``ref.flash_attention_bwd_ref``, which rebuilds the weights from the
+saved log-sum-exp as the kernels do) against autograd of the port's
+plain chunked attention and ``jax.grad`` of the reference's, in fp32
+(``GRAD_TOL``: the same sums in other orders); and the entry point's
+gradient under ``vmap(grad)`` and inside ``remat`` (its ``vmap`` rule
+folds the clients into the batch) against the same.
 """
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -20,10 +31,16 @@ from repro.kernels.flash_attention.flash_attention import \
     flash_attention_pallas as j_pallas
 from repro.kernels.flash_attention.ops import flash_attention as j_flash
 from repro.kernels.flash_attention.ref import attention_ref as j_attention
+from repro.configs import get_config as j_get_config
+from repro.models import attention as j_attn
+from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.flash_attention import ops, ref
+from repro_torch.models import attention as attn
+from repro_torch.models.remat import remat
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+GRAD_TOL = dict(rtol=2e-5, atol=2e-5)
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -177,13 +194,135 @@ def test_invalid_arguments_raise_on_any_device(kw, shapes):
                             v.transpose(1, 2), **kw)
 
 
-def test_backward_raises_instead_of_differentiating_the_plain_version():
-    _, ts = _qkv(12, 1, 16, 2, 1, 32, "float32")
-    q = ts[0].requires_grad_(True)
-    out = ops.flash_attention(q, ts[1], ts[2])
+# (B, S, Hq, Hkv, hd, window): a ragged S, GQA groups 1 / 2 / 3 / 4,
+# windows, head dims 32 / 64 / 128 and zamba2's 80
+GRAD_CASES = [(2, 37, 4, 2, 32, None), (1, 64, 4, 4, 64, 16),
+              (1, 50, 6, 2, 80, None), (1, 29, 8, 2, 128, 7),
+              (2, 45, 3, 1, 64, 20)]
+
+
+def _grad_inputs(seed, B, S, Hq, Hkv, hd):
+    """fp32 q, k, v (B, S, H, hd) and an output cotangent, from numpy."""
+    _, (q, k, v) = _qkv(seed, B, S, Hq, Hkv, hd, "float32")
+    g = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (B, S, Hq, hd)).astype(np.float32))
+    return q, k, v, g
+
+
+def _chunk_cfgs():
+    """(port, reference) configs whose ``_chunked_sdpa`` walks 8-row
+    query chunks, without remat."""
+    kw = dict(attn_chunk=8, remat=False)
+    return (dataclasses.replace(get_config("stablelm-1.6b", reduced=True),
+                                **kw),
+            dataclasses.replace(j_get_config("stablelm-1.6b", reduced=True),
+                                **kw))
+
+
+def _plain_grads(q, k, v, g, window):
+    """Autograd of the port's plain chunked attention (the CPU route)."""
+    cfg, _ = _chunk_cfgs()
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = attn._chunked_sdpa(*qkv, window, cfg)
+    out.backward(g.reshape(out.shape))
+    return [t.grad for t in qkv]
+
+
+def _bwd_ref_grads(q, k, v, g, window):
+    """(dq, dk, dv) of ``flash_attention_bwd_ref`` on the model layout,
+    from the plain forward's output and LSE."""
+    bhsd = [t.transpose(1, 2) for t in (q, k, v, g)]
+    o, lse = ref.flash_attention_ref(*bhsd[:3], window=window,
+                                     with_lse=True)
+    return [t.transpose(1, 2) for t in ref.flash_attention_bwd_ref(
+        *bhsd[:3], o, lse, bhsd[3], window=window)]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,window", GRAD_CASES)
+def test_backward_plain_version_matches_the_chunked_gradient(
+        B, S, Hq, Hkv, hd, window):
+    q, k, v, g = _grad_inputs(20 + hd, B, S, Hq, Hkv, hd)
+    for a, b in zip(_bwd_ref_grads(q, k, v, g, window),
+                    _plain_grads(q, k, v, g, window)):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+
+
+def test_backward_plain_version_matches_the_reference_jax_grad():
+    """One shape with every feature at once (a ragged S, GQA group 3, a
+    window, zamba2's head dim 80): ``jax.grad`` of the reference's
+    ``_chunked_sdpa`` compiles once a shape."""
+    B, S, Hq, Hkv, hd, window = 2, 45, 6, 2, 80, 20
+    q, k, v, g = _grad_inputs(20 + hd, B, S, Hq, Hkv, hd)
+    got = _bwd_ref_grads(q, k, v, g, window)
+    _, jcfg = _chunk_cfgs()
+    js = [jnp.asarray(t.numpy()) for t in (q, k, v)]
+    gj = jnp.asarray(g.numpy()).reshape(B, S, Hq * hd)
+    want = jax.grad(lambda *a: jnp.sum(
+        j_attn._chunked_sdpa(*a, window, jcfg) * gj), argnums=(0, 1, 2))(
+        *js)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                   **GRAD_TOL)
+
+
+def test_lse_is_the_rows_log_sum_exp():
+    """The saved log-sum-exp: logsumexp of the visible scaled scores, -inf
+    for a row that sees no key (masked kv tail)."""
+    _, ts = _qkv(21, 1, 40, 2, 1, 32, "float32", layout="bhsd")
+    q, k, v = ts
+    _, lse = ref.flash_attention_ref(q, k, v, window=5, true_seq_k=30,
+                                     with_lse=True)
+    s = (q @ k.transpose(-1, -2)) * 32 ** -0.5
+    i, j = torch.arange(40)[:, None], torch.arange(40)[None, :]
+    ok = (j <= i) & (i - j < 5) & (j < 30)
+    want = torch.logsumexp(torch.where(ok, s, -torch.inf), -1)
+    assert torch.isneginf(lse[..., 34:]).all()
+    torch.testing.assert_close(lse, want, rtol=1e-6, atol=1e-6)
+
+
+def test_backward_gives_the_plain_chunked_gradient():
+    """``ops.flash_attention`` differentiates (on the CPU through the
+    backward kernels' plain version) to the plain path's gradient."""
+    q, k, v, g = _grad_inputs(12, 1, 16, 2, 1, 32)
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ops.flash_attention(*qkv)
     assert out.requires_grad
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        out.sum().backward()
+    out.backward(g)
+    for t, want in zip(qkv, _plain_grads(q, k, v, g, None)):
+        torch.testing.assert_close(t.grad, want, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("in_remat", [False, True])
+@pytest.mark.parametrize("batched", ["all", "q only"])
+def test_gradient_under_vmap_of_grad(in_remat, batched):
+    """The federated training path: ``vmap`` over 3 clients of ``grad``,
+    with the call inside ``remat`` (whose backward runs ``torch.func.vjp``
+    under its generated ``vmap`` rule) or not, k / v per client or shared.
+    Each client's gradient is the plain path's for its slice."""
+    N, B, S, Hq, Hkv, hd, window = 3, 2, 21, 4, 2, 32, 9
+    qs, ks, vs, gs = zip(*(_grad_inputs(30 + i, B, S, Hq, Hkv, hd)
+                           for i in range(N)))
+    q, k, v = torch.stack(qs), torch.stack(ks), torch.stack(vs)
+    if batched == "q only":
+        k, v = k[0], v[0]
+    in_dims = (0, 0, 0) if batched == "all" else (0, None, None)
+    g = gs[0]
+
+    def attend(q, k, v):
+        if in_remat:
+            out, = remat(lambda _, *a: (ops.flash_attention(
+                *a, window=window),), (), q, k, v)
+            return out
+        return ops.flash_attention(q, k, v, window=window)
+
+    got = torch.func.vmap(torch.func.grad(
+        lambda *a: (attend(*a) * g).sum(), argnums=(0, 1, 2)),
+        in_dims=in_dims)(q, k, v)
+    for i in range(N):
+        ki, vi = (k[i], v[i]) if batched == "all" else (k, v)
+        want = _plain_grads(q[i], ki, vi, g, window)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a[i], b, **GRAD_TOL)
 
 
 def test_plain_versions_differ_at_bf16_only_by_the_weights_rounding():
