@@ -9,6 +9,12 @@ with a plan built here by the constructor ``run`` itself calls
 (``RoundPlan.connectivity_aware``) on its own seed, and batches drawn
 from a stream of its own; so every block does the same work, on rows
 that all differ.
+
+A traffic that names a ``mesh`` (pod, data, model) runs the program's
+mesh runtime: the server's ``ExecutionConfig`` takes the mesh, built
+over the run's process group (``launch.mesh.make_debug_mesh``), beside
+the configuration's ``execution_extras``; the traffic's ``zero`` reaches
+the program only where ``ExecutionConfig`` has that field.
 """
 
 from __future__ import annotations
@@ -50,16 +56,38 @@ class FedCell:
 
         self.traffic, self.seed, self.sizes = traffic, int(seed), sizes
         self.device = torch.device(device)
+        self.mesh = None
         self.init = self.make_params()
         self.network = self.make_network()
+        extras = self.execution_extras()
+        if "mesh" in traffic:
+            from repro_torch.launch.mesh import make_debug_mesh
+            self.mesh = make_debug_mesh(tuple(traffic["mesh"]),
+                                        device=self.device.type)
+            extras["mesh"] = self.mesh
+            if traffic.get("zero"):
+                names = {f.name for f in dataclasses.fields(ExecutionConfig)}
+                if "zero" not in names:
+                    raise ValueError(
+                        "the traffic asks for zero, and the program's "
+                        "ExecutionConfig has no such field: its mesh "
+                        "runtime cannot be asked for ZeRO")
+                extras["zero"] = True
         execution = ExecutionConfig(
             backend=traffic["backend"],
             record_mixed=bool(traffic.get("record_mixed", False)),
-            **self.execution_extras())
+            **extras)
         self.server = FederatedServer(
             self.network, self.loss_fn(), self.init, self.sample,
             self.server_config(), algorithm="semidec", execution=execution,
             device=self.device)
+        self.check_loss = getattr(self.server.engine, "loss_fn", None)
+        if self.check_loss is None:
+            # the mesh runtime keeps no loss: the configured model's, on
+            # the whole params its hook is given
+            from repro_torch.models.model import Model
+            self.check_loss = Model(execution.model_cfg,
+                                    device=self.device).loss
         self.peak_flops = peaks.FLOPS[self.PRECISION]
         self.failed_rounds = 0
         self._rng: Optional[np.random.Generator] = None
@@ -120,7 +148,7 @@ class FedCell:
             t = len(out["loss"])
             if t < checked:
                 with torch.no_grad():
-                    loss = self.server.engine.loss_fn(p, self.eval_batch())
+                    loss = self.check_loss(p, self.eval_batch())
                 out["loss"].append(float(loss))
                 if t == 0:
                     out["first"] = change_norms(p, self.init)
@@ -143,6 +171,8 @@ class FedCell:
         """Drop the program's state before the reference runs."""
         self.server = None
         self.init = None
+        self.check_loss = None
+        self.mesh = None
 
     def describe(self) -> str:
         n_params = sum(int(x.numel())

@@ -1,8 +1,9 @@
 """stablelm-2-1.6b (hf: stabilityai/stablelm-2-1_6b) trained by Algorithm 1
 at its published widths: d 2,048, 32 heads of 64, d_ff 5,632 (SiLU-gated),
 vocab 100,352, LayerNorm, 25% rotary, qkv biases, untied head; bf16
-params, per-layer remat, query-chunked attention (fp32 scores), the head
-and loss in chunks of 1,024.  Cut to 6 of its 24 layers (``reduced``), so
+params, per-layer remat, query-chunked causal attention (in bf16 on the
+card's flash kernels, forward and backward), the head and loss in chunks
+of 1,024.  Cut to 6 of its 24 layers (``reduced``), so
 that a round (about 6.5 s) fits a 45-second window about 7 times.
 n = 4 clients in 2 ``k_regular`` clusters (k in [1, 2], p_fail 0), T 5
 steps of one 4,096-token sequence, eta 0.05, phi_max 1.0, bound
@@ -175,12 +176,16 @@ class Cell(FedCell):
 
     def draw(self, rng):
         """One round's (tokens, targets) on the host, int32 (n, T, B, S):
-        each row one sequence of S + 1 token ids drawn from the seed."""
+        each row one sequence of S + 1 token ids drawn from the seed.  On
+        a mesh the rows go whole, (n, T, B, S + 1), as the mesh runtime
+        takes them."""
         s = self.sizes
         tok = rng.integers(0, s["vocab_size"],
                            size=(s["n_clients"], s["local_steps"],
                                  s["batch"], s["seq_len"] + 1),
                            dtype=np.int64).astype(np.int32)
+        if self.mesh is not None:
+            return torch.from_numpy(tok), tok
         return (torch.from_numpy(tok[..., :-1].copy()),
                 torch.from_numpy(tok[..., 1:].copy())), tok
 

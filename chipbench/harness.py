@@ -30,6 +30,14 @@ A run (``run_cell``):
 4. the check: the program's state freed, the reference follows the check
    block on the same inputs, and each number compared is printed beside
    its limit.
+
+A cell of ``chips`` N > 1 runs on N ranks, one a card (``ranks.py``),
+each running all of the above from the same seed: its traffic names the
+``mesh`` (pod, data, model) that the program's mesh runtime
+(``repro_torch.fl.distributed``) runs on.  Each stamp then follows a
+barrier of every rank, so the clock is the slowest rank's; the peak is
+the fullest card's; each rank traces its own blocks and rank 0 merges
+the reductions (``trace.merge``).
 """
 
 from __future__ import annotations
@@ -48,17 +56,25 @@ import time
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
 
+from chipbench.ranks import Solo
+
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 MANIFEST = ROOT / "BENCHMARK.json"
+# where a traced run leaves its reduction (``<cell>.breakdown.json``)
+OUT = ROOT / "build" / "chipbench"
 # top-level module names no process of the benchmark may hold: JAX and
 # the JAX package the port was made from (``repro_torch`` is the port)
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-# the program's round functions the traced run wraps in spans
+# the program's round functions the traced run wraps in spans: the
+# single-host runtime's (``repro_torch.core.rounds``) and, on a mesh, the
+# mesh runtime's (``repro_torch.fl.distributed``), under the same names
 SPANS = {"chipbench.local_sgd": ("client_deltas",),
          "chipbench.mix_update": ("_mix_and_update",
                                   "_mix_and_update_quant")}
+MESH_SPANS = {"chipbench.local_sgd": ("local_sgd",),
+              "chipbench.mix_update": ("_mix_and_aggregate",)}
 
 __all__ = ["forbidden_modules", "load_manifest", "load_module",
            "metrics_for", "Record", "run_cell", "calibrate"]
@@ -126,8 +142,12 @@ class Record:
     train_flops_per_round: float    # frozen (configs/<name>.py)
     peak_flops: float               # peaks.FLOPS[the config's precision]
     mix_bytes_per_round: float      # frozen ideal bytes of the layer
-    trace: Optional[Dict] = None    # trace.reduce_trace of the traced blocks
+    trace: Optional[Dict] = None    # trace.merge of the ranks' reductions
     traced_rounds: int = 0
+    # each card's peak, in rank order: a share of the peak on several
+    # cards is of len(rank_peak_bytes) x peak_flops
+    rank_peak_bytes: List[int] = dataclasses.field(default_factory=list)
+    rank_traces: Optional[List[Dict]] = None   # each rank's reduce_trace
 
     @property
     def rounds(self) -> int:
@@ -192,7 +212,8 @@ def compare(prog: Dict, ref: Dict) -> Dict[str, float]:
 
 class Stamps:
     """Host-clock stamps taken after each round's evaluation hook, which
-    ends in a device synchronise."""
+    ends in ``sync``: a device synchronise, and on several ranks a
+    barrier of all of them after it."""
 
     def __init__(self, sync: Callable[[], None]):
         self.sync = sync
@@ -229,7 +250,8 @@ def kernel_counters():
             "mix_aggregate_dequant": fused.mix_aggregate_dequant_cuda,
             "sparse_mix_aggregate_dequant":
                 sparse.sparse_mix_aggregate_dequant_cuda,
-            "flash_attention": fa.flash_attention_cuda}
+            "flash_attention": fa.flash_attention_cuda,
+            "flash_attention_bwd": fa.flash_attention_bwd_cuda}
 
 
 def read_counters(counters) -> Dict:
@@ -252,58 +274,105 @@ def reset_counters(counters) -> None:
 class Spans:
     """Wrap the program's round functions in ``record_function`` ranges
     by replacing the module attributes (the round functions look them up
-    at call time); ``restore`` puts them back.  A name that is missing is
-    reported, and its metrics stay silent."""
+    at call time: ``core.rounds``'s round functions, and the mesh's
+    ``train_step``, which reads ``local_sgd`` and ``_mix_and_aggregate``
+    from its module's globals); ``restore`` puts them back.  With
+    ``mesh`` the mesh runtime's are wrapped too.  A name that is missing
+    is reported, and its metrics stay silent."""
 
-    def __init__(self):
+    def __init__(self, mesh: bool = False):
+        import importlib
         from torch.profiler import record_function
-        from repro_torch.core import rounds
 
-        self.rounds = rounds
-        self.saved = {}
+        targets = [("repro_torch.core.rounds", SPANS)]
+        if mesh:
+            targets.append(("repro_torch.fl.distributed", MESH_SPANS))
+        self.saved = []
         self.missing = []
-        for span, attrs in SPANS.items():
-            for attr in attrs:
-                fn = getattr(rounds, attr, None)
-                if fn is None:
-                    self.missing.append(attr)
-                    continue
-                self.saved[attr] = fn
+        for mod_name, table in targets:
+            mod = importlib.import_module(mod_name)
+            for span, attrs in table.items():
+                for attr in attrs:
+                    fn = getattr(mod, attr, None)
+                    if fn is None:
+                        self.missing.append(f"{mod_name}.{attr}")
+                        continue
+                    self.saved.append((mod, attr, fn))
 
-                def wrapped(*a, _fn=fn, _span=span, **kw):
-                    with record_function(_span):
-                        return _fn(*a, **kw)
+                    def wrapped(*a, _fn=fn, _span=span, **kw):
+                        with record_function(_span):
+                            return _fn(*a, **kw)
 
-                setattr(rounds, attr, wrapped)
+                    setattr(mod, attr, wrapped)
 
     def restore(self) -> None:
-        for attr, fn in self.saved.items():
-            setattr(self.rounds, attr, fn)
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
 
 
 # ---------------------------------------------------------------------------
 # One run
 # ---------------------------------------------------------------------------
 
-def run_cell(manifest: Dict, workload: str, seed: int, seconds: float,
-             trace: bool, *, t_start: float, device: str = "cuda",
-             sizes: Optional[Dict] = None, traffic_changes=None) -> Dict:
-    """Run ``workload`` once and return the result line's dict (the
-    checks last).  ``sizes`` and ``traffic_changes`` override the
-    configuration's sizes and the traffic's parameters (the CPU tests'
-    small shapes)."""
-    import torch
-
+def cell_traffic(manifest: Dict, workload: str, traffic_changes=None):
+    """The cell's entry and its traffic (with ``traffic_changes``), held
+    to the cell's ``chips``: a ``mesh`` (pod, data, model) covers them
+    all, and a cell without one takes one card."""
     cell = next(w for w in manifest["workloads"] if w["name"] == workload)
     traffic = {**load_json("workloads", workload), **(traffic_changes or {})}
     if traffic["config"] != cell["config"]:
         raise ValueError(f"{workload}: BENCHMARK.json names config "
                          f"{cell['config']}, its traffic file "
                          f"{traffic['config']}")
+    chips = int(cell["chips"])
+    mesh = traffic.get("mesh")
+    if (math.prod(mesh) if mesh else 1) != chips:
+        raise ValueError(f"{workload}: {chips} chips but the traffic's mesh "
+                         f"is {mesh}: a mesh covers every chip, and a cell "
+                         "without one takes one")
+    return cell, traffic
+
+
+def rank_device(device: str, team) -> str:
+    """The rank's device: its own card on several ranks."""
+    return f"cuda:{team.rank}" if device == "cuda" and team.world > 1 \
+        else device
+
+
+def syncer(cuda: bool, team) -> Callable[[], None]:
+    """The card's synchronise, then a barrier of every rank."""
+    import torch
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+        team.barrier()
+    return sync
+
+
+def run_cell(manifest: Dict, workload: str, seed: int, seconds: float,
+             trace: bool, *, t_start: float, device: str = "cuda",
+             sizes: Optional[Dict] = None, traffic_changes=None,
+             team=None) -> Dict:
+    """Run ``workload`` once and return the result line's dict (the
+    checks last).  ``sizes`` and ``traffic_changes`` override the
+    configuration's sizes and the traffic's parameters (the CPU tests'
+    small shapes).  ``team`` (``ranks.Team``): this process's rank of a
+    cell on several; every rank calls this with the same arguments and
+    gets the same result."""
+    import torch
+
+    team = team or Solo()
+    cell, traffic = cell_traffic(manifest, workload, traffic_changes)
+    if team.world != int(cell["chips"]):
+        raise ValueError(f"{workload} takes {cell['chips']} chips, the run "
+                         f"has {team.world} ranks")
     config = load_module("configs", cell["config"])
     reference = load_module("reference", cell["config"])
     cuda = device == "cuda"
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    device = rank_device(device, team)
+    lead = team.rank == 0
+    sync = syncer(cuda, team)
     marks = {"imports": time.perf_counter() - t_start}
 
     if cuda:
@@ -325,7 +394,9 @@ def run_cell(manifest: Dict, workload: str, seed: int, seconds: float,
               "cudnn.benchmark": torch.backends.cudnn.benchmark}
     log(f"{workload}: {bench.describe()}; precision policy found after the "
         f"engine's set-up: {policy}; effective backend "
-        f"{bench.server.effective_backend}")
+        f"{bench.server.effective_backend}"
+        + (f"; mesh {traffic['mesh']}, rank {team.rank} of {team.world}"
+           if team.world > 1 else ""))
 
     K = int(traffic["rounds_per_block"])
     R = int(traffic["check_rounds"])
@@ -349,32 +420,48 @@ def run_cell(manifest: Dict, workload: str, seed: int, seconds: float,
     if cuda:
         gc.collect()
         torch.cuda.reset_peak_memory_stats()
-    smi_before = nvidia_smi() if cuda else "cpu"
+    smi_before = nvidia_smi() if cuda and lead else "cpu"
     stamps = Stamps(sync)
+    team.barrier()
     stamps.t.append(time.perf_counter())
     setup_s = stamps.t[0] - t_start
     log(f"set-up {setup_s:.3f} s: " + ", ".join(
         f"{k} {v:.3f} s" for k, v in marks.items()))
     plan_s, block = 0.0, 0
     hook = bench.window_hook(stamps)
-    while block == 0 or stamps.t[-1] - stamps.t[0] < seconds:
+    # rank 0's clock decides when the window closes, for every rank
+    while block == 0 or team.agree(stamps.t[-1] - stamps.t[0] < seconds):
         plan_s += run_block(1 + block, hook)     # block 0 is the check's
         block += 1
     window_s = stamps.t[-1] - stamps.t[0]
     round_ms = [(b - a) * 1e3 for a, b in zip(stamps.t, stamps.t[1:])]
-    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    rank_peaks = team.gather(torch.cuda.max_memory_allocated() if cuda
+                             else 0)
+    peak = max(rank_peaks)
     launches = read_counters(counters)
     log(f"window: {block} blocks of {K} rounds, {len(round_ms)} rounds in "
         f"{window_s:.6f} s; kernel launches in the window {launches}")
-    log(f"card during the window: before [{smi_before}] after "
-        f"[{nvidia_smi() if cuda else 'cpu'}]")
+    if team.world > 1:
+        log(f"peak bytes by rank: {rank_peaks}")
+    if lead:
+        log(f"card during the window: before [{smi_before}] after "
+            f"[{nvidia_smi() if cuda else 'cpu'}]")
 
     # -- the traced blocks -------------------------------------------------
-    reduced, traced_rounds = None, 0
+    reduced = rank_traces = None
+    traced_rounds = 0
     if trace:
-        reduced, traced_rounds = _traced(bench, run_block, 1 + block,
-                                         int(traffic["traced_blocks"]),
-                                         sync, workload, seed)
+        from chipbench import trace as trace_mod
+        mine, traced_rounds = _traced(
+            bench, run_block, 1 + block, int(traffic["traced_blocks"]), sync,
+            mesh="mesh" in traffic)
+        rank_traces = team.gather(mine)
+        reduced = trace_mod.merge(rank_traces)
+        if lead:
+            OUT.mkdir(parents=True, exist_ok=True)
+            extra = {"ranks": rank_traces} if team.world > 1 else {}
+            with open(OUT / f"{workload}.breakdown.json", "w") as f:
+                json.dump({"seed": seed, **reduced, **extra}, f, indent=1)
 
     # -- the check ------------------------------------------------------
     bench.free()
@@ -403,7 +490,8 @@ def run_cell(manifest: Dict, workload: str, seed: int, seconds: float,
                  train_flops_per_round=bench.train_flops_per_round,
                  peak_flops=bench.peak_flops,
                  mix_bytes_per_round=bench.mix_bytes_per_round,
-                 trace=reduced, traced_rounds=traced_rounds)
+                 trace=reduced, traced_rounds=traced_rounds,
+                 rank_peak_bytes=rank_peaks, rank_traces=rank_traces)
     metrics = {}
     for m in metrics_for(manifest, workload, trace):
         value = load_module("metrics", m["name"]).read(rec)
@@ -414,13 +502,15 @@ def run_cell(manifest: Dict, workload: str, seed: int, seconds: float,
 
     dev = {"platform": "gpu" if cuda else "cpu",
            "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
-           "count": 1, "memory_peak_bytes": int(peak)}
+           "count": team.world, "memory_peak_bytes": int(peak)}
     result = {"correct": bool(correct), "attempted": len(round_ms),
               "failed": int(bench.failed_rounds), "metrics": metrics,
               "device": dev}
     if reduced is not None:
-        dev["busy_s"] = reduced["busy_s"]
-        dev["window_s"] = reduced["window_s"]
+        # averaged over the cards, as the result's ``device`` takes them
+        dev["busy_s"] = statistics.fmean(t["busy_s"] for t in rank_traces)
+        dev["window_s"] = statistics.fmean(t["window_s"]
+                                           for t in rank_traces)
         result["breakdown"] = {"device_ops": reduced["device_ops"],
                                "idle_gaps": reduced["idle_gaps"]}
     result["checks"] = {k: {"value": numbers[k], "limit": limits[k]}
@@ -428,18 +518,19 @@ def run_cell(manifest: Dict, workload: str, seed: int, seconds: float,
     return result
 
 
-def _traced(bench, run_block, first_block: int, n_blocks: int, sync,
-            workload: str, seed: int):
+def _traced(bench, run_block, first_block: int, n_blocks: int, sync, *,
+            mesh: bool = False):
     """Run ``n_blocks`` more blocks under ``torch.profiler`` with the
-    round functions in spans; returns ``(reduce_trace(...), rounds)``."""
+    round functions in spans; returns this rank's
+    ``(reduce_trace(...), rounds)``."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from chipbench import trace as trace_mod
 
-    spans = Spans()
+    spans = Spans(mesh)
     if spans.missing:
-        log(f"span targets missing from repro_torch.core.rounds: "
-            f"{spans.missing}; their metrics stay silent")
+        log(f"span targets missing: {spans.missing}; their metrics stay "
+            f"silent")
     stamps = Stamps(sync)
     hook = bench.window_hook(stamps)
     try:
@@ -469,11 +560,10 @@ def _traced(bench, run_block, first_block: int, n_blocks: int, sync,
         f"of {reduced['window_s']:.6f} s; by stream {reduced['streams']}; "
         f"{reduced['unlaunched']} have no launch found; spans "
         f"found {reduced['span_count']}, their device s "
-        f"{reduced['span_device_s']}")
-    out = BENCH.parent / "build" / "chipbench"
-    out.mkdir(parents=True, exist_ok=True)
-    with open(out / f"{workload}.breakdown.json", "w") as f:
-        json.dump({"seed": seed, **reduced}, f, indent=1)
+        f"{reduced['span_device_s']}; collectives "
+        f"{reduced['collective_s']:.6f} s, exposed "
+        f"{reduced['collective_exposed_s']:.6f} s; the program's ranges "
+        f"{reduced['program_spans']}")
     return reduced, len(stamps.t)
 
 
@@ -483,31 +573,34 @@ def _traced(bench, run_block, first_block: int, n_blocks: int, sync,
 
 def calibrate(manifest: Dict, workload: str, seeds: List[int], mode: str,
               *, device: str = "cuda", sizes: Optional[Dict] = None,
-              traffic_changes=None):
+              traffic_changes=None, team=None):
     """For each seed: set-up and the check block as a run makes them (no
     window), then the numbers ``run_cell`` compares.  ``mode``:
     ``program`` (the program as it is), ``control`` (the reference at the
     traffic's ``control_precision`` in the program's place, on the
     program's plan and the same batches), or a fault of
     ``chipbench.faults`` planted in the program.  Yields one dict a
-    seed, with each leaf's norms."""
+    seed, with each leaf's norms.  ``team`` as ``run_cell``'s."""
     import torch
     from chipbench import faults
 
-    cell = next(w for w in manifest["workloads"] if w["name"] == workload)
-    traffic = {**load_json("workloads", workload), **(traffic_changes or {})}
+    team = team or Solo()
+    cell, traffic = cell_traffic(manifest, workload, traffic_changes)
     config = load_module("configs", cell["config"])
     reference = load_module("reference", cell["config"])
     R = int(traffic["check_rounds"])
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    if device == "cuda":
+    mesh = "mesh" in traffic
+    cuda = device == "cuda"
+    device = rank_device(device, team)
+    sync = syncer(cuda, team)
+    if cuda:
         from repro_torch.kernels import _build
         _build.build_all()
     for seed in seeds:
         t0 = time.perf_counter()
         bench = config.build(traffic, seed, device, sizes)
-        if mode in faults.FAULTS:
-            with faults.planted(mode):
+        if mode in faults.names(mesh):
+            with faults.planted(mode, mesh=mesh):
                 rec = bench.run_check_block(R, R, Stamps(sync))
         else:
             rec = bench.run_check_block(R, R, Stamps(sync))
@@ -515,7 +608,7 @@ def calibrate(manifest: Dict, workload: str, seeds: List[int], mode: str,
         bench.free()
         del bench
         gc.collect()
-        if device == "cuda":
+        if cuda:
             torch.cuda.empty_cache()
         got = rec
         if mode == "control":

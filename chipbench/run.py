@@ -18,6 +18,11 @@ reads, without a window, the numbers the check compares on each seed:
 ``program``, ``control`` (the reference in a lower precision in the
 program's place) or a fault (``chipbench/faults.py``); their lines set
 the limits in ``chipbench/workloads/<cell>.json``.
+
+A cell of ``chips`` N > 1 runs on N processes, one a card: this one is
+rank 0, builds the kernels, then starts ranks 1 .. N-1 as this command
+with ``--rank``, ``--world``, ``--store`` and ``--parent`` added
+(``chipbench/ranks.py``); only rank 0 prints the result.
 """
 
 import time
@@ -46,6 +51,11 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     ap.add_argument("--calibrate", default="")
     ap.add_argument("--seeds", default="")
+    # a rank > 0 of a cell on several cards (ranks.lead adds them)
+    for name, kind in (("--rank", int), ("--world", int), ("--store", str),
+                       ("--parent", int)):
+        ap.add_argument(name, type=kind, default=None,
+                        help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     # build and kernel caches inside the checkout, at fixed paths (the
@@ -78,22 +88,37 @@ def main(argv=None) -> int:
               "checkout of the repository")
     from chipbench import harness
 
-    if args.calibrate:
-        seeds = [int(s) for s in args.seeds.split(",") if s]
-        for line in harness.calibrate(manifest, args.workload, seeds,
-                                      args.calibrate):
-            print(json.dumps(line), flush=True)
+    def body(team=None):
+        if args.calibrate:
+            seeds = [int(s) for s in args.seeds.split(",") if s]
+            for line in harness.calibrate(manifest, args.workload, seeds,
+                                          args.calibrate, team=team):
+                if team is None or team.rank == 0:
+                    print(json.dumps(line), flush=True)
+            return None
+        return harness.run_cell(manifest, args.workload, args.seed,
+                                args.seconds, bool(args.trace),
+                                t_start=T_START, team=team)
+
+    if chips == 1:
+        out = body()
         found = harness.forbidden_modules()
         if found:
             _fail(f"forbidden modules loaded: {found}", 3)
-        return 0
+    else:
+        from chipbench import ranks
+        if args.rank is not None:
+            return ranks.follow(args.rank, args.world, args.store,
+                                args.parent, "cuda", body)
+        from repro_torch.kernels import _build
+        _build.build_all()      # once, before any other rank loads them
+        cmd = [sys.executable, str(Path(__file__).resolve()),
+               *(sys.argv[1:] if argv is None else argv)]
+        out = ranks.lead(chips, cmd, "cuda", body)
 
-    result = harness.run_cell(manifest, args.workload, args.seed,
-                              args.seconds, bool(args.trace),
-                              t_start=T_START)
-    found = harness.forbidden_modules()
-    if found:
-        _fail(f"forbidden modules loaded: {found}", 3)
+    if args.calibrate:
+        return 0
+    result = out
     sys.stdout.flush()
     for name, c in result["checks"].items():
         print(f"check {name}: {c['value']!r} (limit {c['limit']!r})",

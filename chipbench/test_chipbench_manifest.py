@@ -4,6 +4,7 @@ that is there."""
 
 import hashlib
 import json
+import math
 import re
 import shutil
 from pathlib import Path
@@ -72,7 +73,12 @@ def test_every_entry_has_its_files(kind):
             traffic = harness.load_json("workloads", entry["name"])
             assert traffic["config"] == entry["config"]
             assert traffic["traffic"] == entry["traffic"]
-            assert entry["chips"] == 1
+            # a mesh covers the cell's chips; a cell without one takes one
+            assert entry["chips"] in (1, 4)
+            assert math.prod(traffic.get("mesh", [1])) == entry["chips"]
+    if kind == "workloads":
+        four = sum(c["chips"] == 4 for c in m["workloads"])
+        assert four <= max(1, len(m["workloads"]) // 4)
 
 
 def test_every_metric_has_a_reader_and_every_cell_reports():

@@ -14,7 +14,18 @@ count once.  On top of it:
   ``record_function`` range on the harness's thread;
 * the idle gaps are the stretches inside the traced window in which no
   device event ran, each named by the innermost span and the outermost
-  host op open at its middle.
+  host op open at its middle;
+* the program's own ranges (``program_spans``): every range on the
+  harness's thread whose name starts with ``PROGRAM_PREFIX``, found by
+  the prefix, so that a range the program adds needs no edit here; each
+  with its count, its host time (the union of its ranges) and its device
+  time, attributed as a span's;
+* the collectives: ``collective_s`` the union of the intervals of the
+  device events whose name starts with ``COLLECTIVE_PREFIX`` (NCCL's
+  kernels, waiting for their peers included), ``collective_exposed_s``
+  the part of it in which no other device event ran.
+
+``merge`` folds the reductions of several ranks into one.
 """
 
 from __future__ import annotations
@@ -24,11 +35,14 @@ import json
 from collections import defaultdict
 from typing import Dict, List
 
-__all__ = ["STRETCH", "reduce_trace"]
+__all__ = ["STRETCH", "reduce_trace", "merge"]
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the record_function range the harness opens around the traced blocks
 STRETCH = "chipbench.traced"
+# the program's ranges (``repro_torch.core.spans``) and NCCL's kernels
+PROGRAM_PREFIX = "repro_torch."
+COLLECTIVE_PREFIX = "nccl"
 
 
 def _device_events(trace: List[dict]) -> List[dict]:
@@ -55,6 +69,39 @@ def _busy_intervals(events, lo: float, hi: float):
         else:
             out.append([a, b])
     return out
+
+
+def _length(intervals) -> float:
+    return sum(b - a for a, b in intervals)
+
+
+def _overlap(xs, ys) -> float:
+    """The length of the intersection of two sorted, disjoint interval
+    lists."""
+    total, j = 0.0, 0
+    for a, b in xs:
+        while j < len(ys) and ys[j][1] <= a:
+            j += 1
+        k = j
+        while k < len(ys) and ys[k][0] < b:
+            total += max(0.0, min(b, ys[k][1]) - max(a, ys[k][0]))
+            k += 1
+    return total
+
+
+def _launched_under(events, launch_ts, rs):
+    """The events launched while one of the ranges ``rs`` (sorted
+    ``(start, end)`` pairs) was open."""
+    starts = [a for a, _ in rs]
+    mine = []
+    for e in events:
+        t = launch_ts.get(e.get("args", {}).get("correlation"))
+        if t is None:
+            continue
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t <= rs[i][1]:
+            mine.append(e)
+    return mine
 
 
 def _top_level(ops):
@@ -85,8 +132,9 @@ def _host_context(spans, tops, top_starts, t: float) -> str:
 def reduce_trace(path: str, span_names) -> Dict:
     """Read the exported trace at ``path``: the traced stretch
     (``STRETCH``), the device's busy time inside it, the device time
-    under each of ``span_names``, the HtoD copies' time, and the top
-    device ops and idle gaps (seconds)."""
+    under each of ``span_names``, the HtoD copies' time, the top device
+    ops and idle gaps, the program's ranges and the collectives
+    (seconds)."""
     with open(path) as f:
         trace = json.load(f)["traceEvents"]
     stretch = [e for e in trace if e.get("name") == STRETCH
@@ -121,17 +169,30 @@ def reduce_trace(path: str, span_names) -> Dict:
     unlaunched = sum(1 for e in events if e.get("args", {}).get(
         "correlation") not in launch_ts)
     for name, rs in ranges.items():
-        starts = [a for a, _ in rs]
-        mine = []
-        for e in events:
-            t = launch_ts.get(e.get("args", {}).get("correlation"))
-            if t is None:
-                continue
-            i = bisect.bisect_right(starts, t) - 1
-            if i >= 0 and t <= rs[i][1]:
-                mine.append(e)
+        mine = _launched_under(events, launch_ts, rs)
         span_us[name] = sum(b - a for a, b in
                             _busy_intervals(mine, lo, float("inf")))
+    prog = defaultdict(list)
+    for s in spans:
+        if s["name"].startswith(PROGRAM_PREFIX):
+            prog[s["name"]].append((s["ts"], s["ts"] + s["dur"]))
+    program_spans = {}
+    for name, rs in sorted(prog.items()):
+        host = []
+        for a, b in rs:                   # sorted by start
+            if host and a <= host[-1][1]:
+                host[-1][1] = max(host[-1][1], b)
+            else:
+                host.append([a, b])
+        mine = _launched_under(events, launch_ts, rs)
+        program_spans[name] = {
+            "count": len(rs), "host_s": _length(host) / 1e6,
+            "device_s": _length(_busy_intervals(mine, lo,
+                                                float("inf"))) / 1e6}
+    coll = _busy_intervals([e for e in events if e["name"].startswith(
+        COLLECTIVE_PREFIX)], lo, hi)
+    other = _busy_intervals([e for e in events if not e["name"].startswith(
+        COLLECTIVE_PREFIX)], lo, hi)
     h2d_us = sum(b - a for a, b in _busy_intervals(
         [e for e in events if e.get("cat") == "gpu_memcpy"
          and "HtoD" in e["name"]], lo, float("inf")))
@@ -164,4 +225,40 @@ def reduce_trace(path: str, span_names) -> Dict:
             "span_device_s": {k: v / 1e6 for k, v in span_us.items()},
             "span_count": found, "h2d_s": h2d_us / 1e6,
             "device_ops": top(per_op), "idle_gaps": top(gaps),
-            "n_device_events": len(events)}
+            "n_device_events": len(events),
+            "program_spans": program_spans,
+            "collective_s": _length(coll) / 1e6,
+            "collective_exposed_s": (_length(coll)
+                                     - _overlap(coll, other)) / 1e6}
+
+
+# the seconds of a reduction that ``merge`` takes as the largest over the
+# ranks; every other key is rank 0's
+_SECONDS = ("busy_s", "device_sum_s", "h2d_s", "collective_s",
+            "collective_exposed_s")
+
+
+def merge(reductions: List[Dict]) -> Dict:
+    """One reduction from each rank's, in rank order: every seconds field
+    the largest over the ranks (the slowest rank's), by span and by
+    program range too; the window, the counts, the streams, the top
+    device ops and the idle gaps rank 0's.  One rank's comes back as it
+    is."""
+    if len(reductions) == 1:
+        return reductions[0]
+    out = dict(reductions[0])
+    for k in _SECONDS:
+        out[k] = max(r[k] for r in reductions)
+    out["span_device_s"] = {k: max(r["span_device_s"][k] for r in reductions)
+                            for k in out["span_device_s"]}
+    names = sorted({k for r in reductions for k in r["program_spans"]})
+    out["program_spans"] = {}
+    for k in names:
+        has = [r["program_spans"][k] for r in reductions
+               if k in r["program_spans"]]
+        base = reductions[0]["program_spans"].get(k, has[0])
+        out["program_spans"][k] = {
+            "count": base["count"],
+            "host_s": max(x["host_s"] for x in has),
+            "device_s": max(x["device_s"] for x in has)}
+    return out
